@@ -1,0 +1,68 @@
+"""The DiffAb model: context encoding + denoising
+(`diffab_pytorch_tpu/models/diffab.py`).
+
+Context-conditioning modes (generate_structure, generate_sequence):
+(True, True) codesign, (True, False) fix-sequence, (False, True)
+fix-structure, (False, False) everything visible.  A modality that is not
+generated is visible context for every valid residue.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from diffab_pytorch_tpu_torch.config import ModelConfig, resolve_device
+from diffab_pytorch_tpu_torch.data.batch import ProteinBatch
+from diffab_pytorch_tpu_torch.models.denoiser import Denoiser
+from diffab_pytorch_tpu_torch.models.embedding import PairEmbedding, ResidueEmbedding
+
+
+class DiffAbModel(nn.Module):
+    """Parameter names mirror the flax DiffAbModel tree, so a JAX parameter
+    tree loads by name (`weights.load_jax_params`)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.residue_context_embedding = ResidueEmbedding(cfg)
+        self.pair_context_embedding = PairEmbedding(cfg)
+        self.denoiser = Denoiser(cfg)
+        self.to(resolve_device(device))
+
+    def encode_context(self, batch: ProteinBatch, generate_structure: bool = True,
+                       generate_sequence: bool = True):
+        """(res_context_emb (b, L, d), pair_context_emb (b, L, L, d_pair)) from
+        the t0 features; t-independent."""
+        context_mask = batch.residue_mask & ~batch.generation_mask
+        structure_ctx = context_mask if generate_structure else batch.residue_mask
+        sequence_ctx = context_mask if generate_sequence else batch.residue_mask
+        res_emb = self.residue_context_embedding(
+            batch.seq_idx, batch.xyz, batch.orientations,
+            batch.backbone_dihedrals, batch.chain_idx, batch.atom_mask,
+            structure_context_mask=structure_ctx,
+            sequence_context_mask=sequence_ctx,
+            dihedrals_mask=batch.backbone_dihedrals_mask,
+        )
+        pair_emb = self.pair_context_embedding(
+            batch.seq_idx, batch.xyz, batch.pairwise_dihedrals,
+            batch.residue_idx, batch.chain_idx, batch.atom_mask,
+            structure_context_mask=structure_ctx,
+            sequence_context_mask=sequence_ctx,
+        )
+        return res_emb, pair_emb
+
+    def denoise(self, seq_idx_t, translations_t, orientations_t, res_context_emb,
+                pair_context_emb, beta, generation_mask, residue_mask,
+                pair_biases=None, kernel_weights=None):
+        """One denoising prediction at timestep t.  pair_biases: per-layer
+        precomputed bias logits; kernel_weights: per-layer packed fused-layer
+        weights (`denoiser.ipa.kernel_weights()`), both t-independent.
+        generation_mask is accepted for signature parity; the default model
+        (no self-conditioning) does not read it."""
+        del generation_mask
+        return self.denoiser(
+            seq_idx_t, translations_t, orientations_t, res_context_emb,
+            pair_context_emb, beta, residue_mask=residue_mask,
+            pair_biases=pair_biases, kernel_weights=kernel_weights,
+        )

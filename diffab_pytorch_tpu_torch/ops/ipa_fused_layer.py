@@ -1,0 +1,257 @@
+"""Fused IPA layer: the CUDA kernel's wrapper, its binding and its plain
+PyTorch version.
+
+Counterpart of `diffab_pytorch_tpu/ops/ipa_pallas.py fused_ipa_layer`
+(`_pallas_layer` -> `_layer_kernel_batched` / `_layer_kernel`).  One call
+computes a whole IPA layer without the pair term and the to_out bias row:
+Q/K/V projections, rigid frames, augmented-operand logits with the key
+mask riding the contraction, the per-target bias, a float32 softmax, the
+attention weights written in the compute dtype, the weighted sums, the
+inverse frames and point norms, and the W_s / W_p / W_n output
+projections.  Returns (acc (b, L, d), attn (b, h, L, L)).
+
+Weights enter in their native flax column orders; `pack_layer_weights`
+reorders the point columns (h, P, 3) -> (h, 3, P) and folds
+scale_scalar and g = sqrt(0.5 * scale_point * gamma) into them, as the
+JAX wrapper does.  The sampler packs once per `sample()` call.
+
+On a CPU tensor the wrapper runs `fused_ipa_layer_packed_reference`; on a
+CUDA tensor it launches the kernel in `csrc/ipa_fused_layer.cu` or raises.
+The kernel is forward-only: asking for it under autograd raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from diffab_pytorch_tpu_torch.ops import _build
+
+_NEG_INF = -1e9
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class LayerKernelWeights(NamedTuple):
+    """One layer's kernel operands in the compute dtype.
+
+    w_qkv: (d, 3 h (ds + 3P)) = [wq | wk | wv], per block [scalar columns
+        (h, ds) | point columns (h, 3, P)], scale_scalar folded into the
+        q scalar columns and g into the q/k point columns;
+    w_out: (h (ds + 4P), d) = [W_s; W_p with rows (h, 3, P); W_n];
+    g: (h,) float32, sqrt(0.5 * scale_point * gamma)."""
+
+    w_qkv: torch.Tensor
+    w_out: torch.Tensor
+    g: torch.Tensor
+    n_head: int
+    d_scalar: int
+    n_point: int
+
+
+def pack_layer_weights(
+    w_qs, w_ks, w_vs, w_qp, w_kp, w_vp, w_os, w_op, w_on,
+    gamma, scale_scalar: float, scale_point: float, dtype: torch.dtype,
+) -> LayerKernelWeights:
+    """Reorder and pre-scale the native weights (ipa_pallas.py _pallas_layer,
+    the weight block): products are taken in the weights' own dtype, then
+    cast to `dtype`."""
+    d = w_qs.shape[0]
+    h = gamma.shape[0]
+    ds = w_qs.shape[1] // h
+    pq = w_qp.shape[1] // (h * 3)
+    pv = w_vp.shape[1] // (h * 3)
+    if pq != pv:
+        raise ValueError("fused layer kernel assumes equal q/v point counts")
+    g = torch.sqrt(0.5 * scale_point * gamma.float())
+
+    def reorder(w, n):  # columns (h, n, 3) -> (h, 3, n)
+        return w.reshape(d, h, n, 3).transpose(2, 3).reshape(d, h * 3 * n)
+
+    def scale_heads(w, n):
+        return (w.reshape(d, h, 3 * n) * g.to(w.dtype)[None, :, None]).reshape(d, h * 3 * n)
+
+    wq = torch.cat([w_qs * torch.tensor(scale_scalar, dtype=w_qs.dtype),
+                    scale_heads(reorder(w_qp, pq), pq)], dim=1).to(dtype)
+    wk = torch.cat([w_ks, scale_heads(reorder(w_kp, pq), pq)], dim=1).to(dtype)
+    wv = torch.cat([w_vs, reorder(w_vp, pv)], dim=1).to(dtype)
+    w_op_r = w_op.reshape(h, pv, 3, d).transpose(1, 2).reshape(h * 3 * pv, d)
+    w_out = torch.cat([w_os.to(dtype), w_op_r.to(dtype), w_on.to(dtype)], dim=0)
+    return LayerKernelWeights(
+        w_qkv=torch.cat([wq, wk, wv], dim=1).contiguous(),
+        w_out=w_out.contiguous(), g=g.contiguous(),
+        n_head=h, d_scalar=ds, n_point=pq,
+    )
+
+
+def fused_ipa_layer_packed_reference(x, rot, trans, mask, wts: LayerKernelWeights,
+                                     bias, scale_total: float):
+    """Plain PyTorch version of the kernel: the same augmented-operand
+    expansion and the same rounding points (augmented operands, attention
+    weights and output-projection operands in the compute dtype; the rest
+    in float32).  Differentiable."""
+    f32 = torch.float32
+    dt = x.dtype
+    b, L, d = x.shape
+    h, ds, p = wts.n_head, wts.d_scalar, wts.n_point
+    bp = bias.shape[0]
+    n = b // bp
+    fq = h * (ds + 3 * p)
+    proj = (x.to(f32).reshape(b * L, d) @ wts.w_qkv.to(f32)).reshape(b, L, 3, fq)
+    R = rot.to(f32)  # (b, L, 3, 3), values in the compute dtype
+    trv = trans.to(f32)
+    trg = (trans[:, :, None, :] * wts.g.to(dt)[None, None, :, None]).to(f32)
+
+    def split(part, t):
+        pr = proj[:, :, part]
+        sc = pr[..., : h * ds].reshape(b, L, h, ds)
+        pt = pr[..., h * ds:].reshape(b, L, h, 3, p)
+        # frames: out_c = sum_i pt_i R[i, c] + t_c
+        pg = (pt[:, :, :, 0:1] * R[:, :, None, 0, :, None]
+              + pt[:, :, :, 1:2] * R[:, :, None, 1, :, None]
+              + pt[:, :, :, 2:3] * R[:, :, None, 2, :, None]) + t[..., None]
+        return sc, pg  # (b, L, h, ds), (b, L, h, 3, P)
+
+    qs, qg = split(0, trg)
+    ks, kg = split(1, trg)
+    vs, vg = split(2, trv[:, :, None, :])
+    q_sq = (qg * qg).sum(dim=(-2, -1))[..., None]
+    k_sq = (kg * kg).sum(dim=(-2, -1))[..., None]
+    ones = torch.ones_like(q_sq)
+    nk = ((mask.to(f32) - 1.0) * (-_NEG_INF / float(scale_total))).to(dt).to(f32)
+    nk = nk[:, :, None, None].expand(b, L, h, 1)
+    q_aug = torch.cat([qs, 2.0 * qg.reshape(b, L, h, 3 * p), -q_sq, -ones, ones],
+                      dim=-1).to(dt).to(f32)
+    k_aug = torch.cat([ks, kg.reshape(b, L, h, 3 * p), ones, k_sq, nk],
+                      dim=-1).to(dt).to(f32)
+    logit = torch.einsum("bihf,bjhf->bhij", q_aug, k_aug)
+    logit = logit.reshape(bp, n, h, L, L) + bias.to(f32)[:, None]
+    attn = torch.softmax(logit.reshape(b, h, L, L) * scale_total, dim=-1)
+    at = attn.to(dt)
+    atf = at.to(f32)
+    os_ = torch.einsum("bhij,bjhd->bihd", atf, vs.to(dt).to(f32))
+    og = torch.einsum("bhij,bjhcp->bihcp", atf, vg.to(dt).to(f32))
+    dd = og - trv[:, :, None, :, None]
+    # inverse frames: loc_c = sum_k dd_k R[c, k]
+    loc = (dd[:, :, :, None, 0] * R[:, :, None, :, 0, None]
+           + dd[:, :, :, None, 1] * R[:, :, None, :, 1, None]
+           + dd[:, :, :, None, 2] * R[:, :, None, :, 2, None])  # (b, L, h, 3, P)
+    nrm = torch.sqrt((loc * loc).sum(dim=-2) + 1e-8)  # (b, L, h, P)
+    feat = torch.cat([os_.reshape(b, L, h * ds), loc.reshape(b, L, h * 3 * p),
+                      nrm.reshape(b, L, h * p)], dim=-1).to(dt).to(f32)
+    acc = (feat @ wts.w_out.to(f32)).to(dt)
+    return acc, at
+
+
+def _check(x, rot, trans, mask, wts, bias):
+    b, L, d = x.shape
+    h, ds, p = wts.n_head, wts.d_scalar, wts.n_point
+    dt = x.dtype
+    if dt not in _DTYPE_CODE:
+        raise TypeError(f"unsupported compute dtype {dt}")
+    expect = {
+        "rot": (rot, (b, L, 3, 3), dt), "trans": (trans, (b, L, 3), dt),
+        "mask": (mask, (b, L), dt),
+        "w_qkv": (wts.w_qkv, (d, 3 * h * (ds + 3 * p)), dt),
+        "w_out": (wts.w_out, (h * (ds + 4 * p), d), dt),
+        "g": (wts.g, (h,), torch.float32),
+    }
+    for name, (t, shape, dtype) in expect.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {shape} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    bp = bias.shape[0]
+    if bias.dim() != 4 or tuple(bias.shape[1:]) != (h, L, L) or b % bp:
+        raise ValueError(f"bias: expected (bp, {h}, {L}, {L}) with b % bp == 0, "
+                         f"got {tuple(bias.shape)}")
+    if bias.dtype not in (torch.float32, dt):
+        raise TypeError(f"bias dtype {bias.dtype} is neither float32 nor {dt}")
+    tensors = (x, rot, trans, mask, wts.w_qkv, wts.w_out, wts.g, bias)
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {devices}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("fused IPA layer inputs must be contiguous")
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("ipa_fused_layer")
+    fn = lib.ipa_fused_layer_forward
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [i, i] + [p] * 12 + [i] * 7 + [f, f, p]
+        fn.restype = ctypes.c_int
+        lib.ipa_fused_layer_error_string.argtypes = [ctypes.c_int]
+        lib.ipa_fused_layer_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(x, rot, trans, mask, wts, bias, scale_total):
+    b, L, d = x.shape
+    h, ds, p = wts.n_head, wts.d_scalar, wts.n_point
+    if L > 128 or ds + 3 * p > 64:
+        raise ValueError(f"the kernel takes L <= 128 and ds + 3P <= 64, got L={L}, "
+                         f"ds + 3P = {ds + 3 * p}")
+    dev, dt = x.device, x.dtype
+    args = (x, rot, trans, mask, wts.w_qkv, wts.w_out, wts.g, bias)
+    proj = torch.empty((b * L, 3 * h * (ds + 3 * p)), dtype=torch.float32, device=dev)
+    feat = torch.empty((b * L, h * (ds + 4 * p)), dtype=dt, device=dev)
+    acc = torch.empty((b, L, d), dtype=dt, device=dev)
+    attn = torch.empty((b, h, L, L), dtype=dt, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ipa_fused_layer_forward(
+            _DTYPE_CODE[dt], _DTYPE_CODE[bias.dtype],
+            *(t.data_ptr() for t in args),
+            proj.data_ptr(), feat.data_ptr(), acc.data_ptr(), attn.data_ptr(),
+            b, bias.shape[0], L, d, h, ds, p,
+            float(scale_total), float(-_NEG_INF / float(scale_total)), stream,
+        )
+    if err:
+        msg = lib.ipa_fused_layer_error_string(err).decode()
+        raise RuntimeError(f"ipa_fused_layer kernel launch failed: {msg} ({err})")
+    return acc, attn
+
+
+def fused_ipa_layer_packed(x, rot, trans, mask, wts: LayerKernelWeights, bias,
+                           scale_total: float):
+    """The fused layer on pre-packed weights.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel (counted in `.launches`)."""
+    _check(x, rot, trans, mask, wts, bias)
+    if x.device.type == "cpu":
+        return fused_ipa_layer_packed_reference(x, rot, trans, mask, wts, bias,
+                                                scale_total)
+    if x.device.type != "cuda":
+        raise ValueError(f"no fused IPA layer for device {x.device}")
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, rot, trans, mask, wts.w_qkv, wts.w_out, wts.g, bias)
+    ):
+        raise RuntimeError("the fused IPA layer kernel is forward-only; run it "
+                           "under torch.no_grad()")
+    out = _launch(x, rot, trans, mask, wts, bias, scale_total)
+    fused_ipa_layer_packed.launches += 1
+    return out
+
+
+fused_ipa_layer_packed.launches = 0
+
+
+def fused_ipa_layer(x, rot, trans, mask,
+                    w_qs, w_ks, w_vs, w_qp, w_kp, w_vp, w_os, w_op, w_on,
+                    bias, gamma, scale_scalar, scale_point, scale_total):
+    """Signature and native weight orders of ipa_pallas.fused_ipa_layer."""
+    wts = pack_layer_weights(w_qs, w_ks, w_vs, w_qp, w_kp, w_vp, w_os, w_op,
+                             w_on, gamma, scale_scalar, scale_point, x.dtype)
+    return fused_ipa_layer_packed(x, rot, trans, mask, wts, bias, scale_total)
+
+
+def fused_ipa_layer_reference(x, rot, trans, mask,
+                              w_qs, w_ks, w_vs, w_qp, w_kp, w_vp, w_os, w_op, w_on,
+                              bias, gamma, scale_scalar, scale_point, scale_total):
+    """The plain version with the native signature."""
+    wts = pack_layer_weights(w_qs, w_ks, w_vs, w_qp, w_kp, w_vp, w_os, w_op,
+                             w_on, gamma, scale_scalar, scale_point, x.dtype)
+    return fused_ipa_layer_packed_reference(x, rot, trans, mask, wts, bias,
+                                            scale_total)
