@@ -7,24 +7,35 @@ Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit, torch and CUDA versions;
   2. build every kernel from csrc/ (nvcc, sm_90a) and print the build time;
   3. each kernel against its plain PyTorch version on the card, at tiny
-     shapes in float32 and at the main path's shapes in float32 and
-     bfloat16, with the tolerances stated below;
-  4. end-to-end check on a small input: sample() on the card (kernels)
+     shapes in float32 and at the main paths' shapes in float32 and
+     bfloat16, with the tolerances stated below; then each kernel's
+     autograd Function against autograd of its plain version (float32,
+     b=4, L=128);
+  4. end-to-end checks on small inputs: sample() on the card (kernels)
      against sample() on the CPU (plain versions) from one initial state
-     with the same injected noise;
-  5. the main path: CDR-H3 codesign sampling with default_config() in
-     bfloat16, 128 designs of one synthetic 128-residue target, T=100,
+     with the same injected noise, and one training loss with its
+     gradients on the card against the CPU with the same draws, each for
+     fuse_ipa_layer None (fused-layer kernel) and False (attention-core
+     kernel);
+  5. the sampling main path: CDR-H3 codesign sampling with default_config()
+     in bfloat16, 128 designs of one synthetic 128-residue target, T=100,
      seeded random weights; launch counts, output checks, designs/s and a
      profiler breakdown of one call;
-  6. per-launch kernel times against the plain version and the bound;
-  7. a `kernels` JSON line, the card line, and the final JSON line.
+  6. the training main path, once per flag: production_config() (bf16,
+     batch 32, L=128) from a seeded init on one synthetic batch, 3 warm-up
+     and 20 timed steps through fit(); launch counts, loss trajectory,
+     state checks, steps/s and samples/s, and a profile of one step;
+  7. per-launch kernel times against the plain version and the bound;
+  8. a `kernels` JSON line, the card line, and the final JSON line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -156,6 +167,143 @@ def check_layer(torch, name, args, bf16: bool):
     return max(d_attn.max().item(), d_acc.max().item())
 
 
+def attention_inputs(torch, b, bp, L, h, ds, p, dtype, bias_dtype, seed, n_masked):
+    """Random attention-core operands on the card, assembled from
+    projections and global-frame points of magnitude ~5 by the wrapper's
+    own `augmented_operands` in `dtype`; the last n_masked keys padded."""
+    from diffab_pytorch_tpu_torch.ops.ipa_attention import augmented_operands
+
+    g = torch.Generator().manual_seed(seed)
+    f = lambda *s: torch.randn(*s, generator=g)
+    mask = torch.ones(b, L)
+    mask[:, L - n_masked:] = 0.0
+    scales = (ds ** -0.5, (4.5 * p) ** -0.5, 3 ** -0.5)
+    proj = [f(b, L, h, ds) for _ in range(3)] + [f(b, L, h, p, 3) * 5 for _ in range(3)]
+    ops = augmented_operands(*(t.to(dtype) for t in proj), f(h).abs() + 0.5,
+                             mask.to(dtype), *scales)
+    return dict(q_aug=ops[0].cuda(), k_aug=ops[1].cuda(), v_s=ops[2].cuda(),
+                v_p=ops[3].cuda(), bias=f(bp, h, L, L).to(bias_dtype).cuda(),
+                scale_total=scales[2])
+
+
+def attention_flops_bytes(b, bp, L, h, ds, p, itemsize, bias_itemsize):
+    """Operations and compulsory bytes of one attention-core call."""
+    fv = ds + 3 * p
+    n_feat = -(-(fv + 3) // 16) * 16
+    flops = b * 2 * h * L * L * (n_feat + fv)
+    n_bytes = (b * h * L * (2 * n_feat + 2 * fv) * itemsize  # q_aug, k_aug, v in; outs
+               + b * h * L * L * itemsize  # attn out
+               + bp * h * L * L * bias_itemsize)  # bias
+    return flops, n_bytes
+
+
+def check_attention(torch, name, args, n_masked, bf16: bool):
+    """Attention-core kernel vs its plain version on the same card inputs;
+    returns the largest absolute error.  The tolerances are check_layer's:
+    float32 within 1e-4 (weights) and 1e-4 of the output scale; bfloat16 at
+    most 1e-4 of the elements beyond one bf16 step (2^-8 on weights, 2^-7
+    of the output scale), for the |k|^2 rounding flips check_layer
+    describes.  Padded keys must get exactly 0."""
+    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
+
+    out_k = k2.ipa_attention_core(**args)
+    out_p = k2.ipa_attention_core_reference(**args)
+    torch.cuda.synchronize()
+    worst, shares = 0.0, []
+    for label, k, r in zip(("out_s", "out_p", "attn"), out_k, out_p):
+        if not torch.isfinite(k).all():
+            raise RuntimeError(f"{name}: non-finite kernel {label}")
+        d = (k.float() - r.float()).abs()
+        scale = 1.0 if label == "attn" else max(1.0, r.float().abs().max().item())
+        tol = (2 ** -8 if label == "attn" else 2 ** -7 * scale) if bf16 else 1e-4 * scale
+        shares.append((d > tol).float().mean().item())
+        worst = max(worst, d.max().item())
+    allowed = 1e-4 if bf16 else 0.0
+    padded = out_k[2][..., -n_masked:].float().abs().max().item() if n_masked else 0.0
+    print(f"[parity] {name}: max|d| {worst:.3e}; share beyond tol (out_s / out_p / attn) "
+          f"{shares[0]:.2e} / {shares[1]:.2e} / {shares[2]:.2e} (allowed {allowed:.0e}); "
+          f"padded-key attn {padded:.1e}")
+    if max(shares) > allowed or padded != 0.0:
+        raise RuntimeError(f"{name}: kernel disagrees with its plain version")
+    return worst
+
+
+def check_grads(torch, name, kernel_fn, plain_fn, leaves, consts):
+    """Gradients of sum(out_i * c_i) over every output, through the
+    kernel's autograd Function and through autograd of its plain version,
+    on the same card inputs and cotangents.  The Function's backward
+    recomputes the plain version, so the two agree to float32 summation
+    order: each leaf within 1e-5 of its largest entry."""
+    runs = []
+    for fn in (kernel_fn, plain_fn):
+        xs = [t.detach().clone().requires_grad_(True) for t in leaves]
+        outs = fn(*xs, *consts)
+        if not runs:
+            g = torch.Generator(device="cuda").manual_seed(7)
+            cots = [torch.randn(o.shape, generator=g, device="cuda", dtype=o.dtype)
+                    for o in outs]
+        sum((o.float() * c.float()).sum() for o, c in zip(outs, cots)).backward()
+        runs.append([x.grad for x in xs])
+    torch.cuda.synchronize()
+    rel = max(((a - b).abs().max() / b.abs().max().clamp(min=1.0)).item()
+              for a, b in zip(*runs))
+    print(f"[grad] {name}: {len(leaves)} input gradients, max |d| / scale {rel:.2e} (tol 1e-5)")
+    if not all(torch.isfinite(a).all() for a in runs[0]) or rel > 1e-5:
+        raise RuntimeError(f"{name}: autograd Function disagrees with the plain version")
+
+
+class RecordingLogger:
+    """fit()'s logger: prints each logged step and keeps its scalars."""
+
+    def __init__(self, tag):
+        self.tag, self.rows = tag, []
+
+    def log(self, step, metrics):
+        row = {k: float(v) for k, v in metrics.items()}
+        self.rows.append((step, row))
+        print(f"[train] {self.tag} step {step}: loss {row['train/loss']:.4f} "
+              f"(seq {row['train/seq_loss']:.4f}, ce {row['train/seq_ce_loss']:.4f}, "
+              f"trans {row['train/translations_loss']:.4f}, "
+              f"orient {row['train/orientations_loss']:.4f})")
+
+
+def profile_device(torch, fn, wall_s, label, top=12):
+    """Device time by kernel over one call of fn (torch.profiler).  Only
+    device-side events (kernels, copies) are summed: the profiler also
+    attributes each kernel's time to the CPU op that launched it, and
+    counting those rows too would count the time twice."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof_wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    if busy_us > 0:
+        call_us = wall_s * 1e6
+        print(f"[profile] {label}: device busy {busy_us / 1e3:.1f} ms in "
+              f"{sum(r[2] for r in rows)} device events; median unprofiled call "
+              f"{call_us / 1e3:.1f} ms -> device idle share "
+              f"{max(0.0, 1 - busy_us / call_us):.3f} (profiled wall {prof_wall_us / 1e3:.1f} ms)")
+        for dev_us, key, count in rows[:top]:
+            print(f"[profile]   {dev_us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+    else:
+        print(f"[profile] {label}: device time not measured (profiler reported none)")
+
+
 def main() -> int:
     import torch
 
@@ -170,8 +318,11 @@ def main() -> int:
     from diffab_pytorch_tpu_torch.geometry.igso3 import AxisAngleNoise
     from diffab_pytorch_tpu_torch.models.diffab import DiffAbModel
     from diffab_pytorch_tpu_torch.ops import _build
+    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
     from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
     from diffab_pytorch_tpu_torch.sampling.sampler import StepNoise, sample
+    from diffab_pytorch_tpu_torch.train.harness import DiffAb
+    from diffab_pytorch_tpu_torch.train.trainer import fit
     from diffab_pytorch_tpu_torch.weights import init_parameters
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -190,6 +341,7 @@ def main() -> int:
 
     # ---- 3. kernel vs plain version ----------------------------------------
     main_shape = dict(L=L_MAIN, d=128, h=8, ds=32, p=8)
+    att_shape = dict(L=L_MAIN, h=8, ds=32, p=8)
     with torch.no_grad():
         check_layer(torch, "tiny f32 (b=2 bp=1 L=24 d=32 h=4 ds=8 p=4)",
                     layer_inputs(torch, 2, 1, 24, 32, 4, 8, 4, torch.float32,
@@ -206,13 +358,52 @@ def main() -> int:
                     layer_inputs(torch, 8, 2, **main_shape, dtype=torch.bfloat16,
                                  bias_dtype=torch.float32, seed=3, n_masked=0),
                     bf16=True)
+        err_bf16 = max(err_bf16, check_layer(
+            torch, "train bf16 (b=32 bp=32 L=128)",
+            layer_inputs(torch, 32, 32, **main_shape, dtype=torch.bfloat16,
+                         bias_dtype=torch.bfloat16, seed=5, n_masked=8), bf16=True))
 
-    # ---- 4. end to end on a small input: card vs CPU -------------------------
+        check_attention(torch, "K2 tiny f32 (b=2 bp=1 L=24 h=4 ds=8 p=4)",
+                        attention_inputs(torch, 2, 1, 24, 4, 8, 4, torch.float32,
+                                         torch.float32, 10, 5), 5, bf16=False)
+        k2_err_f32 = check_attention(
+            torch, "K2 main f32 (b=8 bp=2 L=128)",
+            attention_inputs(torch, 8, 2, **att_shape, dtype=torch.float32,
+                             bias_dtype=torch.float32, seed=11, n_masked=16), 16, bf16=False)
+        k2_err_bf16 = check_attention(
+            torch, "K2 train bf16 (b=32 bp=32 L=128)",
+            attention_inputs(torch, 32, 32, **att_shape, dtype=torch.bfloat16,
+                             bias_dtype=torch.bfloat16, seed=12, n_masked=8), 8, bf16=True)
+        k2_err_bf16 = max(k2_err_bf16, check_attention(
+            torch, "K2 sample bf16 (b=128 bp=1 L=128)",
+            attention_inputs(torch, 128, 1, **att_shape, dtype=torch.bfloat16,
+                             bias_dtype=torch.bfloat16, seed=13, n_masked=16), 16, bf16=True))
+        check_attention(torch, "K2 bf16 with f32 bias (b=8 bp=2 L=128)",
+                        attention_inputs(torch, 8, 2, **att_shape, dtype=torch.bfloat16,
+                                         bias_dtype=torch.float32, seed=14, n_masked=0), 0,
+                        bf16=True)
+
+    # autograd Functions (kernel forward, recomputed plain backward)
+    la = layer_inputs(torch, 4, 4, **main_shape, dtype=torch.float32,
+                      bias_dtype=torch.float32, seed=20, n_masked=8)
+    shape = (la["wts"].n_head, la["wts"].d_scalar, la["wts"].n_point)
+    layer_fn = lambda impl: (lambda x, wq, wo, g, bias, rot, trans, mask, st: impl(
+        x, rot, trans, mask, op.LayerKernelWeights(wq, wo, g, *shape), bias, st))
+    check_grads(torch, "K1 fused layer f32 (b=4 L=128)", layer_fn(op.fused_ipa_layer_packed),
+                layer_fn(op.fused_ipa_layer_packed_reference),
+                [la["x"], la["wts"].w_qkv, la["wts"].w_out, la["wts"].g, la["bias"]],
+                (la["rot"], la["trans"], la["mask"], la["scale_total"]))
+    aa = attention_inputs(torch, 4, 4, **att_shape, dtype=torch.float32,
+                          bias_dtype=torch.float32, seed=21, n_masked=8)
+    check_grads(torch, "K2 attention core f32 (b=4 L=128)", k2.ipa_attention_core,
+                k2.ipa_attention_core_reference,
+                [aa["q_aug"], aa["k_aug"], aa["v_s"], aa["v_p"], aa["bias"]],
+                (aa["scale_total"],))
+
+    # ---- 4. end to end on small inputs: card vs CPU ------------------------------
     tiny = C.tiny_config()
     gen_cpu = torch.Generator().manual_seed(0)
     cpu_model = init_parameters(DiffAbModel(tiny.model, device="cpu"), gen_cpu)
-    card_model = DiffAbModel(tiny.model, device="cuda")
-    card_model.load_state_dict(cpu_model.state_dict())
     s8 = cosine_variance_schedule(8, s=tiny.diffusion.s, beta_max=tiny.diffusion.beta_max)
     t8 = make_orientation_tables(s8)
     small = synthetic_batch(0, 1, 24, n_generate=6)
@@ -227,20 +418,61 @@ def main() -> int:
              for t in range(1, 9)}
     on = lambda dev: (lambda t: StepNoise(noise[t].gumbel.to(dev), noise[t].coord.to(dev),
                                           AxisAngleNoise(*(a.to(dev) for a in noise[t].orientation))))
-    out_cpu = sample(cpu_model, s8, t8, small, device="cpu", n_designs=n_small,
-                     initial_state=init, step_noise=on("cpu"))
-    out_card = sample(card_model, s8, t8, small, device="cuda", n_designs=n_small,
-                      initial_state=init, step_noise=on("cuda"))
-    torch.cuda.synchronize()
-    seq_same = torch.equal(out_card.seq_idx.cpu(), out_cpu.seq_idx)
-    d_x = (out_card.translations.cpu() - out_cpu.translations).abs().max().item()
-    d_r = (out_card.orientations.cpu() - out_cpu.orientations).abs().max().item()
-    print(f"[e2e-small] card vs CPU, tiny_config f32, T=8, 2 designs: sequences equal "
-          f"{seq_same}, max|d x| {d_x:.3e}, max|d R| {d_r:.3e} (tol 1e-3)")
-    if not seq_same or d_x > 1e-3 or d_r > 1e-3:
-        raise RuntimeError("sample() on the card disagrees with the CPU plain path")
+    for fuse in (None, False):
+        mcfg_small = dataclasses.replace(tiny.model, fuse_ipa_layer=fuse)
+        cpu_m = DiffAbModel(mcfg_small, device="cpu")
+        cpu_m.load_state_dict(cpu_model.state_dict())
+        card_m = DiffAbModel(mcfg_small, device="cuda")
+        card_m.load_state_dict(cpu_model.state_dict())
+        out_cpu = sample(cpu_m, s8, t8, small, device="cpu", n_designs=n_small,
+                         initial_state=init, step_noise=on("cpu"))
+        before = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+        out_card = sample(card_m, s8, t8, small, device="cuda", n_designs=n_small,
+                          initial_state=init, step_noise=on("cuda"))
+        torch.cuda.synchronize()
+        ran = (op.fused_ipa_layer_packed.launches - before[0],
+               k2.ipa_attention_core.launches - before[1])
+        per_call = tiny.model.n_ipa_layers * 8
+        want = (per_call, 0) if fuse is None else (0, per_call)
+        seq_same = torch.equal(out_card.seq_idx.cpu(), out_cpu.seq_idx)
+        d_x = (out_card.translations.cpu() - out_cpu.translations).abs().max().item()
+        d_r = (out_card.orientations.cpu() - out_cpu.orientations).abs().max().item()
+        print(f"[e2e-small] sample() card vs CPU, tiny_config f32 fuse_ipa_layer={fuse}, T=8, "
+              f"2 designs: sequences equal {seq_same}, max|d x| {d_x:.3e}, max|d R| "
+              f"{d_r:.3e} (tol 1e-3); launches K1 {ran[0]}, K2 {ran[1]} (expected "
+              f"{want[0]}, {want[1]})")
+        if not seq_same or d_x > 1e-3 or d_r > 1e-3 or ran != want:
+            raise RuntimeError("sample() on the card disagrees with the CPU plain path")
 
-    # ---- 5. main path -----------------------------------------------------------
+    # one training loss and its gradients: the kernels' forward and the
+    # recomputing backward on the card against the plain versions on the
+    # CPU; tolerance 1e-4 of the loss, 1e-3 of each gradient leaf's largest
+    # entry (the CPU parity tests' float32 tolerance against JAX)
+    tiny_train = dataclasses.replace(tiny, train=dataclasses.replace(tiny.train, mode_dropout=0.3))
+    tb = synthetic_batch(3, 4, 32, n_generate=8)
+    for fuse in (None, False):
+        tcfg = dataclasses.replace(tiny_train, model=dataclasses.replace(tiny.model,
+                                                                         fuse_ipa_layer=fuse))
+        h_cpu, h_card = DiffAb(tcfg, device="cpu"), DiffAb(tcfg, device="cuda")
+        draws = h_cpu.draw(tb, torch.Generator().manual_seed(4))
+        before = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+        l_cpu, _, g_cpu = h_cpu.loss_and_grads(h_cpu.init(0).params, tb, draws)
+        l_card, _, g_card = h_card.loss_and_grads(h_card.init(0).params, tb.to("cuda"),
+                                                  draws.to("cuda"))
+        torch.cuda.synchronize()
+        ran = (op.fused_ipa_layer_packed.launches - before[0],
+               k2.ipa_attention_core.launches - before[1])
+        d_loss = abs(l_card.item() - l_cpu.item())
+        rel = max(((g_card[k].cpu() - g).abs().max() / g.abs().max().clamp(min=1.0)).item()
+                  for k, g in g_cpu.items())
+        print(f"[e2e-train] loss and {len(g_cpu)} gradients card vs CPU, tiny_config f32 "
+              f"fuse_ipa_layer={fuse}: loss {l_card.item():.6f} vs {l_cpu.item():.6f}, "
+              f"max gradient |d| / scale {rel:.2e} (tol 1e-3); launches K1 {ran[0]}, K2 {ran[1]}")
+        want = (tiny.model.n_ipa_layers, 0) if fuse is None else (0, tiny.model.n_ipa_layers)
+        if d_loss > 1e-4 * max(1.0, abs(l_cpu.item())) or rel > 1e-3 or ran != want:
+            raise RuntimeError("a training step on the card disagrees with the CPU plain path")
+
+    # ---- 5. sampling main path ----------------------------------------------------
     cfg = C.default_config()
     mcfg = C.ModelConfig(compute_dtype="bfloat16")
     t0 = time.perf_counter()
@@ -261,7 +493,7 @@ def main() -> int:
     print(f"[main] warm-up sample() {time.perf_counter() - t0:.2f} s")
 
     n_calls = 3
-    op.fused_ipa_layer_packed.launches = 0
+    op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
     call_s = []
     for i in range(n_calls):
         torch.cuda.synchronize()
@@ -269,17 +501,17 @@ def main() -> int:
         out = run(11 + i)
         torch.cuda.synchronize()
         call_s.append(time.perf_counter() - t0)
-    launches = op.fused_ipa_layer_packed.launches
+    launches = {"sample": (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)}
     expected = n_calls * mcfg.n_ipa_layers * cfg.diffusion.T
     wall = sorted(call_s)[n_calls // 2]  # median call
     designs_per_s = N_DESIGNS / wall
     print(f"[main] {n_calls} x sample(n_designs={N_DESIGNS}, T={cfg.diffusion.T}): "
           f"{', '.join(f'{c:.4f}' for c in call_s)} s; median {designs_per_s:.2f} "
-          f"designs/s on {card}; ipa_fused_layer launches {launches} "
-          f"(expected {expected})")
-    if launches != expected:
-        raise RuntimeError(f"main path launched the fused layer {launches} times, "
-                           f"expected {expected}")
+          f"designs/s on {card}; ipa_fused_layer launches {launches['sample'][0]} "
+          f"(expected {expected}), ipa_attention launches {launches['sample'][1]} (expected 0)")
+    if launches["sample"] != (expected, 0):
+        raise RuntimeError(f"main path launched (fused layer, attention core) "
+                           f"{launches['sample']} times, expected ({expected}, 0)")
     bn = N_DESIGNS
     ctx = ~target.generation_mask[0]
     checks = {
@@ -298,36 +530,68 @@ def main() -> int:
     print(f"[main] output checks {checks}")
     if not all(checks.values()):
         raise RuntimeError(f"main path output check failed: {checks}")
+    profile_device(torch, lambda: run(20), wall, "one sample() call")
 
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(20)
+    # ---- 6. training main path: production_config(), both flags -------------------
+    pcfg = C.production_config()
+    pcfg = dataclasses.replace(pcfg, train=dataclasses.replace(pcfg.train, log_every=4))
+    pb = pcfg.train.batch_size
+    pool = [synthetic_batch(100, pb, L_MAIN, pcfg.model.n_atoms, device="cuda")]
+    n_warm, n_timed = 3, 20
+    train_rates = {}
+    for fuse in (None, False):
+        tag = "fused layer (K1)" if fuse is None else "attention core (K2)"
+        hcfg = dataclasses.replace(pcfg, model=dataclasses.replace(pcfg.model,
+                                                                   fuse_ipa_layer=fuse))
+        harness = DiffAb(hcfg)
+        init_params = {k: v.detach().clone() for k, v in harness.init(hcfg.train.seed).params.items()}
+        logger = RecordingLogger(tag)
+        t0 = time.perf_counter()
+        state = fit(harness, pool, max_steps=n_warm, logger=logger)
         torch.cuda.synchronize()
-    prof_wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((dev_us, ev.key, ev.count))
-    rows.sort(reverse=True)
-    busy_us = sum(r[0] for r in rows)
-    if busy_us > 0:
-        call_us = wall * 1e6
-        print(f"[profile] one sample() call: device busy {busy_us / 1e3:.1f} ms; "
-              f"median unprofiled call {call_us / 1e3:.1f} ms -> device idle share "
-              f"{max(0.0, 1 - busy_us / call_us):.3f} (profiled wall "
-              f"{prof_wall_us / 1e3:.1f} ms)")
-        for dev_us, key, count in rows[:12]:
-            print(f"[profile]   {dev_us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
-    else:
-        print("[profile] device time: not measured (profiler reported none)")
+        print(f"[train] {tag}: {n_warm} warm-up steps {time.perf_counter() - t0:.2f} s")
+        torch.cuda.reset_peak_memory_stats()
+        op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = fit(harness, pool, max_steps=n_warm + n_timed, logger=logger, state=state)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+        launches[f"train_fuse_{fuse}"] = counts
+        steps_per_s = n_timed / wall_s
+        train_rates[fuse] = steps_per_s
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[train] {tag}: {n_timed} steps of production_config() (bf16, batch {pb}, "
+              f"L={L_MAIN}) in {wall_s:.4f} s: {steps_per_s:.3f} steps/s, "
+              f"{steps_per_s * pb:.1f} samples/s on {card}; peak memory {peak_gb:.2f} GB")
+        n_layers = hcfg.model.n_ipa_layers
+        want = (n_layers * n_timed, 0) if fuse is None else (0, n_layers * n_timed)
+        print(f"[train] {tag}: launches ipa_fused_layer {counts[0]}, ipa_attention "
+              f"{counts[1]} (expected {want[0]}, {want[1]})")
+        losses = [row["train/loss"] for _, row in logger.rows]
+        moved = sum(not torch.equal(state.params[k].detach(), v) for k, v in init_params.items())
+        tchecks = {
+            "steps": state.step == n_warm + n_timed,
+            "losses_finite": bool(losses) and all(map(math.isfinite, losses)),
+            "params_finite": all(bool(torch.isfinite(v).all()) for v in state.params.values()),
+            "params_moved": moved >= 0.9 * len(init_params),
+            "ema_differs": any(not torch.equal(state.ema_params[k], state.params[k].detach())
+                               for k in init_params),
+            "launches": counts == want,
+        }
+        print(f"[train] {tag}: loss trajectory {[round(v, 4) for v in losses]}; "
+              f"{moved}/{len(init_params)} parameter tensors moved; checks {tchecks}")
+        if not all(tchecks.values()):
+            raise RuntimeError(f"training main path check failed: {tchecks}")
+        gen = torch.Generator(device="cuda").manual_seed(99)
+        step_state = state
+        def one_step():
+            nonlocal step_state
+            step_state, _ = harness.train_step(step_state, pool[0], harness.draw(pool[0], gen))
+        profile_device(torch, one_step, wall_s / n_timed, f"one training step, {tag}")
 
-    # ---- 6. per-launch time at the main shapes (b=128 designs, bp=1) -----------
+    # ---- 7. per-launch times ------------------------------------------------------
     with torch.no_grad():
         args = layer_inputs(torch, N_DESIGNS, 1, **main_shape, dtype=torch.bfloat16,
                             bias_dtype=torch.bfloat16, seed=4, n_masked=0)
@@ -335,6 +599,10 @@ def main() -> int:
         kernel_ms = cuda_time_ms(lambda: op.fused_ipa_layer_packed(**args), 20)
         plain_ms = cuda_time_ms(lambda: op.fused_ipa_layer_packed_reference(**args), 5)
         kernel_ms_2 = cuda_time_ms(lambda: op.fused_ipa_layer_packed(**args), 20)
+        targs = layer_inputs(torch, pb, pb, **main_shape, dtype=torch.bfloat16,
+                             bias_dtype=torch.bfloat16, seed=6, n_masked=0)
+        k1_train_ms = cuda_time_ms(lambda: op.fused_ipa_layer_packed(**targs), 20)
+        k1_train_plain_ms = cuda_time_ms(lambda: op.fused_ipa_layer_packed_reference(**targs), 5)
     flops, n_bytes = ipa_layer_flops_bytes(N_DESIGNS, 1, **main_shape, itemsize=2,
                                            bias_itemsize=2)
     t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"] * 1e3, n_bytes / PEAK_BYTES * 1e3
@@ -344,15 +612,41 @@ def main() -> int:
           f"{kernel_ms_2:.4f} ms, plain version {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({flops / 1e9:.2f} GFLOP -> {t_ops:.4f} ms, {n_bytes / 1e6:.2f} MB -> "
           f"{t_bytes:.4f} ms; bound by {bound_by}), {bound_ms / kernel_ms:.3%} of bound")
+    f1t, b1t = ipa_layer_flops_bytes(pb, pb, **main_shape, itemsize=2, bias_itemsize=2)
+    k1_train_bound = max(f1t / PEAK_FLOPS["bfloat16"], b1t / PEAK_BYTES) * 1e3
+    print(f"[time] ipa_fused_layer b={pb} bp={pb} L=128 bf16 (training shape) on {card}: "
+          f"kernel {k1_train_ms:.4f} ms, plain version {k1_train_plain_ms:.4f} ms, bound "
+          f"{k1_train_bound:.4f} ms ({f1t / 1e9:.2f} GFLOP, {b1t / 1e6:.2f} MB), "
+          f"{k1_train_bound / k1_train_ms:.3%} of bound")
 
-    # ---- 7. records ---------------------------------------------------------------
+    k2_times = {}
+    for label, b, bp in (("train", pb, pb), ("sample", N_DESIGNS, 1)):
+        with torch.no_grad():
+            aargs = attention_inputs(torch, b, bp, **att_shape, dtype=torch.bfloat16,
+                                     bias_dtype=torch.bfloat16, seed=30 + b, n_masked=0)
+            km = cuda_time_ms(lambda: k2.ipa_attention_core(**aargs), 20)
+            pm = cuda_time_ms(lambda: k2.ipa_attention_core_reference(**aargs), 5)
+            km2 = cuda_time_ms(lambda: k2.ipa_attention_core(**aargs), 20)
+        fl, nb = attention_flops_bytes(b, bp, **att_shape, itemsize=2, bias_itemsize=2)
+        t_o, t_b = fl / PEAK_FLOPS["bfloat16"] * 1e3, nb / PEAK_BYTES * 1e3
+        bnd = max(t_o, t_b)
+        k2_times[label] = dict(ms=min(km, km2), plain_ms=pm, bound_ms=bnd,
+                               bound_by="operations" if t_o >= t_b else "bytes")
+        print(f"[time] ipa_attention b={b} bp={bp} L=128 bf16 ({label} shape) on {card}: "
+              f"kernel {km:.4f} / {km2:.4f} ms, plain version {pm:.4f} ms, bound {bnd:.4f} ms "
+              f"({fl / 1e9:.2f} GFLOP -> {t_o:.4f} ms, {nb / 1e6:.2f} MB -> {t_b:.4f} ms; "
+              f"bound by {k2_times[label]['bound_by']}), {bnd / min(km, km2):.3%} of bound")
+
+    # ---- 8. records ---------------------------------------------------------------
+    by_path = lambda i: {path: c[i] for path, c in launches.items()}
     kernels = [{
         "name": "ipa_fused_layer",
         "route": "cuda",
         "source": "diffab_pytorch_tpu_torch/csrc/ipa_fused_layer.cu",
         "replaces": "diffab_pytorch_tpu/ops/ipa_pallas.py:519",
         "tpu_kernel": "ops/ipa_pallas.py:_layer_kernel_batched",
-        "launches": launches,
+        "launches": sum(by_path(0).values()),
+        "launches_by_path": by_path(0),
         "max_abs_err": max(err_f32, err_bf16),
         "max_err_f32": err_f32,
         "max_err_bf16": err_bf16,
@@ -361,9 +655,26 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "train_shape_ms": k1_train_ms,
+        "train_shape_bound_ms": k1_train_bound,
+    }, {
+        "name": "ipa_attention",
+        "route": "cuda",
+        "source": "diffab_pytorch_tpu_torch/csrc/ipa_attention.cu",
+        "replaces": "diffab_pytorch_tpu/ops/ipa_pallas.py:123",
+        "tpu_kernel": "ops/ipa_pallas.py:_kernel (via _pallas_raw)",
+        "launches": sum(by_path(1).values()),
+        "launches_by_path": by_path(1),
+        "max_abs_err": max(k2_err_f32, k2_err_bf16),
+        "max_err_f32": k2_err_f32,
+        "max_err_bf16": k2_err_bf16,
+        **k2_times["train"],
+        "library_ms": None,
+        "sample_shape": k2_times["sample"],
     }]
     print(json.dumps({"kernels": kernels}))
-    print(f"[main] designs/s {designs_per_s:.3f} (card: {card})")
+    print(f"[main] designs/s {designs_per_s:.3f}; training steps/s {train_rates[None]:.3f} "
+          f"(fused layer) / {train_rates[False]:.3f} (attention core) (card: {card})")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

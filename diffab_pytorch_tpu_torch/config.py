@@ -1,12 +1,12 @@
-"""Frozen dataclass configuration (model / diffusion / data).
+"""Frozen dataclass configuration (model / diffusion / data / training).
 
 Mirrors `diffab_pytorch_tpu/config.py` field for field where a field
-changes what the model computes; the defaults are the same.  The TPU
-layout knobs of the JAX config (`use_pallas_attention`,
+changes what the model or a training step computes; the defaults are the
+same.  The TPU layout knobs of the JAX config (`use_pallas_attention`,
 `onehot_pair_tables`, `split_pair_mlp0`, `fuse_pair_bias`, `remat_ipa`,
 `remat_pair`) are exact re-groupings of the same arithmetic for XLA and
-Mosaic and have no counterpart here.  Training options live with the
-training slice.
+Mosaic and have no counterpart here.  The self-conditioning schedule
+(`sc_*`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -45,7 +45,8 @@ class ModelConfig:
     n_pair_dihedral_funcs: int = 2
     # dtype of the matmuls and activations; parameters stay float32
     compute_dtype: str = "float32"
-    # False selects the attention-core kernel path (not ported yet)
+    # None/True: the fused IPA-layer kernel; False: projections in plain
+    # PyTorch and the attention-core kernel
     fuse_ipa_layer: bool | None = None
     # self-conditioning is not ported yet; True raises
     self_conditioning: bool = False
@@ -74,15 +75,70 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization configuration (`diffab_pytorch_tpu/config.py` TrainConfig,
+    without the self-conditioning schedule).
+
+    The update is the optax chain of the JAX harness: global-norm gradient
+    clip (grad_clip_norm > 0) -> Adam normalization (betas, adam_eps) ->
+    per-parameter update-RMS cap (update_clip_rms > 0) -> decoupled weight
+    decay -> learning rate (constant, linear warmup, or warmup + cosine
+    decay over lr_decay_steps, which include the warmup).  ema_decay > 0
+    keeps an exponential moving average of the parameters.  mode_dropout
+    = p presents a sample as fix-structure with probability p and as
+    fix-sequence with probability p (p <= 0.5)."""
+
+    batch_size: int = 16
+    epochs: int = 60
+    lr: float = 1e-4
+    weight_decay: float = 0.0
+    betas: Tuple[float, float] = (0.9, 0.999)
+    adam_eps: float = 1e-8
+    grad_clip_norm: float = 0.0
+    update_clip_rms: float = 0.0
+    ema_decay: float = 0.0
+    # weight of the cross-entropy on the predicted p(s_0) beside the KL
+    seq_ce_weight: float = 1.0
+    lr_warmup_steps: int = 0
+    lr_decay_steps: int = 0
+    lr_min_ratio: float = 0.0
+    mode_dropout: float = 0.0
+    seed: int = 42
+    val_pct: float = 0.1
+    log_every: int = 50
+    checkpoint_every: int = 1000
+    checkpoint_dir: str = "checkpoints"
+
+
+@dataclasses.dataclass(frozen=True)
 class DiffAbConfig:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     diffusion: DiffusionConfig = dataclasses.field(default_factory=DiffusionConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
 
 def default_config() -> DiffAbConfig:
     """The reference's full-size preset."""
     return DiffAbConfig()
+
+
+def production_config(steps: int = 12000, batch_size: int = 32,
+                      seed: int = 42) -> DiffAbConfig:
+    """The JAX package's measured-best training recipe: backbone-only pair
+    distances (dist_atoms=4), d_pair_emb=48, bfloat16 compute; lr 6e-4 under
+    warmup + cosine over `steps` (the real horizon), gradient-norm clip 1,
+    update-RMS cap 1, parameter EMA 0.999, mode dropout 0.15."""
+    return DiffAbConfig(
+        model=dataclasses.replace(ModelConfig(), dist_atoms=4, d_pair_emb=48,
+                                  compute_dtype="bfloat16"),
+        train=dataclasses.replace(
+            TrainConfig(), batch_size=batch_size, lr=6e-4,
+            lr_warmup_steps=min(100, steps // 10), lr_decay_steps=steps,
+            grad_clip_norm=1.0, update_clip_rms=1.0, ema_decay=0.999,
+            mode_dropout=0.15, seed=seed,
+        ),
+    )
 
 
 def tiny_config() -> DiffAbConfig:
@@ -97,6 +153,7 @@ def tiny_config() -> DiffAbConfig:
             n_value_point_per_head=4,
             n_head=4,
         ),
+        train=TrainConfig(batch_size=2),
     )
 
 

@@ -22,7 +22,8 @@
 //   1. the Q/K/V projections of all b*L residue rows, f32 out;
 //   2. attention_kernel: one block per (head, design) — frames, augmented
 //      operands, logits, softmax, the attn write, weighted sums, inverse
-//      frames and norms, per-head features in T;
+//      frames and norms, per-head features in T (logits through weighted
+//      sums are ipa::attention_rows, shared with ipa_attention.cu);
 //   3. the three output projections as one [W_s; W_p; W_n] product into acc.
 // The two products run on the tensor cores (WMMA, float accumulation) for
 // bfloat16 operands and on the CUDA cores for float32 ones.
@@ -47,27 +48,19 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "ipa_attention_core.cuh"
+
 #include <cmath>
 #include <type_traits>
 
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// v rounded to T and back: the value a cast to the compute dtype leaves
-template <typename T> __device__ __forceinline__ float round_t(float v) {
-  return to_f<T>(from_f<T>(v));
-}
+using ipa::from_f;
+using ipa::MAX_FV;
+using ipa::MAX_L;
+using ipa::RB;
+using ipa::round_t;
+using ipa::to_f;
 
 // ---------------------------------------------------------------------------
 // C[M, N] = A[M, K] @ B[K, N], row-major, f32 accumulation.  64x64 tiles,
@@ -223,9 +216,6 @@ cudaError_t launch_gemm(const T* A, const T* B, TOut* C, int M, int N, int K,
 // ---------------------------------------------------------------------------
 constexpr int ATT_THREADS = 512;
 constexpr int ATT_WARPS = ATT_THREADS / 32;
-constexpr int MAX_L = 128;
-constexpr int MAX_FV = 64;  // ds + 3 p: two value columns per lane
-constexpr int RB = 4;
 
 __host__ __device__ inline size_t attention_smem_floats(int L, int ds, int p) {
   const int FV = ds + 3 * p, FA = FV + 3;
@@ -327,71 +317,10 @@ attention_kernel(const float* __restrict__ proj,  // (b, L, 3 Fq)
   const TB* bias_h = bias + ((size_t)target * h + hh) * L * L;
   T* attn_h = attn + ((size_t)design * h + hh) * L * L;
   for (int i0 = warp * RB; i0 < L; i0 += ATT_WARPS * RB) {
-    float s[RB][MAX_L / 32];
-#pragma unroll
-    for (int r = 0; r < RB; ++r)
-#pragma unroll
-      for (int k = 0; k < MAX_L / 32; ++k) s[r][k] = 0.f;
-    for (int f = 0; f < FA; ++f) {
-      float q[RB];
-#pragma unroll
-      for (int r = 0; r < RB; ++r) q[r] = qa[(size_t)f * L + min(i0 + r, L - 1)];
-#pragma unroll
-      for (int k = 0; k < MAX_L / 32; ++k) {
-        const int j = lane + 32 * k;
-        const float kv = j < L ? ka[(size_t)f * L + j] : 0.f;
-#pragma unroll
-        for (int r = 0; r < RB; ++r) s[r][k] = fmaf(q[r], kv, s[r][k]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const int i = i0 + r;
-      if (i >= L) break;  // warp-uniform
-      float m = -INFINITY;
-#pragma unroll
-      for (int k = 0; k < MAX_L / 32; ++k) {
-        const int j = lane + 32 * k;
-        s[r][k] = j < L ? (s[r][k] + to_f<TB>(bias_h[(size_t)i * L + j])) * scale_total
-                        : -INFINITY;
-        m = fmaxf(m, s[r][k]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      float sum = 0.f;
-#pragma unroll
-      for (int k = 0; k < MAX_L / 32; ++k) {
-        s[r][k] = lane + 32 * k < L ? expf(s[r][k] - m) : 0.f;
-        sum += s[r][k];
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-#pragma unroll
-      for (int k = 0; k < MAX_L / 32; ++k) {
-        const int j = lane + 32 * k;
-        if (j < L) {
-          const T a = from_f<T>(s[r][k] / sum);
-          attn_h[(size_t)i * L + j] = a;
-          arow[r * L + j] = to_f<T>(a);
-        }
-      }
-    }
-    __syncwarp();
-    // weighted sums: lane owns value columns lane and lane + 32
     float o[RB][2];
-#pragma unroll
-    for (int r = 0; r < RB; ++r) o[r][0] = o[r][1] = 0.f;
+    ipa::attention_rows<T, TB>(qa, ka, FA, va, FV, bias_h, attn_h, L, scale_total, i0,
+                               lane, arow, o);
     const int c0 = lane, c1 = lane + 32;
-    for (int j = 0; j < L; ++j) {
-      const float v0 = c0 < FV ? va[(size_t)j * FV + c0] : 0.f;
-      const float v1 = c1 < FV ? va[(size_t)j * FV + c1] : 0.f;
-#pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        const float a = arow[r * L + j];
-        o[r][0] = fmaf(a, v0, o[r][0]);
-        o[r][1] = fmaf(a, v1, o[r][1]);
-      }
-    }
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
       if (c0 < FV) orow[r * FV + c0] = o[r][0];

@@ -1,7 +1,7 @@
-"""Gaussian (DDPM) diffusion on C-alpha translations, sampling side
+"""Gaussian (DDPM) diffusion on C-alpha translations
 (`diffab_pytorch_tpu/diffusion/coordinate.py`).
 
-Reverse step in the posterior-mean parameterization, with optional static
+Forward: x_t = sqrt(abar_t) x_0 + sqrt(1 - abar_t) eps.  Reverse step in the posterior-mean parameterization, with optional static
 thresholding of the implied x0 (`x0_clip`) and a noise temperature
 (`noise_scale`); the Gaussian noise can be injected.  Context residues
 pass through unchanged.
@@ -19,6 +19,25 @@ def _per_sample(x0_clip):
     if isinstance(x0_clip, torch.Tensor) and x0_clip.ndim == 1:
         return x0_clip[..., None, None]
     return x0_clip
+
+
+def diffuse_from_t0(
+    sched: DiffusionSchedule,
+    translations_t0: torch.Tensor,
+    t: torch.Tensor,
+    generation_mask: torch.Tensor,
+    generator: torch.Generator | None = None,
+    noise: torch.Tensor | None = None,
+):
+    """(x_t, eps): x_t ~ q(x_t | x_0) on generated positions, eps ~ N(0, I)
+    the noise (the training target); `noise` injects eps."""
+    a = sched.alpha_bar_sqrt[t][..., None, None]
+    b = sched.one_minus_alpha_bar_sqrt[t][..., None, None]
+    if noise is None:
+        noise = torch.randn(translations_t0.shape, generator=generator,
+                            dtype=translations_t0.dtype, device=translations_t0.device)
+    x_t = a * translations_t0 + b * noise
+    return torch.where(generation_mask[..., None], x_t, translations_t0), noise
 
 
 def posterior_mean_std(

@@ -1,5 +1,7 @@
-"""IGSO(3) diffusion on per-residue orientation frames, sampling side
+"""IGSO(3) diffusion on per-residue orientation frames
 (`diffab_pytorch_tpu/diffusion/orientation.py`).
+
+Forward: R_t = scale_rot(R_0, sqrt(abar_t)) @ IGSO3-noise(sqrt(1 - abar_t)).
 
 The IGSO(3) sigma table is sqrt(1 - abar_t) indexed by timestep, so the
 timestep is the sigma index.  Reverse step ("renoise", the DiffAb-paper
@@ -60,6 +62,21 @@ def _apply_forward_kernel(
     rotvec = igso3_lib.sample_axis_angle(tables.igso3, t, (n_residues,),
                                          generator=generator, noise=noise)
     return so3.compose(mean, so3.vector_to_rotation_matrix(noise_scale * rotvec))
+
+
+def diffuse_from_t0(
+    tables: OrientationDiffusionTables,
+    orientations_t0: torch.Tensor,
+    t: torch.Tensor,
+    generation_mask: torch.Tensor,
+    generator: torch.Generator | None = None,
+    noise: igso3_lib.AxisAngleNoise | None = None,
+) -> torch.Tensor:
+    """R_t ~ IGSO3(scale_rot(R_0, sqrt(abar_t)), sqrt(1 - abar_t)) on
+    generated positions; `noise` injects the axis-angle draw."""
+    r_t = _apply_forward_kernel(tables, orientations_t0, t, generator=generator,
+                                noise=noise)
+    return torch.where(generation_mask[..., None, None], r_t, orientations_t0)
 
 
 def reverse_step(

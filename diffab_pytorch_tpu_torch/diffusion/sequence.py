@@ -1,5 +1,6 @@
-"""Multinomial (D3PM uniform-noise) sequence diffusion, sampling side
-(`diffab_pytorch_tpu/diffusion/sequence.py`).
+"""Multinomial (D3PM uniform-noise) sequence diffusion
+(`diffab_pytorch_tpu/diffusion/sequence.py`): the forward process with its
+true posterior (the training target) and the reverse step.
 
 Positions outside `generation_mask` are clamped to the input sequence.
 The categorical draw is Gumbel-max; the Gumbel tensor can be injected.
@@ -37,6 +38,62 @@ def categorical_from_probs(
     return torch.argmax(logits + gumbel, dim=-1)
 
 
+def forward_prob_from_t0(
+    sched: DiffusionSchedule,
+    seq_idx_t0: torch.Tensor,
+    t: torch.Tensor,
+    generation_mask: torch.Tensor,
+    vocab_size: int = AA_VOCAB_SIZE,
+) -> torch.Tensor:
+    """q(s_t | s_0 = seq_idx_t0) = abar_t onehot(s_0) + (1 - abar_t)/K:
+    (b, L) -> (b, L, K), context clamped."""
+    abar = sched.alpha_bar[t][..., None, None]
+    onehot = F.one_hot(seq_idx_t0, vocab_size).to(sched.alpha_bar.dtype)
+    probs = abar * onehot + (1.0 - abar) / vocab_size
+    return _clamp_context(probs, seq_idx_t0, generation_mask)
+
+
+def posterior_single_step(
+    sched: DiffusionSchedule,
+    seq_idx_t: torch.Tensor,
+    seq_idx_t0: torch.Tensor,
+    t: torch.Tensor,
+    generation_mask: torch.Tensor,
+    vocab_size: int = AA_VOCAB_SIZE,
+) -> torch.Tensor:
+    """The true posterior q(s_{t-1} | s_t, s_0), normalized over the vocab,
+    in the ratio form the sampler's posterior uses."""
+    abar_prev = sched.alpha_bar[t - 1][..., None, None]
+    beta_ts = 1.0 - sched.alpha_bar[t][..., None, None] / abar_prev
+    onehot_t = F.one_hot(seq_idx_t, vocab_size).to(sched.beta.dtype)
+    p_single = (1.0 - beta_ts) * onehot_t + beta_ts / vocab_size
+    p_single = _clamp_context(p_single, seq_idx_t, generation_mask)
+    onehot_0 = F.one_hot(seq_idx_t0, vocab_size).to(sched.beta.dtype)
+    p_prior = abar_prev * onehot_0 + (1.0 - abar_prev) / vocab_size
+    p_prior = _clamp_context(p_prior, seq_idx_t, generation_mask)
+    p = p_single * p_prior
+    return p / torch.sum(p, dim=-1, keepdim=True)
+
+
+def diffuse_from_t0(
+    sched: DiffusionSchedule,
+    seq_idx_t0: torch.Tensor,
+    t: torch.Tensor,
+    generation_mask: torch.Tensor,
+    vocab_size: int = AA_VOCAB_SIZE,
+    generator: torch.Generator | None = None,
+    gumbel: torch.Tensor | None = None,
+):
+    """s_t ~ q(s_t | s_0) and the true posterior q(s_{t-1} | s_t, s_0), the
+    KL target in training.  `gumbel` (b, L, K) injects the draw."""
+    p = forward_prob_from_t0(sched, seq_idx_t0, t, generation_mask, vocab_size)
+    seq_idx_t = categorical_from_probs(p, generator, gumbel)
+    seq_idx_t = torch.where(generation_mask, seq_idx_t, seq_idx_t0)
+    posterior = posterior_single_step(sched, seq_idx_t, seq_idx_t0, t,
+                                      generation_mask, vocab_size)
+    return seq_idx_t, posterior
+
+
 def posterior_from_predicted_t0(
     sched: DiffusionSchedule,
     seq_idx_t: torch.Tensor,
@@ -60,6 +117,20 @@ def posterior_from_predicted_t0(
     p_prior = _clamp_context(p_prior, seq_idx_t, generation_mask)
     p = p_single * p_prior
     return p / torch.sum(p, dim=-1, keepdim=True)
+
+
+def log_posterior_from_predicted_t0(
+    sched: DiffusionSchedule,
+    seq_idx_t: torch.Tensor,
+    s0_probs: torch.Tensor,
+    t: torch.Tensor,
+    generation_mask: torch.Tensor,
+) -> torch.Tensor:
+    """log q(s_{t-1} | s_t, p_hat(s_0)), floored at 1e-12 before the log:
+    the training loss pushes the predicted p(s_0) through the same
+    transform the sampler draws from."""
+    p = posterior_from_predicted_t0(sched, seq_idx_t, s0_probs, t, generation_mask)
+    return torch.log(torch.clamp(p, min=1e-12))
 
 
 def reverse_step(

@@ -4,7 +4,9 @@
 Context-conditioning modes (generate_structure, generate_sequence):
 (True, True) codesign, (True, False) fix-sequence, (False, True)
 fix-structure, (False, False) everything visible.  A modality that is not
-generated is visible context for every valid residue.
+generated is visible context for every valid residue.  Training's mode
+dropout sets the same per sample through `structure_visible` /
+`sequence_visible` (b,).
 """
 
 from __future__ import annotations
@@ -31,12 +33,20 @@ class DiffAbModel(nn.Module):
         self.to(resolve_device(device))
 
     def encode_context(self, batch: ProteinBatch, generate_structure: bool = True,
-                       generate_sequence: bool = True):
+                       generate_sequence: bool = True, structure_visible=None,
+                       sequence_visible=None):
         """(res_context_emb (b, L, d), pair_context_emb (b, L, L, d_pair)) from
-        the t0 features; t-independent."""
+        the t0 features; t-independent.  structure_visible / sequence_visible
+        (b,) bool, where given, override the flags per sample."""
         context_mask = batch.residue_mask & ~batch.generation_mask
-        structure_ctx = context_mask if generate_structure else batch.residue_mask
-        sequence_ctx = context_mask if generate_sequence else batch.residue_mask
+
+        def ctx(flag, visible):
+            if visible is not None:
+                return torch.where(visible[:, None], batch.residue_mask, context_mask)
+            return context_mask if flag else batch.residue_mask
+
+        structure_ctx = ctx(generate_structure, structure_visible)
+        sequence_ctx = ctx(generate_sequence, sequence_visible)
         res_emb = self.residue_context_embedding(
             batch.seq_idx, batch.xyz, batch.orientations,
             batch.backbone_dihedrals, batch.chain_idx, batch.atom_mask,
@@ -66,3 +76,14 @@ class DiffAbModel(nn.Module):
             pair_context_emb, beta, residue_mask=residue_mask,
             pair_biases=pair_biases, kernel_weights=kernel_weights,
         )
+
+    def forward(self, batch: ProteinBatch, seq_idx_t, translations_t, orientations_t,
+                beta, generate_structure: bool = True, generate_sequence: bool = True,
+                structure_visible=None, sequence_visible=None):
+        """Encode the context, then denoise once (the training forward, JAX
+        `DiffAbModel.__call__`); the layers project their own pair biases."""
+        res_emb, pair_emb = self.encode_context(
+            batch, generate_structure, generate_sequence,
+            structure_visible=structure_visible, sequence_visible=sequence_visible)
+        return self.denoise(seq_idx_t, translations_t, orientations_t, res_emb, pair_emb,
+                            beta, batch.generation_mask, batch.residue_mask)

@@ -1,10 +1,18 @@
 """Invariant Point Attention (`diffab_pytorch_tpu/models/ipa.py`).
 
-The layer runs the fused path of the JAX package: one fused-layer call
-(`ops/ipa_fused_layer.py`) computes the projections, frames, attention and
-the scalar/point/norm output slices; the attended pair rows and their
-W_pair projection follow as plain matmuls, target-major before the
-design-major transpose, then the to_out bias row is added.
+The layer runs one of the JAX package's two kernel paths:
+
+- `fuse_ipa_layer` None or True (default): one fused-layer call
+  (`ops/ipa_fused_layer.py`, K1) computes the projections, frames,
+  attention and the scalar/point/norm output slices;
+- `fuse_ipa_layer=False`: one concatenated projection matmul and the
+  frames in plain PyTorch, the attention core (`ops/ipa_attention.py`, K2),
+  then the sliced W_s / W_p / W_n output projection after the inverse
+  frames and point norms.
+
+On both, the attended pair rows and their W_pair projection follow as
+plain matmuls, target-major before the design-major transpose, then the
+to_out bias row is added.
 
 Design fan-out: when the state batch b is n times the pair batch bp, rows
 [i n, (i+1) n) are n designs of target i sharing one pair tensor and one
@@ -19,6 +27,7 @@ import torch.nn.functional as F
 
 from diffab_pytorch_tpu_torch.config import ModelConfig
 from diffab_pytorch_tpu_torch.models.layers import Linear
+from diffab_pytorch_tpu_torch.ops.ipa_attention import fused_ipa_attention_raw
 from diffab_pytorch_tpu_torch.ops.ipa_fused_layer import (
     LayerKernelWeights,
     fused_ipa_layer_packed,
@@ -113,11 +122,6 @@ class InvariantPointAttentionLayer(nn.Module):
         residue_mask (b, L), pair_bias (bp, h, L, L) precomputed or None."""
         cfg = self.cfg
         dt = cfg.dtype
-        if cfg.fuse_ipa_layer is False and x.is_cuda:
-            raise NotImplementedError(
-                "fuse_ipa_layer=False needs the attention-core kernel, which "
-                "is not ported yet"
-            )
         b, L, _ = x.shape
         bp = pair.shape[0]
         if b % bp:
@@ -140,18 +144,47 @@ class InvariantPointAttentionLayer(nn.Module):
             pair_bias = self.to_pair_bias(pair.to(dt)).permute(0, 3, 1, 2)
         bias = pair_bias.to(dt).contiguous()
 
-        if kernel_weights is None:
-            kernel_weights = self.kernel_weights()
-        packed, W_pair, b_row = kernel_weights
-        acc, attn = fused_ipa_layer_packed(
-            x.contiguous(), rot.to(dt).contiguous(), trans.to(dt).contiguous(),
-            mask, packed, bias, self.scale_total,
-        )
+        rot, trans = rot.to(dt).contiguous(), trans.to(dt).contiguous()
+        if cfg.fuse_ipa_layer is False:
+            acc, attn, W_pair, b_row = self._attention_core_path(x, rot, trans, mask, bias)
+        else:
+            if kernel_weights is None:
+                kernel_weights = self.kernel_weights()
+            packed, W_pair, b_row = kernel_weights
+            acc, attn = fused_ipa_layer_packed(x.contiguous(), rot, trans, mask, packed,
+                                               bias, self.scale_total)
         # the pair term is projected to d while still target-major; the
         # design-major transpose then moves a (b, L, d) tensor
         op = _pair_rows(attn, pair.to(dt), n_designs) @ W_pair  # (bp, i, n, d)
         acc = acc + op.transpose(1, 2).reshape(b, L, -1)
         return acc + b_row
+
+    def _attention_core_path(self, x, rot, trans, mask, bias):
+        """JAX `models/ipa.py:283-300`: projections and frames, the
+        attention core, the sliced output projection.  Returns (acc without
+        the pair term and bias row, attn, W_pair, b_row)."""
+        cfg = self.cfg
+        dt, h, ds, dp = cfg.dtype, cfg.n_head, cfg.d_scalar_per_head, cfg.d_pair_emb
+        p = cfg.n_value_point_per_head
+        b, L, _ = x.shape
+        mods = (self.to_q_scalar, self.to_k_scalar, self.to_v_scalar,
+                self.to_q_point, self.to_k_point, self.to_v_point)
+        proj = x @ torch.cat([m.kernel(dt) for m in mods], dim=1)
+        q_s, k_s, v_s, q_p, k_p, v_p = torch.split(proj, [h * ds] * 3 + [h * p * 3] * 3, dim=-1)
+        q_s, k_s, v_s = (t.reshape(b, L, h, ds) for t in (q_s, k_s, v_s))
+        q_p, k_p, v_p = (frames_apply(t.reshape(b, L, h, p, 3), rot, trans)
+                         for t in (q_p, k_p, v_p))
+        gamma = F.softplus(self.gamma.to(dt))
+        out_s_t, attn, out_p = fused_ipa_attention_raw(
+            q_s, k_s, v_s, q_p, k_p, v_p, bias, gamma, mask,
+            self.scale_scalar, self.scale_point, self.scale_total)
+        W_s, W_pair, W_p, W_n = torch.split(
+            self.to_out.kernel(dt), [h * ds, h * dp, h * p * 3, h * p])
+        acc = out_s_t.reshape(b, h * ds, L).transpose(1, 2) @ W_s  # (b, L, d)
+        out_p = frames_apply_inverse(out_p, rot, trans)
+        nrm = torch.sqrt((out_p * out_p).sum(dim=-1) + 1e-8)
+        acc = acc + out_p.reshape(b, L, h * p * 3) @ W_p + nrm.reshape(b, L, h * p) @ W_n
+        return acc, attn, W_pair, self.to_out.bias.to(dt)
 
 
 class InvariantPointAttentionModule(nn.Module):
@@ -168,7 +201,11 @@ class InvariantPointAttentionModule(nn.Module):
     def layers(self) -> list[InvariantPointAttentionLayer]:
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.n_ipa_layers)]
 
-    def kernel_weights(self) -> list:
+    def kernel_weights(self) -> list | None:
+        """Every layer's packed fused-layer weights, or None when the
+        layers run the attention-core path (`fuse_ipa_layer=False`)."""
+        if self.cfg.fuse_ipa_layer is False:
+            return None
         return [ly.kernel_weights() for ly in self.layers]
 
     def forward(self, res_emb, pair_emb, rot, trans, residue_mask=None,

@@ -17,7 +17,12 @@ JAX wrapper does.  The sampler packs once per `sample()` call.
 
 On a CPU tensor the wrapper runs `fused_ipa_layer_packed_reference`; on a
 CUDA tensor it launches the kernel in `csrc/ipa_fused_layer.cu` or raises.
-The kernel is forward-only: asking for it under autograd raises.
+Under autograd the launch sits in a `torch.autograd.Function` whose
+backward differentiates the plain version on the saved inputs, as
+`_bwd_layer` differentiates `_layer_core_jnp`; the weights are packed
+outside it, so gradients reach the raw weights and gamma through
+`pack_layer_weights`.  Under `no_grad` (the sampler) the kernel launches
+directly and nothing is saved.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from diffab_pytorch_tpu_torch.ops import _build
+from diffab_pytorch_tpu_torch.ops._recompute import recompute_grads
 
 _NEG_INF = -1e9
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -212,27 +218,51 @@ def _launch(x, rot, trans, mask, wts, bias, scale_total):
     if err:
         msg = lib.ipa_fused_layer_error_string(err).decode()
         raise RuntimeError(f"ipa_fused_layer kernel launch failed: {msg} ({err})")
+    fused_ipa_layer_packed.launches += 1
     return acc, attn
+
+
+def _packed_reference(x, rot, trans, mask, w_qkv, w_out, g, bias, shape, scale_total):
+    h, ds, p = shape
+    wts = LayerKernelWeights(w_qkv, w_out, g, h, ds, p)
+    return fused_ipa_layer_packed_reference(x, rot, trans, mask, wts, bias, scale_total)
+
+
+class _FusedLayer(torch.autograd.Function):
+    """Forward: the kernel.  Backward: autograd of the plain version on the
+    saved inputs and packed weights."""
+
+    @staticmethod
+    def forward(ctx, x, rot, trans, mask, w_qkv, w_out, g, bias, shape, scale_total):
+        ctx.save_for_backward(x, rot, trans, mask, w_qkv, w_out, g, bias)
+        ctx.shape, ctx.scale_total = shape, scale_total
+        wts = LayerKernelWeights(w_qkv, w_out, g, *shape)
+        return _launch(x, rot, trans, mask, wts, bias, scale_total)
+
+    @staticmethod
+    def backward(ctx, g_acc, g_attn):
+        grads = recompute_grads(_packed_reference, ctx.saved_tensors,
+                                ctx.needs_input_grad[:8], (g_acc, g_attn),
+                                ctx.shape, ctx.scale_total)
+        return (*grads, None, None)
 
 
 def fused_ipa_layer_packed(x, rot, trans, mask, wts: LayerKernelWeights, bias,
                            scale_total: float):
     """The fused layer on pre-packed weights.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel (counted in `.launches`)."""
+    version; CUDA tensors launch the kernel (counted in `.launches`),
+    through the autograd Function when a gradient is wanted."""
     _check(x, rot, trans, mask, wts, bias)
     if x.device.type == "cpu":
         return fused_ipa_layer_packed_reference(x, rot, trans, mask, wts, bias,
                                                 scale_total)
     if x.device.type != "cuda":
         raise ValueError(f"no fused IPA layer for device {x.device}")
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x, rot, trans, mask, wts.w_qkv, wts.w_out, wts.g, bias)
-    ):
-        raise RuntimeError("the fused IPA layer kernel is forward-only; run it "
-                           "under torch.no_grad()")
-    out = _launch(x, rot, trans, mask, wts, bias, scale_total)
-    fused_ipa_layer_packed.launches += 1
-    return out
+    args = (x, rot, trans, mask, wts.w_qkv, wts.w_out, wts.g, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _FusedLayer.apply(*args, (wts.n_head, wts.d_scalar, wts.n_point),
+                                 float(scale_total))
+    return _launch(x, rot, trans, mask, wts, bias, scale_total)
 
 
 fused_ipa_layer_packed.launches = 0

@@ -1,4 +1,5 @@
-"""Parameters: transplant from a JAX parameter tree, and a seeded init.
+"""Parameters: transplant from a JAX parameter tree (and an optax
+optimizer state), and a seeded init.
 
 The port's module tree mirrors the flax tree name for name, so the map is
 by leaf name:
@@ -44,6 +45,23 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
             raise KeyError(f"unknown parameter leaf {'/'.join(path)}")
         state[".".join([*mods, name])] = torch.from_numpy(np.ascontiguousarray(a))
     return state
+
+
+def opt_state_from_jax(opt_state):
+    """The port's Adam state (`train.harness.OptState`) from an optax chain
+    state as the JAX harness builds it: a tuple holding one
+    ScaleByAdamState (count, mu, nu) among empty and schedule states, or
+    that state itself; arrays may be numpy.  mu and nu map by the same
+    names and transposes as `params_from_jax`."""
+    from diffab_pytorch_tpu_torch.train.harness import OptState
+
+    parts = opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,)
+    adam = [s for s in parts if all(hasattr(s, a) for a in ("count", "mu", "nu"))]
+    if len(adam) != 1:
+        raise ValueError(f"expected one Adam state (count, mu, nu) in the chain, found {len(adam)}")
+    (s,) = adam
+    return OptState(count=int(np.asarray(s.count)), mu=params_from_jax(s.mu),
+                    nu=params_from_jax(s.nu))
 
 
 def load_jax_params(model: nn.Module, tree) -> nn.Module:

@@ -196,9 +196,10 @@ def test_unported_options_raise(arrays, port_setup, option, value):
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, diffab_pytorch_tpu_torch.sampling.sampler, "
-            "diffab_pytorch_tpu_torch.weights; "
+            "diffab_pytorch_tpu_torch.weights, diffab_pytorch_tpu_torch.train.trainer, "
+            "diffab_pytorch_tpu_torch.train.checkpoint; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-            "or m == 'flax' or m.split('.')[0] == 'diffab_pytorch_tpu']; "
+            "or m.split('.')[0] in ('flax', 'optax', 'diffab_pytorch_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
