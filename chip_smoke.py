@@ -7,11 +7,13 @@ Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit, torch and CUDA versions;
   2. build every kernel from csrc/ (nvcc, sm_90a) and print the build time;
   3. each kernel against its plain PyTorch version on the card, at tiny
-     shapes in float32 and at the main paths' shapes in float32 and
-     bfloat16, with the tolerances stated below; then each kernel's
-     autograd Function against autograd of its plain version (float32,
-     b=4, L=128);
-  4. end-to-end checks on small inputs: sample() on the card (kernels)
+     shapes in float32 and bfloat16, at an L that is not a multiple of 16,
+     and at the main paths' shapes in float32 and bfloat16, with the
+     tolerances stated below; then each kernel's autograd Function against
+     autograd of its plain version (float32, b=4, L=128);
+  4. end-to-end checks: one default_config()-width bf16 denoiser forward
+     (6 layers, 8 designs of one L=128 target) on the card against the CPU
+     plain path; on small inputs, sample() on the card (kernels)
      against sample() on the CPU (plain versions) from one initial state
      with the same injected noise, and one training loss with its
      gradients on the card against the CPU with the same draws, each for
@@ -25,7 +27,9 @@ Phases (any failure raises and the script exits non-zero):
      batch 32, L=128) from a seeded init on one synthetic batch, 3 warm-up
      and 20 timed steps through fit(); launch counts, loss trajectory,
      state checks, steps/s and samples/s, and a profile of one step;
-  7. per-launch kernel times against the plain version and the bound;
+  7. per-launch kernel times against the plain version and the bound, and
+     K1's two bf16 launches timed apart with the card's idle time between
+     them (profiler);
   8. a `kernels` JSON line, the card line, and the final JSON line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
@@ -50,6 +54,16 @@ PEAK_BYTES = 3.35e12
 
 N_DESIGNS, L_MAIN, N_GENERATE = 128, 128, 8
 
+# K1's bf16 kernels (csrc/ipa_fused_layer_bf16.cuh), by profiler name
+K1_LAUNCHES = ("layer_heads_kernel", "out_proj_kernel")
+K1_DESIGN = ("bf16: two launches, products on the tensor cores (mma.sync m16n8k16 bf16->f32, "
+             "ldmatrix, cp.async). 1: one block of 8 warps per (head, design): the head's Q/K/V "
+             "projection kept on chip, frames and augmented operands in shared memory, each "
+             "warp's 16 x L logits and float32 softmax in registers, P [v_s|v_p] from register "
+             "fragments, inverse frames and norms, bf16 per-head features out. 2: the output "
+             "projection as a cp.async double-buffered tensor-core GEMM. float32: three "
+             "CUDA-core launches")
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -59,19 +73,67 @@ def card_line() -> str:
     return out[0]
 
 
-def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
+def cuda_time_ms(fn, iters: int, warmup: int = 2, queued: bool = True) -> float:
+    """Device time per call of fn over `iters` back-to-back calls (CUDA
+    events).  queued: the calls wait behind a ~10 ms sleep kernel, so the
+    time is the card's and not the host's launch rate; otherwise each call
+    starts when the host issues it (how the earlier K1 design was timed)."""
     import torch
 
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_timeline(torch, fn, iters, names):
+    """fn's device kernels over `iters` calls queued behind a sleep kernel
+    (torch.profiler, after one warm-up call), in ms: the time per launch of
+    each kernel whose name contains one of `names` (None where the profiler
+    saw none); per call, the number and summed time of all device events
+    and the card's idle time between them, by the name of the kernel that
+    ends each gap.  None where the profiler reported no device time.  The
+    profiler may miss the first or last calls' kernels, so "per call" is
+    per call it saw (the launches of names[0], reported as calls_seen)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(20_000_000)
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted(((ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA and ev.time_range.end > ev.time_range.start),
+                 key=lambda e: e[0])
+    first = next((i for i, e in enumerate(evs) if names[0] in e[2]), None)
+    if first is None:
+        return None
+    evs = evs[first:]  # from fn's first kernel on: the sleep kernel stays out
+    calls = sum(names[0] in e[2] for e in evs)
+    per = lambda us: us / 1e3 / calls
+    out = {}
+    for n in names:  # one launch of each per call: per launch of its own
+        mine = [e[1] - e[0] for e in evs if n in e[2]]
+        out[n] = sum(mine) / 1e3 / len(mine) if mine else None
+    idle = {}
+    for prev, cur in zip(evs, evs[1:]):
+        key = next((n for n in names if n in cur[2]), cur[2][:40])
+        idle[key] = idle.get(key, 0.0) + max(0.0, cur[0] - prev[1])
+    out.update(calls_seen=calls, events_per_call=len(evs) / calls,
+               kernels_ms=per(sum(e[1] - e[0] for e in evs)),
+               idle_before_ms={k: per(v) for k, v in idle.items()})
+    return out
 
 
 def layer_inputs(torch, b, bp, L, d, h, ds, p, dtype, bias_dtype, seed, n_masked):
@@ -82,17 +144,18 @@ def layer_inputs(torch, b, bp, L, d, h, ds, p, dtype, bias_dtype, seed, n_masked
 
     g = torch.Generator().manual_seed(seed)
     f = lambda *s: torch.randn(*s, generator=g)
-    w = lambda n_in, n_out: f(n_in, n_out) / n_in ** 0.5
+    w = lambda n_in, n_out: (f(n_in, n_out) / n_in ** 0.5).cuda()
     mask = torch.ones(b, L)
     mask[:, L - n_masked:] = 0.0
     scales = (ds ** -0.5, (4.5 * p) ** -0.5, 3 ** -0.5)
+    # packed on the card, as the models do: bf16 packs there carry the
+    # kernel's head-major copies
     wts = pack_layer_weights(
         w(d, h * ds), w(d, h * ds), w(d, h * ds),
         w(d, h * p * 3), w(d, h * p * 3), w(d, h * p * 3),
         w(h * ds, d), w(h * p * 3, d), w(h * p, d),
-        f(h).abs() + 0.5, scales[0], scales[1], dtype,
+        (f(h).abs() + 0.5).cuda(), scales[0], scales[1], dtype,
     )
-    wts = wts._replace(w_qkv=wts.w_qkv.cuda(), w_out=wts.w_out.cuda(), g=wts.g.cuda())
     args = dict(
         x=f(b, L, d).to(dtype).cuda(),
         rot=so3.uniform((b, L), generator=g).to(dtype).cuda(),
@@ -252,6 +315,76 @@ def check_grads(torch, name, kernel_fn, plain_fn, leaves, consts):
         raise RuntimeError(f"{name}: autograd Function disagrees with the plain version")
 
 
+def check_e2e_bf16(torch, n_designs=8, L=128, seed=0):
+    """One default_config()-width denoiser forward in bfloat16 (6 IPA
+    layers through K1, n_designs designs of one L-residue target, bp=1) on
+    the card against the CPU plain path with the same weights and inputs.
+
+    Tolerance: the two round at the same points but sum in other orders
+    (K1's tensor-core tiles, cuBLAS against the CPU's kernels), so wherever
+    a float32 sum lands on the other side of a bf16 rounding boundary the
+    two round apart, and over six layers and the heads such flips spread to
+    every output.  Each is a bf16 computation of the same function, about
+    as far from the exact result as bf16 rounding puts it; taking the CPU
+    float32 forward as exact, the triangle inequality bounds their distance
+    by twice that: for each output, the largest and the mean |card - CPU
+    bf16| must be at most 2x those of |CPU float32 - CPU bf16|.  A wrong
+    kernel misses by orders of magnitude.  K1 must launch once per layer."""
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
+    from diffab_pytorch_tpu_torch.geometry import so3
+    from diffab_pytorch_tpu_torch.models.diffab import DiffAbModel
+    from diffab_pytorch_tpu_torch.models.ipa import precompute_pair_biases
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+    from diffab_pytorch_tpu_torch.weights import init_parameters
+
+    mcfg = C.ModelConfig(compute_dtype="bfloat16")
+    cpu_bf16 = init_parameters(DiffAbModel(mcfg, device="cpu"), torch.Generator().manual_seed(seed))
+    models = {"card": DiffAbModel(mcfg, device="cuda"),
+              "cpu_f32": DiffAbModel(C.ModelConfig(), device="cpu"), "cpu_bf16": cpu_bf16}
+    for m in models.values():
+        m.load_state_dict(cpu_bf16.state_dict())
+    target = synthetic_batch(seed, 1, L, mcfg.n_atoms, n_generate=8)
+    g = torch.Generator().manual_seed(seed + 1)
+    rep = lambda a: torch.repeat_interleave(a, n_designs, dim=0)
+    state = (torch.randint(0, 21, (n_designs, L), generator=g),
+             rep(target.translations) + torch.randn(n_designs, L, 3, generator=g) * 2,
+             so3.uniform((n_designs, L), generator=g),
+             torch.rand(n_designs, generator=g) * 0.5 + 0.01,
+             rep(target.generation_mask), rep(target.residue_mask))
+    outs, launched = {}, 0
+    for name, model in models.items():
+        dev = "cuda" if name == "card" else "cpu"
+        before = op.fused_ipa_layer_packed.launches
+        with torch.no_grad():
+            res, pair = model.encode_context(target.to(dev))
+            ipa = model.denoiser.ipa
+            biases = [b.to(model.cfg.dtype) for b in precompute_pair_biases(ipa, pair)]
+            seq, x, r, beta, gen, rmask = (t.to(dev) for t in state)
+            out = model.denoise(seq, x, r, res, pair, beta, gen, rmask, pair_biases=biases,
+                                kernel_weights=ipa.kernel_weights())
+        outs[name] = {k: v.float().cpu() for k, v in out.items()}
+        if name == "card":
+            launched = op.fused_ipa_layer_packed.launches - before
+    ok = launched == mcfg.n_ipa_layers
+    for key in ("translations_eps", "orientations_t0", "seq_logits"):
+        ref = outs["cpu_bf16"][key]
+        d_card = (outs["card"][key] - ref).abs()
+        d_f32 = (outs["cpu_f32"][key] - ref).abs()
+        finite = bool(torch.isfinite(outs["card"][key]).all())
+        passed = (finite and d_card.max() <= 2 * d_f32.max()
+                  and d_card.mean() <= 2 * d_f32.mean())
+        ok = ok and passed
+        print(f"[e2e-bf16] denoiser forward, default_config() widths bf16, {n_designs} designs "
+              f"x L={L}: {key}: card vs CPU bf16 max|d| {d_card.max().item():.3e} mean "
+              f"{d_card.mean().item():.3e}; CPU f32 vs CPU bf16 max|d| {d_f32.max().item():.3e} "
+              f"mean {d_f32.mean().item():.3e} (tol: 2x these); "
+              f"{'ok' if passed else 'FAILED'}")
+    print(f"[e2e-bf16] K1 launches in the card forward {launched} (expected {mcfg.n_ipa_layers})")
+    if not ok:
+        raise RuntimeError("the bf16 denoiser forward on the card disagrees with the CPU plain path")
+
+
 class RecordingLogger:
     """fit()'s logger: prints each logged step and keeps its scalars."""
 
@@ -362,6 +495,14 @@ def main() -> int:
             torch, "train bf16 (b=32 bp=32 L=128)",
             layer_inputs(torch, 32, 32, **main_shape, dtype=torch.bfloat16,
                          bias_dtype=torch.bfloat16, seed=5, n_masked=8), bf16=True))
+        err_bf16 = max(err_bf16, check_layer(
+            torch, "tiny bf16 (b=2 bp=1 L=24 d=32 h=4 ds=8 p=4)",
+            layer_inputs(torch, 2, 1, 24, 32, 4, 8, 4, torch.bfloat16, torch.bfloat16, 7, 5),
+            bf16=True))
+        err_bf16 = max(err_bf16, check_layer(
+            torch, "bf16 L=77 with f32 bias (b=8 bp=2)",
+            layer_inputs(torch, 8, 2, 77, 128, 8, 32, 8, torch.bfloat16, torch.float32, 8, 9),
+            bf16=True))
 
         check_attention(torch, "K2 tiny f32 (b=2 bp=1 L=24 h=4 ds=8 p=4)",
                         attention_inputs(torch, 2, 1, 24, 4, 8, 4, torch.float32,
@@ -401,6 +542,7 @@ def main() -> int:
                 (aa["scale_total"],))
 
     # ---- 4. end to end on small inputs: card vs CPU ------------------------------
+    check_e2e_bf16(torch)
     tiny = C.tiny_config()
     gen_cpu = torch.Generator().manual_seed(0)
     cpu_model = init_parameters(DiffAbModel(tiny.model, device="cpu"), gen_cpu)
@@ -592,32 +734,47 @@ def main() -> int:
         profile_device(torch, one_step, wall_s / n_timed, f"one training step, {tag}")
 
     # ---- 7. per-launch times ------------------------------------------------------
-    with torch.no_grad():
-        args = layer_inputs(torch, N_DESIGNS, 1, **main_shape, dtype=torch.bfloat16,
-                            bias_dtype=torch.bfloat16, seed=4, n_masked=0)
-        err_bf16 = max(err_bf16, check_layer(torch, "main bf16 (b=128 bp=1 L=128)", args, bf16=True))
-        kernel_ms = cuda_time_ms(lambda: op.fused_ipa_layer_packed(**args), 20)
-        plain_ms = cuda_time_ms(lambda: op.fused_ipa_layer_packed_reference(**args), 5)
-        kernel_ms_2 = cuda_time_ms(lambda: op.fused_ipa_layer_packed(**args), 20)
-        targs = layer_inputs(torch, pb, pb, **main_shape, dtype=torch.bfloat16,
-                             bias_dtype=torch.bfloat16, seed=6, n_masked=0)
-        k1_train_ms = cuda_time_ms(lambda: op.fused_ipa_layer_packed(**targs), 20)
-        k1_train_plain_ms = cuda_time_ms(lambda: op.fused_ipa_layer_packed_reference(**targs), 5)
-    flops, n_bytes = ipa_layer_flops_bytes(N_DESIGNS, 1, **main_shape, itemsize=2,
-                                           bias_itemsize=2)
-    t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"] * 1e3, n_bytes / PEAK_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"[time] ipa_fused_layer b=128 L=128 bf16 on {card}: kernel {kernel_ms:.4f} / "
-          f"{kernel_ms_2:.4f} ms, plain version {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({flops / 1e9:.2f} GFLOP -> {t_ops:.4f} ms, {n_bytes / 1e6:.2f} MB -> "
-          f"{t_bytes:.4f} ms; bound by {bound_by}), {bound_ms / kernel_ms:.3%} of bound")
-    f1t, b1t = ipa_layer_flops_bytes(pb, pb, **main_shape, itemsize=2, bias_itemsize=2)
-    k1_train_bound = max(f1t / PEAK_FLOPS["bfloat16"], b1t / PEAK_BYTES) * 1e3
-    print(f"[time] ipa_fused_layer b={pb} bp={pb} L=128 bf16 (training shape) on {card}: "
-          f"kernel {k1_train_ms:.4f} ms, plain version {k1_train_plain_ms:.4f} ms, bound "
-          f"{k1_train_bound:.4f} ms ({f1t / 1e9:.2f} GFLOP, {b1t / 1e6:.2f} MB), "
-          f"{k1_train_bound / k1_train_ms:.3%} of bound")
+    k1_times = {}
+    for label, b, bp, seed in (("sample", N_DESIGNS, 1, 4), ("train", pb, pb, 6)):
+        with torch.no_grad():
+            a = layer_inputs(torch, b, bp, **main_shape, dtype=torch.bfloat16,
+                             bias_dtype=torch.bfloat16, seed=seed, n_masked=0)
+            if label == "sample":
+                err_bf16 = max(err_bf16, check_layer(torch, "main bf16 (b=128 bp=1 L=128)", a,
+                                                     bf16=True))
+            kern = lambda a=a: op.fused_ipa_layer_packed(**a)
+            km = cuda_time_ms(kern, 20)
+            pm = cuda_time_ms(lambda a=a: op.fused_ipa_layer_packed_reference(**a), 5)
+            km2 = cuda_time_ms(kern, 20)
+            host_paced = cuda_time_ms(kern, 20, queued=False)
+            tl = device_timeline(torch, kern, 20, K1_LAUNCHES)
+        fl, nb = ipa_layer_flops_bytes(b, bp, **main_shape, itemsize=2, bias_itemsize=2)
+        t_o, t_b = fl / PEAK_FLOPS["bfloat16"] * 1e3, nb / PEAK_BYTES * 1e3
+        bnd = max(t_o, t_b)
+        k1_times[label] = dict(ms=min(km, km2), plain_ms=pm, bound_ms=bnd,
+                               bound_by="operations" if t_o >= t_b else "bytes",
+                               host_paced_ms=host_paced,
+                               launch_ms=tl and {n: tl[n] for n in K1_LAUNCHES})
+        print(f"[time] ipa_fused_layer b={b} bp={bp} L=128 bf16 ({label} shape) on {card}: "
+              f"kernel {km:.4f} / {km2:.4f} ms (CUDA events, 20 calls queued behind a sleep), "
+              f"{host_paced:.4f} ms issued call by call from the host (the earlier design's "
+              f"method), "
+              f"plain version {pm:.4f} ms, bound {bnd:.4f} ms ({fl / 1e9:.2f} GFLOP -> "
+              f"{t_o:.4f} ms, {nb / 1e6:.2f} MB -> {t_b:.4f} ms; bound by "
+              f"{k1_times[label]['bound_by']}), {bnd / min(km, km2):.3%} of bound")
+        if tl is None:
+            print(f"[time] ipa_fused_layer {label} shape, its launches: not measured "
+                  f"(the profiler reported no device time)")
+            continue
+        print(f"[time] ipa_fused_layer {label} shape, profiler over 20 queued calls "
+              f"({tl['calls_seen']} seen): " + ", ".join(
+            f"{n} {'not measured' if tl[n] is None else f'{tl[n]:.4f} ms'}"
+            for n in K1_LAUNCHES)
+            + f"; {tl['events_per_call']:.2f} device events per call, {tl['kernels_ms']:.4f} ms "
+            f"in all; card idle between them per call: " + ", ".join(
+                f"before {k} {v:.4f} ms" for k, v in tl["idle_before_ms"].items()))
+    print("[earlier] ipa_fused_layer b=128 bp=1 L=128 bf16: 0.7938 ms per call with the earlier "
+          "CUDA-core design (PERF.md, K1 row; CUDA events, calls issued by the host)")
 
     k2_times = {}
     for label, b, bp in (("train", pb, pb), ("sample", N_DESIGNS, 1)):
@@ -650,13 +807,10 @@ def main() -> int:
         "max_abs_err": max(err_f32, err_bf16),
         "max_err_f32": err_f32,
         "max_err_bf16": err_bf16,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        **k1_times["sample"],
         "library_ms": None,
-        "train_shape_ms": k1_train_ms,
-        "train_shape_bound_ms": k1_train_bound,
+        "design": K1_DESIGN,
+        "train_shape": k1_times["train"],
     }, {
         "name": "ipa_attention",
         "route": "cuda",

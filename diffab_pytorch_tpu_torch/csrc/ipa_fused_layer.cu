@@ -18,40 +18,51 @@
 // attention weights and the output-projection operands are cast to the
 // compute dtype T, everything else stays in float.
 //
-// Three launches on the caller's stream, none of them a library call:
-//   1. the Q/K/V projections of all b*L residue rows, f32 out;
-//   2. attention_kernel: one block per (head, design) — frames, augmented
-//      operands, logits, softmax, the attn write, weighted sums, inverse
-//      frames and norms, per-head features in T (logits through weighted
-//      sums are ipa::attention_rows, shared with ipa_attention.cu);
-//   3. the three output projections as one [W_s; W_p; W_n] product into acc.
-// The two products run on the tensor cores (WMMA, float accumulation) for
-// bfloat16 operands and on the CUDA cores for float32 ones.
+// Two designs, split by dtype:
+//   bfloat16 (ipa_fused_layer_bf16.cuh): two launches, every product on the
+//     tensor cores (mma.sync bf16 -> f32), which gives exactly the rounding
+//     points above; the projections stay on chip and only the bf16 per-head
+//     features cross device memory between the launches.
+//   float32: three launches on the CUDA cores (the tensor cores would round
+//     to TF32, which the float32 checks do not accept):
+//     1. the Q/K/V projections of all b*L residue rows, f32 out;
+//     2. attention_kernel: one block per (head, design) — frames, augmented
+//        operands, logits, softmax, the attn write, weighted sums, inverse
+//        frames and norms, per-head features (logits through weighted sums
+//        are ipa::attention_rows, shared with ipa_attention.cu);
+//     3. the three output projections as one [W_s; W_p; W_n] product.
 //
 // What bounds it on this card: at the main sampling shapes (b=128, L=128,
 // d=128, h=8, ds=32, pq=pv=8) the layer is ~11.6 GFLOP and ~43 MB of
 // compulsory traffic, about 12 us at the H100's bf16 tensor-core peak and
 // 13 us at its HBM rate — balanced, so only tensor cores and on-chip reuse
-// reach the bound.  This first design keeps the attention core (logits,
-// softmax, weighted sums; a third of the FLOPs) on the CUDA cores, with each
-// warp taking four query rows at a time so that one shared-memory read of a
-// key or value operand feeds four rows, and stages the projections and the
-// per-head features through device-memory scratch (proj, feat: ~105 MB of
-// extra traffic per call at the main shapes).  Tensor-core
-// tiles for the attention core and keeping proj/feat on chip are later work.
+// reach the bound.  The bf16 design does both: one block per (head,
+// design) computes its projection from x and the head's weight columns
+// (read from L2 by the h blocks of a design), keeps the 16 x L logits of
+// each warp in registers, feeds the rounded weights to the second product
+// from registers, and writes only attn (compulsory) and the bf16 features
+// (16.8 MB at b=128, read back by the output GEMM).  It is bound by
+// latency inside each block, not by the tensor cores or the bytes (the
+// header says where the cycles go); mma.sync rather than wgmma, and the
+// feature round trip (a cluster reduction of the output projection would
+// remove it) are the other things it leaves on the table.  The float32
+// path keeps the first design: the attention core on the CUDA cores and the
+// projections staged through device memory.
 //
-// Limits: L <= 128, ds + 3 P <= 64, and the attention block's shared memory
-// (attention_smem_floats) within the 227 KB a block may use.
+// Limits: L <= 128, ds + 3 P <= 64 (both paths); for these every d and h
+// fit the shared memory a block may use (227 KB): at most ~167 KB for the
+// bf16 path (layer_dims) and ~190 KB for the float32 attention kernel
+// (attention_smem_floats).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "ipa_attention_core.cuh"
+#include "ipa_fused_layer_bf16.cuh"
 
 #include <cmath>
-#include <type_traits>
+#include <initializer_list>
 
 namespace {
 
@@ -119,83 +130,12 @@ gemm_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
   }
 }
 
-// ---------------------------------------------------------------------------
-// bfloat16 operands: the same product on the tensor cores (WMMA 16x16x16,
-// float accumulation).  64x64 block tiles, 32-deep K slices, four warps of
-// 32x32 each; the tile is staged through shared memory for the bounds-
-// checked, converting store.
-// ---------------------------------------------------------------------------
-constexpr int WBM = 64, WBN = 64, WBK = 32, WMMA_THREADS = 128;
-
-template <typename TOut>
-__global__ void __launch_bounds__(WMMA_THREADS)
-gemm_bf16_wmma_kernel(const __nv_bfloat16* __restrict__ A,
-                      const __nv_bfloat16* __restrict__ B, TOut* __restrict__ C,
-                      int M, int N, int K) {
-  using namespace nvcuda;
-  __shared__ __align__(32) __nv_bfloat16 As[WBM][WBK + 8];
-  __shared__ __align__(32) __nv_bfloat16 Bs[WBK][WBN + 8];
-  __shared__ __align__(32) float Cs[WBM][WBN + 4];
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wr = (warp / 2) * 32, wc = (warp % 2) * 32;
-  const int row0 = blockIdx.y * WBM, col0 = blockIdx.x * WBN;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += WBK) {
-    for (int e = tid; e < WBM * WBK; e += WMMA_THREADS) {
-      const int r = e / WBK, kk = e % WBK, gr = row0 + r, gk = k0 + kk;
-      As[r][kk] = (gr < M && gk < K) ? A[(size_t)gr * K + gk] : zero;
-    }
-    for (int e = tid; e < WBK * WBN; e += WMMA_THREADS) {
-      const int kk = e / WBN, c = e % WBN, gk = k0 + kk, gc = col0 + c;
-      Bs[kk][c] = (gk < K && gc < N) ? B[(size_t)gk * N + gc] : zero;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < WBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], &As[wr + 16 * i][kk], WBK + 8);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(bf[j], &Bs[kk][wc + 16 * j], WBN + 8);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], bf[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wr + 16 * i][wc + 16 * j], acc[i][j], WBN + 4,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < WBM * WBN; e += WMMA_THREADS) {
-    const int r = e / WBN, c = e % WBN, gr = row0 + r, gc = col0 + c;
-    if (gr < M && gc < N) C[(size_t)gr * N + gc] = from_f<TOut>(Cs[r][c]);
-  }
-}
-
-// C = A @ B on the caller's stream: tensor cores for bfloat16 operands,
-// CUDA cores for float32 ones (which must stay float32-exact per product).
+// C = A @ B on the caller's stream (the float32 path: float32-exact products)
 template <typename T, typename TOut>
 cudaError_t launch_gemm(const T* A, const T* B, TOut* C, int M, int N, int K,
                         cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    gemm_bf16_wmma_kernel<TOut><<<dim3((N + WBN - 1) / WBN, (M + WBM - 1) / WBM),
-                                  WMMA_THREADS, 0, stream>>>(A, B, C, M, N, K);
-  } else {
-    gemm_kernel<T, TOut><<<dim3((N + GBN - 1) / GBN, (M + GBM - 1) / GBM),
-                           GEMM_THREADS, 0, stream>>>(A, B, C, M, N, K);
-  }
+  gemm_kernel<T, TOut><<<dim3((N + GBN - 1) / GBN, (M + GBM - 1) / GBM), GEMM_THREADS, 0,
+                         stream>>>(A, B, C, M, N, K);
   return cudaGetLastError();
 }
 
@@ -352,12 +292,12 @@ attention_kernel(const float* __restrict__ proj,  // (b, L, 3 Fq)
   }
 }
 
-template <typename T, typename TB>
-int run(const void* x, const void* rot, const void* trans, const void* mask,
-        const void* w_qkv, const void* w_out, const float* g, const void* bias,
-        float* proj, void* feat, void* acc, void* attn, int b, int bp, int L,
-        int d, int h, int ds, int p, float scale_total, float nk_scale,
-        cudaStream_t stream) {
+int run_f32(const void* x, const void* rot, const void* trans, const void* mask,
+            const void* w_qkv, const void* w_out, const float* g, const void* bias,
+            float* proj, void* feat, void* acc, void* attn, int b, int bp, int L, int d,
+            int h, int ds, int p, float scale_total, float nk_scale, cudaStream_t stream) {
+  using T = float;
+  using TB = float;
   const int M = b * L, Fq = h * (ds + 3 * p), FEAT = h * (ds + 4 * p);
   cudaError_t err = launch_gemm<T, float>(static_cast<const T*>(x),
                                           static_cast<const T*>(w_qkv), proj, M,
@@ -381,34 +321,76 @@ int run(const void* x, const void* rot, const void* trans, const void* mask,
                            static_cast<T*>(acc), M, d, FEAT, stream);
 }
 
+template <typename TB>
+int run_bf16(const void* x, const void* rot, const void* trans, const void* mask,
+             const void* w_qkv_heads, const void* w_out_heads, const float* g,
+             const void* bias, void* feat, void* acc, void* attn, int b, int bp, int L,
+             int d, int h, int ds, int p, float scale_total, float nk_scale,
+             cudaStream_t stream) {
+  using tc::bf16;
+  const tc::Dims D = tc::layer_dims(L, d, h, ds, p);
+  cudaError_t err = cudaFuncSetAttribute(tc::layer_heads_kernel<TB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, D.total);
+  if (err != cudaSuccess) return err;
+  const int x_vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  tc::layer_heads_kernel<TB><<<dim3(h, b), tc::THREADS, D.total, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(rot),
+      static_cast<const bf16*>(trans), static_cast<const bf16*>(mask),
+      static_cast<const bf16*>(w_qkv_heads), g, static_cast<const TB*>(bias),
+      static_cast<bf16*>(feat), static_cast<bf16*>(attn), D, b / bp, scale_total, nk_scale,
+      x_vec);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const int M = b * L, NP = tc::round_up(d, 8);
+  tc::out_proj_kernel<<<dim3((NP + tc::GN - 1) / tc::GN, (M + tc::GM - 1) / tc::GM),
+                        tc::G_THREADS, 0, stream>>>(
+      static_cast<const bf16*>(feat), static_cast<const bf16*>(w_out_heads),
+      static_cast<bf16*>(acc), M, d, NP, h * D.FH);
+  return cudaGetLastError();
+}
+
+bool shape_ok(int b, int bp, int L, int d, int h, int ds, int p) {
+  return L >= 1 && L <= MAX_L && bp >= 1 && b % bp == 0 && d >= 1 && h >= 1 && ds >= 1 &&
+         p >= 1 && ds + 3 * p <= MAX_FV;
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype / bias_dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t
-// (0 on success); cudaErrorInvalidValue for shapes the kernel does not take.
-int ipa_fused_layer_forward(int dtype, int bias_dtype, const void* x,
-                            const void* rot, const void* trans, const void* mask,
-                            const void* w_qkv, const void* w_out, const float* g,
-                            const void* bias, float* proj, void* feat, void* acc,
-                            void* attn, int b, int bp, int L, int d, int h, int ds,
+// The float32 layer.  Returns a cudaError_t (0 on success);
+// cudaErrorInvalidValue for shapes the kernel does not take.
+int ipa_fused_layer_forward(const void* x, const void* rot, const void* trans,
+                            const void* mask, const void* w_qkv, const void* w_out,
+                            const float* g, const void* bias, float* proj, void* feat,
+                            void* acc, void* attn, int b, int bp, int L, int d, int h, int ds,
                             int p, float scale_total, float nk_scale, void* stream) {
-  if (L < 1 || L > MAX_L || bp < 1 || b % bp != 0 || h < 1 || ds < 1 || p < 1 ||
-      ds + 3 * p > MAX_FV)
-    return cudaErrorInvalidValue;
+  if (!shape_ok(b, bp, L, d, h, ds, p)) return cudaErrorInvalidValue;
   if (attention_smem_floats(L, ds, p) * sizeof(float) > 232448) return cudaErrorInvalidValue;
+  return run_f32(x, rot, trans, mask, w_qkv, w_out, g, bias, proj, feat, acc, attn, b, bp, L,
+                 d, h, ds, p, scale_total, nk_scale, static_cast<cudaStream_t>(stream));
+}
+
+// The bfloat16 layer on the head-major weights; bias_dtype 0 = float32,
+// 1 = bfloat16.  feat is (b L, h FH) bf16 scratch.
+int ipa_fused_layer_forward_bf16(int bias_dtype, const void* x, const void* rot,
+                                 const void* trans, const void* mask, const void* w_qkv_heads,
+                                 const void* w_out_heads, const float* g, const void* bias,
+                                 void* feat, void* acc, void* attn, int b, int bp, int L, int d,
+                                 int h, int ds, int p, float scale_total, float nk_scale,
+                                 void* stream) {
+  if (!shape_ok(b, bp, L, d, h, ds, p)) return cudaErrorInvalidValue;
+  if (tc::layer_dims(L, d, h, ds, p).total > 232448) return cudaErrorInvalidValue;
+  for (const void* t : {w_qkv_heads, w_out_heads, static_cast<const void*>(feat)})
+    if (reinterpret_cast<uintptr_t>(t) % 16) return cudaErrorMisalignedAddress;  // cp.async
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && bias_dtype == 0)
-    return run<float, float>(x, rot, trans, mask, w_qkv, w_out, g, bias, proj, feat,
-                             acc, attn, b, bp, L, d, h, ds, p, scale_total, nk_scale, s);
-  if (dtype == 1 && bias_dtype == 1)
-    return run<__nv_bfloat16, __nv_bfloat16>(x, rot, trans, mask, w_qkv, w_out, g, bias,
-                                             proj, feat, acc, attn, b, bp, L, d, h, ds, p,
-                                             scale_total, nk_scale, s);
-  if (dtype == 1 && bias_dtype == 0)
-    return run<__nv_bfloat16, float>(x, rot, trans, mask, w_qkv, w_out, g, bias, proj,
-                                     feat, acc, attn, b, bp, L, d, h, ds, p, scale_total,
-                                     nk_scale, s);
+  if (bias_dtype == 1)
+    return run_bf16<__nv_bfloat16>(x, rot, trans, mask, w_qkv_heads, w_out_heads, g, bias,
+                                   feat, acc, attn, b, bp, L, d, h, ds, p, scale_total,
+                                   nk_scale, s);
+  if (bias_dtype == 0)
+    return run_bf16<float>(x, rot, trans, mask, w_qkv_heads, w_out_heads, g, bias, feat, acc,
+                           attn, b, bp, L, d, h, ds, p, scale_total, nk_scale, s);
   return cudaErrorInvalidValue;
 }
 

@@ -13,7 +13,10 @@ projections.  Returns (acc (b, L, d), attn (b, h, L, L)).
 Weights enter in their native flax column orders; `pack_layer_weights`
 reorders the point columns (h, P, 3) -> (h, 3, P) and folds
 scale_scalar and g = sqrt(0.5 * scale_point * gamma) into them, as the
-JAX wrapper does.  The sampler packs once per `sample()` call.
+JAX wrapper does.  For bfloat16 weights on the card it also makes the
+head-major copies the tensor-core kernel reads (`head_major_weights`: a
+permutation of the packed weights plus zero padding).  The sampler packs
+once per `sample()` call.
 
 On a CPU tensor the wrapper runs `fused_ipa_layer_packed_reference`; on a
 CUDA tensor it launches the kernel in `csrc/ipa_fused_layer.cu` or raises.
@@ -28,9 +31,10 @@ directly and nothing is saved.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from diffab_pytorch_tpu_torch.ops import _build
 from diffab_pytorch_tpu_torch.ops._recompute import recompute_grads
@@ -46,7 +50,10 @@ class LayerKernelWeights(NamedTuple):
         (h, ds) | point columns (h, 3, P)], scale_scalar folded into the
         q scalar columns and g into the q/k point columns;
     w_out: (h (ds + 4P), d) = [W_s; W_p with rows (h, 3, P); W_n];
-    g: (h,) float32, sqrt(0.5 * scale_point * gamma)."""
+    g: (h,) float32, sqrt(0.5 * scale_point * gamma);
+    w_qkv_heads, w_out_heads: the bfloat16 kernel's head-major copies of
+        w_qkv and w_out (`head_major_weights`); None in float32 and on the
+        CPU, where nothing reads them."""
 
     w_qkv: torch.Tensor
     w_out: torch.Tensor
@@ -54,6 +61,49 @@ class LayerKernelWeights(NamedTuple):
     n_head: int
     d_scalar: int
     n_point: int
+    w_qkv_heads: Optional[torch.Tensor] = None
+    w_out_heads: Optional[torch.Tensor] = None
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def check_kernel_shape(L: int, d: int, h: int, ds: int, p: int) -> None:
+    """Raise ValueError for a layer shape the kernel does not take: L <= 128
+    and ds + 3P <= 64 (one warp's logits and values in registers); for
+    those every d and h fit a block's shared memory (the budget is stated
+    in csrc/ipa_fused_layer.cu)."""
+    if min(L, d, h, ds, p) < 1:
+        raise ValueError(f"the kernel takes positive sizes, got L={L}, d={d}, h={h}, "
+                         f"ds={ds}, P={p}")
+    if L > 128 or ds + 3 * p > 64:
+        raise ValueError(f"the kernel takes L <= 128 and ds + 3P <= 64, got L={L}, "
+                         f"ds + 3P = {ds + 3 * p}")
+
+
+@torch.no_grad()  # read by the kernel only, never differentiated
+def head_major_weights(w_qkv, w_out, h: int, ds: int, p: int):
+    """The bfloat16 kernel's weight layouts, a permutation of the packed
+    weights plus zero padding (FVP = ds + 3P and FH = ds + 4P rounded up to
+    8, dP = d rounded up to 8):
+
+    w_qkv_heads (h, d, 3 FVP): per head and input row [q | k | v], each
+        [scalar (ds) | points (3, P) | zeros];
+    w_out_heads (h FH, dP): per head the rows [W_s (ds) | W_p (3, P) |
+        W_n (P) | zeros], columns padded with zeros."""
+    d = w_qkv.shape[0]
+    fv = ds + 3 * p
+    fvp, fh, dp = _round_up(fv, 8), _round_up(ds + 4 * p, 8), _round_up(d, 8)
+    parts = w_qkv.reshape(d, 3, h * fv)
+    per_head = torch.cat([parts[..., : h * ds].reshape(d, 3, h, ds),
+                          parts[..., h * ds:].reshape(d, 3, h, 3 * p)], dim=-1)
+    w_qkv_heads = F.pad(per_head, (0, fvp - fv)).permute(2, 0, 1, 3).reshape(h, d, 3 * fvp)
+    w_s, w_p, w_n = torch.split(w_out, [h * ds, h * 3 * p, h * p])
+    rows = torch.cat([w_s.reshape(h, ds, d), w_p.reshape(h, 3 * p, d),
+                      w_n.reshape(h, p, d)], dim=1)
+    w_out_heads = F.pad(rows, (0, dp - d, 0, fh - ds - 4 * p)).reshape(h * fh, dp)
+    return w_qkv_heads.contiguous(), w_out_heads.contiguous()
 
 
 def pack_layer_weights(
@@ -62,7 +112,8 @@ def pack_layer_weights(
 ) -> LayerKernelWeights:
     """Reorder and pre-scale the native weights (ipa_pallas.py _pallas_layer,
     the weight block): products are taken in the weights' own dtype, then
-    cast to `dtype`."""
+    cast to `dtype`.  bfloat16 weights on the card also get the kernel's
+    head-major copies."""
     d = w_qs.shape[0]
     h = gamma.shape[0]
     ds = w_qs.shape[1] // h
@@ -84,11 +135,11 @@ def pack_layer_weights(
     wv = torch.cat([w_vs, reorder(w_vp, pv)], dim=1).to(dtype)
     w_op_r = w_op.reshape(h, pv, 3, d).transpose(1, 2).reshape(h * 3 * pv, d)
     w_out = torch.cat([w_os.to(dtype), w_op_r.to(dtype), w_on.to(dtype)], dim=0)
-    return LayerKernelWeights(
-        w_qkv=torch.cat([wq, wk, wv], dim=1).contiguous(),
-        w_out=w_out.contiguous(), g=g.contiguous(),
-        n_head=h, d_scalar=ds, n_point=pq,
-    )
+    w_qkv = torch.cat([wq, wk, wv], dim=1).contiguous()
+    heads = (None, None)
+    if dtype == torch.bfloat16 and w_qkv.is_cuda:
+        heads = head_major_weights(w_qkv, w_out, h, ds, pq)
+    return LayerKernelWeights(w_qkv, w_out.contiguous(), g.contiguous(), h, ds, pq, *heads)
 
 
 def fused_ipa_layer_packed_reference(x, rot, trans, mask, wts: LayerKernelWeights,
@@ -163,17 +214,22 @@ def _check(x, rot, trans, mask, wts, bias):
         "w_out": (wts.w_out, (h * (ds + 4 * p), d), dt),
         "g": (wts.g, (h,), torch.float32),
     }
+    if wts.w_qkv_heads is not None or wts.w_out_heads is not None:
+        fvp, fh = _round_up(ds + 3 * p, 8), _round_up(ds + 4 * p, 8)
+        expect["w_qkv_heads"] = (wts.w_qkv_heads, (h, d, 3 * fvp), dt)
+        expect["w_out_heads"] = (wts.w_out_heads, (h * fh, _round_up(d, 8)), dt)
     for name, (t, shape, dtype) in expect.items():
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name}: expected {shape} {dtype}, got "
-                             f"{tuple(t.shape)} {t.dtype}")
+        if t is None or tuple(t.shape) != shape or t.dtype != dtype:
+            got = None if t is None else (tuple(t.shape), t.dtype)
+            raise ValueError(f"{name}: expected {shape} {dtype}, got {got}")
     bp = bias.shape[0]
     if bias.dim() != 4 or tuple(bias.shape[1:]) != (h, L, L) or b % bp:
         raise ValueError(f"bias: expected (bp, {h}, {L}, {L}) with b % bp == 0, "
                          f"got {tuple(bias.shape)}")
     if bias.dtype not in (torch.float32, dt):
         raise TypeError(f"bias dtype {bias.dtype} is neither float32 nor {dt}")
-    tensors = (x, rot, trans, mask, wts.w_qkv, wts.w_out, wts.g, bias)
+    tensors = tuple(t for t in (x, rot, trans, mask, bias, wts.w_qkv, wts.w_out, wts.g,
+                                wts.w_qkv_heads, wts.w_out_heads) if t is not None)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {devices}")
@@ -183,11 +239,12 @@ def _check(x, rot, trans, mask, wts, bias):
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("ipa_fused_layer")
-    fn = lib.ipa_fused_layer_forward
-    if fn.argtypes is None:
+    if lib.ipa_fused_layer_forward.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i, i] + [p] * 12 + [i] * 7 + [f, f, p]
-        fn.restype = ctypes.c_int
+        lib.ipa_fused_layer_forward.argtypes = [p] * 12 + [i] * 7 + [f, f, p]
+        lib.ipa_fused_layer_forward_bf16.argtypes = [i] + [p] * 11 + [i] * 7 + [f, f, p]
+        lib.ipa_fused_layer_forward.restype = ctypes.c_int
+        lib.ipa_fused_layer_forward_bf16.restype = ctypes.c_int
         lib.ipa_fused_layer_error_string.argtypes = [ctypes.c_int]
         lib.ipa_fused_layer_error_string.restype = ctypes.c_char_p
     return lib
@@ -196,25 +253,30 @@ def _library() -> ctypes.CDLL:
 def _launch(x, rot, trans, mask, wts, bias, scale_total):
     b, L, d = x.shape
     h, ds, p = wts.n_head, wts.d_scalar, wts.n_point
-    if L > 128 or ds + 3 * p > 64:
-        raise ValueError(f"the kernel takes L <= 128 and ds + 3P <= 64, got L={L}, "
-                         f"ds + 3P = {ds + 3 * p}")
+    check_kernel_shape(L, d, h, ds, p)
     dev, dt = x.device, x.dtype
-    args = (x, rot, trans, mask, wts.w_qkv, wts.w_out, wts.g, bias)
-    proj = torch.empty((b * L, 3 * h * (ds + 3 * p)), dtype=torch.float32, device=dev)
-    feat = torch.empty((b * L, h * (ds + 4 * p)), dtype=dt, device=dev)
     acc = torch.empty((b, L, d), dtype=dt, device=dev)
     attn = torch.empty((b, h, L, L), dtype=dt, device=dev)
     lib = _library()
+    shape = (b, bias.shape[0], L, d, h, ds, p,
+             float(scale_total), float(-_NEG_INF / float(scale_total)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ipa_fused_layer_forward(
-            _DTYPE_CODE[dt], _DTYPE_CODE[bias.dtype],
-            *(t.data_ptr() for t in args),
-            proj.data_ptr(), feat.data_ptr(), acc.data_ptr(), attn.data_ptr(),
-            b, bias.shape[0], L, d, h, ds, p,
-            float(scale_total), float(-_NEG_INF / float(scale_total)), stream,
-        )
+        if dt == torch.bfloat16:
+            heads = (wts.w_qkv_heads, wts.w_out_heads)
+            if heads[0] is None:
+                raise ValueError("the bfloat16 kernel reads head-major weights: pack the "
+                                 "weights on the card with pack_layer_weights")
+            feat = torch.empty((b * L, h * _round_up(ds + 4 * p, 8)), dtype=dt, device=dev)
+            args = (x, rot, trans, mask, *heads, wts.g, bias, feat, acc, attn)
+            err = lib.ipa_fused_layer_forward_bf16(
+                _DTYPE_CODE[bias.dtype], *(t.data_ptr() for t in args), *shape, stream)
+        else:
+            proj = torch.empty((b * L, 3 * h * (ds + 3 * p)), dtype=torch.float32, device=dev)
+            feat = torch.empty((b * L, h * (ds + 4 * p)), dtype=dt, device=dev)
+            args = (x, rot, trans, mask, wts.w_qkv, wts.w_out, wts.g, bias, proj, feat, acc,
+                    attn)
+            err = lib.ipa_fused_layer_forward(*(t.data_ptr() for t in args), *shape, stream)
     if err:
         msg = lib.ipa_fused_layer_error_string(err).decode()
         raise RuntimeError(f"ipa_fused_layer kernel launch failed: {msg} ({err})")
@@ -230,13 +292,15 @@ def _packed_reference(x, rot, trans, mask, w_qkv, w_out, g, bias, shape, scale_t
 
 class _FusedLayer(torch.autograd.Function):
     """Forward: the kernel.  Backward: autograd of the plain version on the
-    saved inputs and packed weights."""
+    saved inputs and packed weights.  The head-major copies ride along as a
+    tuple, outside autograd: they are permutations of w_qkv and w_out, so
+    the gradients reach the parameters through those two."""
 
     @staticmethod
-    def forward(ctx, x, rot, trans, mask, w_qkv, w_out, g, bias, shape, scale_total):
+    def forward(ctx, x, rot, trans, mask, w_qkv, w_out, g, bias, heads, shape, scale_total):
         ctx.save_for_backward(x, rot, trans, mask, w_qkv, w_out, g, bias)
         ctx.shape, ctx.scale_total = shape, scale_total
-        wts = LayerKernelWeights(w_qkv, w_out, g, *shape)
+        wts = LayerKernelWeights(w_qkv, w_out, g, *shape, *heads)
         return _launch(x, rot, trans, mask, wts, bias, scale_total)
 
     @staticmethod
@@ -244,7 +308,7 @@ class _FusedLayer(torch.autograd.Function):
         grads = recompute_grads(_packed_reference, ctx.saved_tensors,
                                 ctx.needs_input_grad[:8], (g_acc, g_attn),
                                 ctx.shape, ctx.scale_total)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
 def fused_ipa_layer_packed(x, rot, trans, mask, wts: LayerKernelWeights, bias,
@@ -260,8 +324,8 @@ def fused_ipa_layer_packed(x, rot, trans, mask, wts: LayerKernelWeights, bias,
         raise ValueError(f"no fused IPA layer for device {x.device}")
     args = (x, rot, trans, mask, wts.w_qkv, wts.w_out, wts.g, bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return _FusedLayer.apply(*args, (wts.n_head, wts.d_scalar, wts.n_point),
-                                 float(scale_total))
+        return _FusedLayer.apply(*args, (wts.w_qkv_heads, wts.w_out_heads),
+                                 (wts.n_head, wts.d_scalar, wts.n_point), float(scale_total))
     return _launch(x, rot, trans, mask, wts, bias, scale_total)
 
 

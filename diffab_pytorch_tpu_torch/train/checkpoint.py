@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from diffab_pytorch_tpu_torch.config import ModelConfig
+from diffab_pytorch_tpu_torch.config import ModelConfig, resolve_device
 from diffab_pytorch_tpu_torch.train.harness import OptState, TrainState
 
 _MODEL_CONFIG_FILE = "model_config.json"
@@ -99,8 +99,10 @@ def _load(directory: str, step: Optional[int]):
                       map_location="cpu", weights_only=True)
 
 
-def restore_checkpoint(directory: str, device="cpu", step: Optional[int] = None) -> TrainState:
-    """The whole TrainState of `step` (default the latest) on `device`."""
+def restore_checkpoint(directory: str, device=None, step: Optional[int] = None) -> TrainState:
+    """The whole TrainState of `step` (default the latest) on `device`: the
+    card unless the caller names another (`config.resolve_device`)."""
+    device = resolve_device(device)
     blob = _load(directory, step)
     on = lambda d: None if d is None else {k: v.to(device) for k, v in d.items()}
     params = {k: v.requires_grad_(True) for k, v in on(blob["params"]).items()}

@@ -344,7 +344,7 @@ def test_checkpoint_round_trip(arrays, tmp_path):
         state, _ = harness.train_step(state, batch, harness.draw(batch, gen))
         ckpt.save_checkpoint(d, state, max_to_keep=3)
     assert ckpt.all_steps(d) == [2, 3, 4] and ckpt.latest_step(d) == 4
-    back = ckpt.restore_checkpoint(d)
+    back = ckpt.restore_checkpoint(d, device="cpu")
     assert back.step == 4 and back.opt_state.count == 4
     for a, b in ((state.params, back.params), (state.opt_state.mu, back.opt_state.mu),
                  (state.opt_state.nu, back.opt_state.nu), (state.ema_params, back.ema_params)):
@@ -361,7 +361,22 @@ def test_checkpoint_round_trip(arrays, tmp_path):
     assert ckpt.load_model_config(d) == harness.config.model
     assert ckpt.load_model_config(str(tmp_path / "none")) is None
     with pytest.raises(FileNotFoundError):
-        ckpt.restore_checkpoint(str(tmp_path / "none"))
+        ckpt.restore_checkpoint(str(tmp_path / "none"), device="cpu")
+
+
+def test_restore_checkpoint_defaults_to_the_card(tmp_path, monkeypatch):
+    """Like the other entry points, restore_checkpoint lands on the card
+    unless told otherwise: with no card and no device it raises, and with
+    device="cpu" it restores."""
+    harness = _small_harness()
+    d = str(tmp_path / "ckpt")
+    ckpt.save_checkpoint(d, harness.init(0))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ckpt.restore_checkpoint(d)
+    back = ckpt.restore_checkpoint(d, device="cpu")
+    assert back.step == 0
+    assert all(v.device.type == "cpu" for v in back.params.values())
 
 
 @pytest.mark.parametrize("fuse", [None, False])
