@@ -27,9 +27,10 @@ Phases (any failure raises and the script exits non-zero):
      batch 32, L=128) from a seeded init on one synthetic batch, 3 warm-up
      and 20 timed steps through fit(); launch counts, loss trajectory,
      state checks, steps/s and samples/s, and a profile of one step;
-  7. per-launch kernel times against the plain version and the bound, and
-     K1's two bf16 launches timed apart with the card's idle time between
-     them (profiler);
+  7. per-launch kernel times against the plain version and the bound, in
+     bfloat16 and float32 (float32 bounds at the 3xTF32 rate), K1's two
+     bf16 launches timed apart with the card's idle time between them
+     (profiler), and K2 with one block or two per (head, design);
   8. a `kernels` JSON line, the card line, and the final JSON line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
@@ -47,9 +48,11 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, float32 CUDA cores,
-# HBM3 bandwidth
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# H100 SXM data-sheet peaks (dense): bf16 tensor cores; float32 exact to the
+# checks' 1e-4 on the tensor cores as 3xTF32 (three TF32 products for each
+# product, a third of the 494.7 TFLOP/s TF32 rate), the fastest
+# float32-exact route on this card; HBM3 bandwidth
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 494.7e12 / 3}
 PEAK_BYTES = 3.35e12
 
 N_DESIGNS, L_MAIN, N_GENERATE = 128, 128, 8
@@ -63,6 +66,22 @@ K1_DESIGN = ("bf16: two launches, products on the tensor cores (mma.sync m16n8k1
              "fragments, inverse frames and norms, bf16 per-head features out. 2: the output "
              "projection as a cp.async double-buffered tensor-core GEMM. float32: three "
              "CUDA-core launches")
+K2_DESIGN = ("one launch, one block of 8 warps per (head, design) (all 128 query rows), "
+             "operands copied feature-major into padded shared tiles by cp.async, each warp's "
+             "16 x L logits and float32 softmax in registers, P [v_s|v_p] from register "
+             "fragments, outputs transposed through the warp's own q-tile columns for 16-byte "
+             "stores. bf16: mma.sync m16n8k16 "
+             "(ldmatrix, attn staged for 16-byte stores). float32: 3xTF32 on mma.sync m16n8k8 "
+             "(operands and weights split into big + small tf32, three products), "
+             "float32-exact to 1e-4")
+
+
+def bound_ms(flops, n_bytes, dtype_name):
+    """The least time the card could take: the larger of the operations
+    over the dtype's peak and the bytes over the HBM rate.  Returns (ms,
+    what bounds it, operations ms, bytes ms)."""
+    t_o, t_b = flops / PEAK_FLOPS[dtype_name] * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return max(t_o, t_b), "operations" if t_o >= t_b else "bytes", t_o, t_b
 
 
 def card_line() -> str:
@@ -523,6 +542,19 @@ def main() -> int:
                         attention_inputs(torch, 8, 2, **att_shape, dtype=torch.bfloat16,
                                          bias_dtype=torch.float32, seed=14, n_masked=0), 0,
                         bf16=True)
+        # the tile edges: L below one 16-row tile of a warp, L % 8 != 0
+        k2_err_bf16 = max(k2_err_bf16, check_attention(
+            torch, "K2 tiny bf16 (b=2 bp=1 L=24 h=4 ds=8 p=4)",
+            attention_inputs(torch, 2, 1, 24, 4, 8, 4, torch.bfloat16, torch.bfloat16, 15, 5),
+            5, bf16=True))
+        k2_err_bf16 = max(k2_err_bf16, check_attention(
+            torch, "K2 bf16 L=77 with f32 bias (b=8 bp=2)",
+            attention_inputs(torch, 8, 2, 77, 8, 32, 8, torch.bfloat16, torch.float32, 16, 9),
+            9, bf16=True))
+        k2_err_f32 = max(k2_err_f32, check_attention(
+            torch, "K2 f32 L=77 (b=8 bp=2)",
+            attention_inputs(torch, 8, 2, 77, 8, 32, 8, torch.float32, torch.float32, 17, 9),
+            9, bf16=False))
 
     # autograd Functions (kernel forward, recomputed plain backward)
     la = layer_inputs(torch, 4, 4, **main_shape, dtype=torch.float32,
@@ -749,10 +781,8 @@ def main() -> int:
             host_paced = cuda_time_ms(kern, 20, queued=False)
             tl = device_timeline(torch, kern, 20, K1_LAUNCHES)
         fl, nb = ipa_layer_flops_bytes(b, bp, **main_shape, itemsize=2, bias_itemsize=2)
-        t_o, t_b = fl / PEAK_FLOPS["bfloat16"] * 1e3, nb / PEAK_BYTES * 1e3
-        bnd = max(t_o, t_b)
-        k1_times[label] = dict(ms=min(km, km2), plain_ms=pm, bound_ms=bnd,
-                               bound_by="operations" if t_o >= t_b else "bytes",
+        bnd, by, t_o, t_b = bound_ms(fl, nb, "bfloat16")
+        k1_times[label] = dict(ms=min(km, km2), plain_ms=pm, bound_ms=bnd, bound_by=by,
                                host_paced_ms=host_paced,
                                launch_ms=tl and {n: tl[n] for n in K1_LAUNCHES})
         print(f"[time] ipa_fused_layer b={b} bp={bp} L=128 bf16 ({label} shape) on {card}: "
@@ -760,8 +790,8 @@ def main() -> int:
               f"{host_paced:.4f} ms issued call by call from the host (the earlier design's "
               f"method), "
               f"plain version {pm:.4f} ms, bound {bnd:.4f} ms ({fl / 1e9:.2f} GFLOP -> "
-              f"{t_o:.4f} ms, {nb / 1e6:.2f} MB -> {t_b:.4f} ms; bound by "
-              f"{k1_times[label]['bound_by']}), {bnd / min(km, km2):.3%} of bound")
+              f"{t_o:.4f} ms, {nb / 1e6:.2f} MB -> {t_b:.4f} ms; bound by {by}), "
+              f"{bnd / min(km, km2):.3%} of bound")
         if tl is None:
             print(f"[time] ipa_fused_layer {label} shape, its launches: not measured "
                   f"(the profiler reported no device time)")
@@ -776,23 +806,47 @@ def main() -> int:
     print("[earlier] ipa_fused_layer b=128 bp=1 L=128 bf16: 0.7938 ms per call with the earlier "
           "CUDA-core design (PERF.md, K1 row; CUDA events, calls issued by the host)")
 
-    k2_times = {}
-    for label, b, bp in (("train", pb, pb), ("sample", N_DESIGNS, 1)):
+    # K1's float32 path (three CUDA-core launches), timed as bf16 above
+    k1_f32 = {}
+    for label, b, bp, seed in (("sample", N_DESIGNS, 1, 4), ("train", pb, pb, 6)):
         with torch.no_grad():
-            aargs = attention_inputs(torch, b, bp, **att_shape, dtype=torch.bfloat16,
-                                     bias_dtype=torch.bfloat16, seed=30 + b, n_masked=0)
-            km = cuda_time_ms(lambda: k2.ipa_attention_core(**aargs), 20)
-            pm = cuda_time_ms(lambda: k2.ipa_attention_core_reference(**aargs), 5)
-            km2 = cuda_time_ms(lambda: k2.ipa_attention_core(**aargs), 20)
-        fl, nb = attention_flops_bytes(b, bp, **att_shape, itemsize=2, bias_itemsize=2)
-        t_o, t_b = fl / PEAK_FLOPS["bfloat16"] * 1e3, nb / PEAK_BYTES * 1e3
-        bnd = max(t_o, t_b)
-        k2_times[label] = dict(ms=min(km, km2), plain_ms=pm, bound_ms=bnd,
-                               bound_by="operations" if t_o >= t_b else "bytes")
-        print(f"[time] ipa_attention b={b} bp={bp} L=128 bf16 ({label} shape) on {card}: "
+            a = layer_inputs(torch, b, bp, **main_shape, dtype=torch.float32,
+                             bias_dtype=torch.float32, seed=seed, n_masked=0)
+            kern = lambda a=a: op.fused_ipa_layer_packed(**a)
+            km = cuda_time_ms(kern, 20)
+            pm = cuda_time_ms(lambda a=a: op.fused_ipa_layer_packed_reference(**a), 5)
+            km2 = cuda_time_ms(kern, 20)
+        fl, nb = ipa_layer_flops_bytes(b, bp, **main_shape, itemsize=4, bias_itemsize=4)
+        bnd, by, t_o, t_b = bound_ms(fl, nb, "float32")
+        k1_f32[label] = dict(ms=min(km, km2), plain_ms=pm, bound_ms=bnd, bound_by=by)
+        print(f"[time] ipa_fused_layer b={b} bp={bp} L=128 f32 ({label} shape) on {card}: "
               f"kernel {km:.4f} / {km2:.4f} ms, plain version {pm:.4f} ms, bound {bnd:.4f} ms "
-              f"({fl / 1e9:.2f} GFLOP -> {t_o:.4f} ms, {nb / 1e6:.2f} MB -> {t_b:.4f} ms; "
-              f"bound by {k2_times[label]['bound_by']}), {bnd / min(km, km2):.3%} of bound")
+              f"({fl / 1e9:.2f} GFLOP at the 3xTF32 rate -> {t_o:.4f} ms, {nb / 1e6:.2f} MB -> "
+              f"{t_b:.4f} ms; bound by {by}), {bnd / min(km, km2):.3%} of bound")
+
+    # K2 in both dtypes
+    k2_times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).removeprefix("torch.")
+        for label, b, bp in (("train", pb, pb), ("sample", N_DESIGNS, 1)):
+            with torch.no_grad():
+                aargs = attention_inputs(torch, b, bp, **att_shape, dtype=dtype,
+                                         bias_dtype=dtype, seed=30 + b, n_masked=0)
+                km = cuda_time_ms(lambda: k2.ipa_attention_core(**aargs), 20)
+                pm = cuda_time_ms(lambda: k2.ipa_attention_core_reference(**aargs), 5)
+                km2 = cuda_time_ms(lambda: k2.ipa_attention_core(**aargs), 20)
+            fl, nb = attention_flops_bytes(b, bp, **att_shape, itemsize=dtype.itemsize,
+                                           bias_itemsize=dtype.itemsize)
+            bnd, by, t_o, t_b = bound_ms(fl, nb, dname)
+            k2_times[(dname, label)] = dict(ms=min(km, km2), plain_ms=pm, bound_ms=bnd,
+                                            bound_by=by)
+            print(f"[time] ipa_attention b={b} bp={bp} L=128 {dname} ({label} shape) on {card}: "
+                  f"kernel {km:.4f} / {km2:.4f} ms, plain version {pm:.4f} ms, bound "
+                  f"{bnd:.4f} ms ({fl / 1e9:.2f} GFLOP -> {t_o:.4f} ms, {nb / 1e6:.2f} MB -> "
+                  f"{t_b:.4f} ms; bound by {by}), {bnd / min(km, km2):.3%} of bound")
+    print("[earlier] ipa_attention with the earlier CUDA-core design: bf16 0.1064-0.1071 ms at "
+          "b=bp=32 and 0.4235-0.4263 ms at b=128 bp=1; float32 0.1152-0.1159 / 0.4263-0.4293 ms "
+          "(PERF.md, K2 row; CUDA events, queued; H100 80GB HBM3, 700 W)")
 
     # ---- 8. records ---------------------------------------------------------------
     by_path = lambda i: {path: c[i] for path, c in launches.items()}
@@ -811,6 +865,7 @@ def main() -> int:
         "library_ms": None,
         "design": K1_DESIGN,
         "train_shape": k1_times["train"],
+        "f32": k1_f32,
     }, {
         "name": "ipa_attention",
         "route": "cuda",
@@ -822,9 +877,11 @@ def main() -> int:
         "max_abs_err": max(k2_err_f32, k2_err_bf16),
         "max_err_f32": k2_err_f32,
         "max_err_bf16": k2_err_bf16,
-        **k2_times["train"],
+        **k2_times[("bfloat16", "train")],
         "library_ms": None,
-        "sample_shape": k2_times["sample"],
+        "design": K2_DESIGN,
+        "sample_shape": k2_times[("bfloat16", "sample")],
+        "f32": {label: k2_times[("float32", label)] for label in ("train", "sample")},
     }]
     print(json.dumps({"kernels": kernels}))
     print(f"[main] designs/s {designs_per_s:.3f}; training steps/s {train_rates[None]:.3f} "

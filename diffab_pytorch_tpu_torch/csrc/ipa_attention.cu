@@ -20,118 +20,163 @@
 // h = 8, F = 64, ds = 32, 3P = 24, bf16) one call is ~1.0 GFLOP against
 // ~32.5 MB of compulsory traffic, and at the sampling shape (b = 128,
 // bp = 1) ~4 GFLOP against ~97 MB: bytes-bound at both (~10 and ~29 us at
-// the HBM rate).  This first design reads every operand of one (design,
-// head) into shared memory once, so each input byte crosses device memory
-// once, and keeps the logits of a warp's RB rows in registers; the products
-// run on the CUDA cores (ipa::attention_rows, shared with the fused-layer
-// kernel).  The outputs are staged in shared memory and written coalesced.
-// Tensor-core tiles and more than one block per SM are later work.
+// the HBM rate), and in float32 (3xTF32, a third of the TF32 rate) still
+// bytes-bound.  So every product runs on the tensor cores and every input
+// byte crosses device memory once:
+//   - one block of 8 warps takes all the query rows of one (design, head)
+//     (two blocks of 64 rows, each reading K and V, were slower at every
+//     measured shape; PERF.md); the grid runs the blocks of one design's
+//     heads next to each other, so a target's bias is read by neighbouring
+//     blocks;
+//   - q_aug, k_aug and [v_s | v_p] are copied into padded
+//     shared tiles in their feature-major layout, 16 bytes per cp.async
+//     (element by element when L % 8 != 0);
+//   - each warp keeps its 16 rows x all keys of logits in registers and runs
+//     the softmax there (ipa_attention_tc.cuh): bf16 on mma.sync m16n8k16,
+//     float32 as 3xTF32 on m16n8k8, exact to float32's 1e-4 checks;
+//   - attn leaves from the warp (bf16 through a per-warp tile for 16-byte
+//     stores, float32 from the accumulators);
+//   - the outputs go through the warp's own 16 columns of the q tile (only
+//     it reads them) and leave feature-major in 16-byte stores, so no block
+//     barrier follows the loads.
 //
-// Limits: L <= 128, ds + 3 P <= 64, and the block's shared memory
-// (smem_floats) within the 227 KB a block may use.
+// Shared memory at the default shape (L = 128, F = 64, FV = 56): bf16
+// 84,864 bytes (two blocks per SM), float32 100,096 bytes (two
+// blocks per SM); at the largest shapes taken (F = 80, FV = 64) 121,856
+// bytes.  Registers bound the residency to 16 warps per SM either way.
+//
+// On the H100 this reaches 38-51% of the bytes bound in bf16 and 19-26% in
+// float32 at the two shapes (PERF.md).  What is left is latency: each warp
+// runs its loads, products, softmax and stores in sequence with 16 warps
+// per SM to hide the waits, and 3xTF32 issues six times the mma.sync
+// instructions of bf16.
+//
+// Limits: L <= 128, ds + 3 P <= 64, ds + 3 P < F <= 80 (the augmented width
+// ds + 3 P + 3 padded to 16).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "ipa_attention_core.cuh"
+#include "ipa_attention_tc.cuh"
+
+using namespace ipa_tc;
 
 namespace {
 
-using ipa::from_f;
-using ipa::MAX_FV;
-using ipa::MAX_L;
-using ipa::RB;
-using ipa::to_f;
+constexpr int WARPS = MAX_L / 16;  // 16 query rows each: the whole (design, head)
+constexpr int THREADS = WARPS * 32;
 
-constexpr int THREADS = 512;
-constexpr int WARPS = THREADS / 32;
+struct Dims {
+  int L, LP, F, FP, ds, p3, FV, FVP;
+  int ts, as;  // strides: q / k / v tiles, bf16 attn tile
+  int qk_bytes, v_bytes, warp_bytes, total;
+};
 
-// qa, ka (F x L), va (L x FV), the output tile (FV x (L + 1)), and the
-// warps' rows (WARPS x RB x L)
-__host__ __device__ inline size_t smem_floats(int L, int F, int FV) {
-  return (size_t)F * L * 2 + (size_t)L * FV + (size_t)FV * (L + 1) +
-         (size_t)WARPS * RB * L;
+template <typename T> Dims attention_dims(int L, int F, int ds, int p3) {
+  Dims D;
+  D.L = L, D.LP = round_up(L, 16), D.F = F, D.FP = round_up(F, 16);
+  D.ds = ds, D.p3 = p3, D.FV = ds + p3, D.FVP = round_up(D.FV, 8);
+  D.ts = tile_stride<T>(D.LP), D.as = tile_stride<bf16>(D.LP);
+  D.qk_bytes = D.FP * D.ts * (int)sizeof(T);
+  D.v_bytes = D.FVP * D.ts * (int)sizeof(T);
+  D.warp_bytes = is_bf16<T> ? 16 * D.as * 2 : 0;
+  D.total = 2 * D.qk_bytes + D.v_bytes + WARPS * D.warp_bytes;
+  return D;
 }
 
 template <typename T, typename TB>
-__global__ void __launch_bounds__(THREADS)
-ipa_attention_kernel(const T* __restrict__ q_aug,  // (b, h, F, L)
-                     const T* __restrict__ k_aug,  // (b, h, F, L)
-                     const T* __restrict__ v_s,    // (b, h, ds, L)
-                     const T* __restrict__ v_p,    // (b, h, 3P, L)
-                     const TB* __restrict__ bias,  // (bp, h, L, L)
-                     T* __restrict__ out_s,        // (b, h, ds, L)
-                     T* __restrict__ out_p,        // (b, h, 3P, L)
-                     T* __restrict__ attn,         // (b, h, L, L)
-                     int L, int h, int F, int ds, int p3, int n_designs,
-                     float scale_total) {
+__global__ void __launch_bounds__(THREADS, 2)
+attention_kernel(const T* __restrict__ q_aug,  // (b, h, F, L)
+                 const T* __restrict__ k_aug,  // (b, h, F, L)
+                 const T* __restrict__ v_s,    // (b, h, ds, L)
+                 const T* __restrict__ v_p,    // (b, h, 3P, L)
+                 const TB* __restrict__ bias,  // (bp, h, L, L)
+                 T* __restrict__ out_s,        // (b, h, ds, L)
+                 T* __restrict__ out_p,        // (b, h, 3P, L)
+                 T* __restrict__ attn,         // (b, h, L, L)
+                 const Dims D, int h, int n_designs, float scale_total) {
   const int hh = blockIdx.x, design = blockIdx.y, target = design / n_designs;
-  const int FV = ds + p3, LO = L + 1;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int L = D.L, F = D.F, ds = D.ds, p3 = D.p3;
+  const int m0 = 16 * warp;  // the warp's first query row, its first q-tile column
   const size_t g = (size_t)design * h + hh;
+  const bool vec = L % 8 == 0;
 
-  extern __shared__ float smem[];
-  float* qa = smem;
-  float* ka = qa + (size_t)F * L;
-  float* va = ka + (size_t)F * L;
-  float* ot = va + (size_t)L * FV;
-  float* rows = ot + (size_t)FV * LO;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qa = reinterpret_cast<T*>(smem);
+  T* ka = reinterpret_cast<T*>(smem + D.qk_bytes);
+  T* va = reinterpret_cast<T*>(smem + 2 * D.qk_bytes);
+  T* wtile = reinterpret_cast<T*>(smem + 2 * D.qk_bytes + D.v_bytes + warp * D.warp_bytes);
 
-  const T* q_g = q_aug + g * F * L;
-  const T* k_g = k_aug + g * F * L;
-  for (int e = tid; e < F * L; e += THREADS) {
-    qa[e] = to_f<T>(q_g[e]);
-    ka[e] = to_f<T>(k_g[e]);
-  }
-  const T* vs_g = v_s + g * ds * L;
-  for (int e = tid; e < ds * L; e += THREADS) va[(e % L) * FV + e / L] = to_f<T>(vs_g[e]);
-  const T* vp_g = v_p + g * p3 * L;
-  for (int e = tid; e < p3 * L; e += THREADS)
-    va[(e % L) * FV + ds + e / L] = to_f<T>(vp_g[e]);
+  load_tile(qa, q_aug + g * F * L, F, D.FP, L, D.LP, D.ts, vec, tid, THREADS);
+  load_tile(ka, k_aug + g * F * L, F, D.FP, L, D.LP, D.ts, vec, tid, THREADS);
+  load_tile(va, v_s + g * ds * L, ds, ds, L, D.LP, D.ts, vec, tid, THREADS);
+  load_tile(va + ds * D.ts, v_p + g * p3 * L, p3, D.FVP - ds, L, D.LP, D.ts, vec, tid,
+            THREADS);
+  cp_async_wait_all();
   __syncthreads();
+  if (m0 >= D.LP) return;  // warp-uniform; no block barrier follows
 
-  float* arow = rows + (size_t)warp * RB * L;
-  const TB* bias_h = bias + ((size_t)target * h + hh) * L * L;
-  T* attn_h = attn + g * L * L;
-  for (int i0 = warp * RB; i0 < L; i0 += WARPS * RB) {
-    float o[RB][2];
-    ipa::attention_rows<T, TB>(qa, ka, F, va, FV, bias_h, attn_h, L, scale_total, i0,
-                               lane, arow, o);
-    const int c0 = lane, c1 = lane + 32;
+  float s[MAX_KEY_TILES][4];
+  logits<T>(qa, D.ts, m0, ka, D.ts, D.FP, D.LP, lane, s);
+  softmax_rows<T, TB>(s, bias + ((size_t)target * h + hh) * L * L, L, D.LP, m0, scale_total,
+                      lane);
+  store_weights<T>(s, attn + g * L * L, L, D.LP, m0, lane, wtile, D.as);
+  float o[MAX_V_TILES][4];
+  weighted_sums<T>(s, va, D.ts, D.FVP, D.LP, lane, o);
+
+  // outputs, transposed through this warp's own 16 columns of the q tile
+  // (FVP <= FP rows): ot[c][r] for feature c of row m0 + r
+  T* ot = qa + m0;
+  __syncwarp();
 #pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const int i = i0 + r;
-      if (i >= L) break;  // warp-uniform
-      if (c0 < FV) ot[(size_t)c0 * LO + i] = o[r][0];
-      if (c1 < FV) ot[(size_t)c1 * LO + i] = o[r][1];
+  for (int vt = 0; vt < MAX_V_TILES; ++vt) {
+    if (vt < D.FVP / 8) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = lane / 4 + hr * 8, c = vt * 8 + (lane & 3) * 2;
+        ot[c * D.ts + r] = from_f<T>(o[vt][2 * hr]);
+        ot[(c + 1) * D.ts + r] = from_f<T>(o[vt][2 * hr + 1]);
+      }
     }
-    __syncwarp();  // arow is rewritten by the next rows
   }
-  __syncthreads();
-
-  T* os_g = out_s + g * ds * L;
-  for (int e = tid; e < ds * L; e += THREADS)
-    os_g[e] = from_f<T>(ot[(size_t)(e / L) * LO + e % L]);
-  T* op_g = out_p + g * p3 * L;
-  for (int e = tid; e < p3 * L; e += THREADS)
-    op_g[e] = from_f<T>(ot[(size_t)(ds + e / L) * LO + e % L]);
+  __syncwarp();
+  const int rows = L - m0 < 16 ? L - m0 : 16;
+  auto out_row = [&](int c) {  // feature c's row of L outputs
+    return c < ds ? out_s + (g * ds + c) * L : out_p + (g * p3 + c - ds) * L;
+  };
+  if (vec && rows == 16) {
+    constexpr int PER = 16 / sizeof(T), PIECES = 16 / PER;  // per row of 16 outputs
+    for (int e = lane; e < D.FV * PIECES; e += 32) {
+      const int c = e / PIECES, q = (e - c * PIECES) * PER;
+      *reinterpret_cast<uint4*>(out_row(c) + m0 + q) =
+          *reinterpret_cast<const uint4*>(ot + c * D.ts + q);
+    }
+  } else {
+    for (int e = lane; e < D.FV * rows; e += 32) {
+      const int c = e / rows, r = e - c * rows;
+      out_row(c)[m0 + r] = ot[c * D.ts + r];
+    }
+  }
 }
 
 template <typename T, typename TB>
 int run(const void* q_aug, const void* k_aug, const void* v_s, const void* v_p,
-        const void* bias, void* out_s, void* out_p, void* attn, int b, int bp, int L,
-        int h, int F, int ds, int p3, float scale_total, cudaStream_t stream) {
-  const size_t smem = smem_floats(L, F, ds + p3) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ipa_attention_kernel<T, TB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        const void* bias, void* out_s, void* out_p, void* attn, int b, int bp, int L, int h,
+        int F, int ds, int p3, float scale_total, cudaStream_t stream) {
+  const Dims D = attention_dims<T>(L, F, ds, p3);
+  if (D.FVP > D.FP || D.total > 232448) return cudaErrorInvalidValue;
+  auto kernel = attention_kernel<T, TB>;
+  if (D.total > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, D.total);
     if (err != cudaSuccess) return err;
   }
-  ipa_attention_kernel<T, TB><<<dim3(h, b), THREADS, smem, stream>>>(
+  kernel<<<dim3(h, b), THREADS, D.total, stream>>>(
       static_cast<const T*>(q_aug), static_cast<const T*>(k_aug),
-      static_cast<const T*>(v_s), static_cast<const T*>(v_p),
-      static_cast<const TB*>(bias), static_cast<T*>(out_s), static_cast<T*>(out_p),
-      static_cast<T*>(attn), L, h, F, ds, p3, b / bp, scale_total);
+      static_cast<const T*>(v_s), static_cast<const T*>(v_p), static_cast<const TB*>(bias),
+      static_cast<T*>(out_s), static_cast<T*>(out_p), static_cast<T*>(attn), D, h, b / bp,
+      scale_total);
   return cudaGetLastError();
 }
 
@@ -145,20 +190,19 @@ int ipa_attention_forward(int dtype, int bias_dtype, const void* q_aug, const vo
                           const void* v_s, const void* v_p, const void* bias, void* out_s,
                           void* out_p, void* attn, int b, int bp, int L, int h, int F,
                           int ds, int p3, float scale_total, void* stream) {
-  if (L < 1 || L > MAX_L || bp < 1 || b % bp != 0 || h < 1 || F < 1 || ds < 0 || p3 < 0 ||
-      ds + p3 < 1 || ds + p3 > MAX_FV)
+  if (L < 1 || L > MAX_L || bp < 1 || b % bp != 0 || h < 1 || ds < 0 || p3 < 0 ||
+      ds + p3 < 1 || ds + p3 > MAX_FV || F <= ds + p3 || F > MAX_F)
     return cudaErrorInvalidValue;
-  if (smem_floats(L, F, ds + p3) * sizeof(float) > 232448) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && bias_dtype == 0)
     return run<float, float>(q_aug, k_aug, v_s, v_p, bias, out_s, out_p, attn, b, bp, L, h,
                              F, ds, p3, scale_total, s);
   if (dtype == 1 && bias_dtype == 1)
-    return run<__nv_bfloat16, __nv_bfloat16>(q_aug, k_aug, v_s, v_p, bias, out_s, out_p,
-                                             attn, b, bp, L, h, F, ds, p3, scale_total, s);
+    return run<bf16, bf16>(q_aug, k_aug, v_s, v_p, bias, out_s, out_p, attn, b, bp, L, h, F,
+                           ds, p3, scale_total, s);
   if (dtype == 1 && bias_dtype == 0)
-    return run<__nv_bfloat16, float>(q_aug, k_aug, v_s, v_p, bias, out_s, out_p, attn, b,
-                                     bp, L, h, F, ds, p3, scale_total, s);
+    return run<bf16, float>(q_aug, k_aug, v_s, v_p, bias, out_s, out_p, attn, b, bp, L, h, F,
+                            ds, p3, scale_total, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,9 +1,11 @@
-// The IPA attention core shared by the fused-layer kernel
-// (ipa_fused_layer.cu) and the attention-core kernel (ipa_attention.cu):
-// for RB query rows of one (design, head), the augmented logits, the bias,
-// the float32 softmax, the attention weights written in the compute dtype,
-// and the two weighted sums.  The caller owns the shared-memory operands
-// and the epilogue.
+// The IPA attention core of the fused-layer kernel's float32 path
+// (ipa_fused_layer.cu, its only user) on the CUDA cores: for RB query rows
+// of one (design, head), the augmented logits, the bias, the float32
+// softmax, the attention weights written in the compute dtype, and the two
+// weighted sums.  The caller owns the shared-memory operands and the
+// epilogue.  The attention-core kernel (ipa_attention.cu) runs on the
+// tensor cores instead (ipa_attention_tc.cuh), float32 as 3xTF32, which is
+// where the fused layer's float32 path is to move next.
 //
 //   qa    FA x L   augmented q, [feature][row], values in the compute dtype
 //   ka    FA x L   augmented k, [feature][key], values in the compute dtype

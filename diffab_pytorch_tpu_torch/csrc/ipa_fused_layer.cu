@@ -29,7 +29,7 @@
 //     2. attention_kernel: one block per (head, design) — frames, augmented
 //        operands, logits, softmax, the attn write, weighted sums, inverse
 //        frames and norms, per-head features (logits through weighted sums
-//        are ipa::attention_rows, shared with ipa_attention.cu);
+//        are ipa::attention_rows, ipa_attention_core.cuh);
 //     3. the three output projections as one [W_s; W_p; W_n] product.
 //
 // What bounds it on this card: at the main sampling shapes (b=128, L=128,

@@ -9,9 +9,11 @@ assembles them outside Pallas (`augmented_operands`): the point columns
 scaled by g = sqrt(0.5 * scale_point * gamma), |q'|^2 and |k'|^2 folded
 into the contraction, the key mask as a row pair carrying
 -1e9 / scale_total on padded keys, the features padded to a multiple of 16.
-The kernel (`csrc/ipa_attention.cu`) computes the logits, the bias add, the
+The kernel (`csrc/ipa_attention.cu`, the tensor-core core in
+`csrc/ipa_attention_tc.cuh`) computes the logits, the bias add, the
 float32 softmax, the attention weights in the compute dtype and the two
-weighted sums.
+weighted sums: bfloat16 on `mma.sync` bf16 tiles, float32 as 3xTF32
+(split operands, float32-exact to the 1e-4 checks).
 
 On a CPU tensor `ipa_attention_core` runs `ipa_attention_core_reference`;
 on a CUDA tensor it launches the kernel (counted in `.launches`) or
@@ -22,9 +24,9 @@ differentiates `_attention_core_raw_jnp`.
 Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16), each operand read and
 each output written once: training shape b = bp = 32, L = 128, h = 8,
 F = 64, bf16 bias: ~1.0 GFLOP, ~32.5 MB -> ~9.7 us, bytes-bound; sampling
-shape b = 128, bp = 1: ~97 MB -> ~29 us.  The first design reads each
-(design, head)'s operands into shared memory once and runs the products on
-the CUDA cores (see the source's note).
+shape b = 128, bp = 1: ~97 MB -> ~29 us.  The kernel reads each
+(design, head)'s operands into shared memory once and keeps each warp's
+16 query rows of logits in registers (see the source's note).
 """
 
 from __future__ import annotations
@@ -117,6 +119,21 @@ def _check(q_aug, k_aug, v_s, v_p, bias):
         raise ValueError("IPA attention inputs must be contiguous")
 
 
+def check_attention_shape(L: int, F: int, ds: int, p3: int) -> None:
+    """Raise ValueError for an operand shape the kernel does not take:
+    L <= 128 and ds + 3P <= 64 (one warp's logits and values in registers),
+    and ds + 3P < F <= 80, the augmented width that `augmented_operands`
+    gives (ds + 3P + 3 padded to 16)."""
+    if min(L, ds + p3) < 1 or min(ds, p3) < 0:
+        raise ValueError(f"the kernel takes positive sizes, got L={L}, ds={ds}, 3P={p3}")
+    if L > 128 or ds + p3 > 64:
+        raise ValueError(f"the kernel takes L <= 128 and ds + 3P <= 64, got L={L}, "
+                         f"ds + 3P = {ds + p3}")
+    if not ds + p3 < F <= 80:
+        raise ValueError(f"the kernel takes ds + 3P < F <= 80 augmented features, got "
+                         f"F={F}, ds + 3P = {ds + p3}")
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("ipa_attention")
     fn = lib.ipa_attention_forward
@@ -132,9 +149,7 @@ def _library() -> ctypes.CDLL:
 def _launch(q_aug, k_aug, v_s, v_p, bias, scale_total):
     b, h, n_feat, L = q_aug.shape
     ds, p3 = v_s.shape[2], v_p.shape[2]
-    if L > 128 or ds + p3 > 64:
-        raise ValueError(f"the kernel takes L <= 128 and ds + 3P <= 64, got L={L}, "
-                         f"ds + 3P = {ds + p3}")
+    check_attention_shape(L, n_feat, ds, p3)
     dev, dt = q_aug.device, q_aug.dtype
     out_s = torch.empty((b, h, ds, L), dtype=dt, device=dev)
     out_p = torch.empty((b, h, p3, L), dtype=dt, device=dev)

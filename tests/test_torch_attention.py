@@ -132,6 +132,91 @@ def test_core_checks_its_inputs():
         k2.ipa_attention_core(*ops, bias.double(), 1.0)
 
 
+def _tf32(x):
+    """x rounded to tf32 as cvt.rna.tf32.f32 rounds it (to nearest, ties
+    away from zero, 10 mantissa bits), on the int32 view: half an ulp added
+    to the magnitude bits, the 13 low bits cleared."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_core(q_aug, k_aug, v_s, v_p, bias, scale_total, products):
+    """The kernel's float32 design in plain PyTorch: each operand split
+    into big = tf32(x) and small = tf32(x - big); each of the two products
+    a_small b_big + a_big b_small + a_big b_big (products=3, 3xTF32) or
+    a_big b_big alone (products=1, plain TF32), summed in float32."""
+    def product(eq, a, b):
+        a_big, b_big = _tf32(a), _tf32(b)
+        out = torch.einsum(eq, a_big, b_big)
+        if products == 3:
+            out = (torch.einsum(eq, _tf32(a - a_big), b_big)
+                   + torch.einsum(eq, a_big, _tf32(b - b_big)) + out)
+        return out
+
+    b, h, _, n = q_aug.shape
+    bp = bias.shape[0]
+    logit = product("bhfi,bhfj->bhij", q_aug, k_aug)
+    logit = (logit.reshape(bp, b // bp, h, n, n) + bias[:, None]).reshape(b, h, n, n)
+    attn = torch.softmax(logit * scale_total, dim=-1)
+    out = product("bhcj,bhij->bhci", torch.cat([v_s, v_p], dim=2), attn)
+    return out[:, :, :v_s.shape[2]], out[:, :, v_s.shape[2]:], attn
+
+
+@pytest.mark.parametrize("products", [3, 1])
+def test_tf32_split_products_meet_the_float32_rule_only_as_three(products):
+    """The float32 kernel's 3xTF32 arithmetic at chip_smoke.py's magnitudes
+    (L=128, ds=32, P=8, points x5, 16 padded keys) stays within its float32
+    rule against the plain version (1e-4 on weights, 1e-4 of the output
+    scale; padded keys exactly 0); one TF32 product per product does not."""
+    n, n_masked, h, ds, p = 128, 16, 2, 32, 8
+    rng = np.random.default_rng(50)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    mask = torch.ones(2, n)
+    mask[:, -n_masked:] = 0.0
+    scales = (ds ** -0.5, (4.5 * p) ** -0.5, 3 ** -0.5)
+    ops = k2.augmented_operands(f(2, n, h, ds), f(2, n, h, ds), f(2, n, h, ds),
+                                f(2, n, h, p, 3) * 5, f(2, n, h, p, 3) * 5, f(2, n, h, p, 3) * 5,
+                                f(h).abs() + 0.5, mask, *scales)
+    bias = f(1, h, n, n)
+    ref = k2.ipa_attention_core_reference(*ops, bias, scales[2])
+    got = _tf32_core(*ops, bias, scales[2], products)
+    worst = max(float((g - r).abs().max()) / (1.0 if i == 2 else max(1.0, float(r.abs().max())))
+                for i, (g, r) in enumerate(zip(got, ref)))
+    if products == 3:
+        assert worst <= 1e-4
+        assert float(got[2][..., -n_masked:].abs().max()) == 0.0
+    else:
+        assert worst > 1e-4
+
+
+def _attention_shapes():
+    """(L, F, ds, 3P) of every attention-core shape the port's configs reach
+    (the tiny, default and production configs at L = 24, 32, 77 and the
+    patch size), F as `augmented_operands` builds it."""
+    out = set()
+    for cfg in (tconfig.tiny_config(), tconfig.default_config(), tconfig.production_config()):
+        m = cfg.model
+        h, ds, p = m.n_head, m.d_scalar_per_head, m.n_query_point_per_head
+        z = lambda *s: torch.zeros(*s)
+        q_aug, _, v_s, v_p = k2.augmented_operands(
+            z(1, 2, h, ds), z(1, 2, h, ds), z(1, 2, h, ds), z(1, 2, h, p, 3), z(1, 2, h, p, 3),
+            z(1, 2, h, p, 3), torch.ones(h), torch.ones(1, 2), *SCALES)
+        out |= {(n, q_aug.shape[2], v_s.shape[2], v_p.shape[2])
+                for n in (24, 32, 77, cfg.data.patch_size)}
+    return sorted(out)
+
+
+@pytest.mark.parametrize("shape", _attention_shapes())
+def test_attention_shape_gate_accepts_the_port_shapes(shape):
+    k2.check_attention_shape(*shape)
+
+
+@pytest.mark.parametrize("shape", [(129, 64, 32, 24), (128, 80, 41, 24), (128, 56, 32, 24),
+                                   (0, 64, 32, 24)])
+def test_attention_shape_gate_rejects_what_the_kernel_does_not_take(shape):
+    with pytest.raises(ValueError):
+        k2.check_attention_shape(*shape)
+
+
 def _layer_case(seed, b, bp, fuse):
     jcfg = dataclasses.replace(jconfig.tiny_config().model, use_pallas_attention=True,
                                fuse_ipa_layer=fuse)
