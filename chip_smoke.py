@@ -8,21 +8,23 @@ Phases (any failure raises and the script exits non-zero):
   2. build every kernel from csrc/ (nvcc, sm_90a) and print the build time;
   3. each kernel against its plain PyTorch version on the card, at tiny
      shapes in float32 and bfloat16, at an L that is not a multiple of 16,
-     and at the main paths' shapes in float32 and bfloat16, with the
-     tolerances stated below; then each kernel's autograd Function against
-     autograd of its plain version (float32, b=4, L=128);
-  4. end-to-end checks: one default_config()-width bf16 denoiser forward
-     (6 layers, 8 designs of one L=128 target) on the card against the CPU
-     plain path; on small inputs, sample() on the card (kernels)
-     against sample() on the CPU (plain versions) from one initial state
-     with the same injected noise, and one training loss with its
-     gradients on the card against the CPU with the same draws, each for
-     fuse_ipa_layer None (fused-layer kernel) and False (attention-core
-     kernel);
+     at the main paths' shapes in float32 and bfloat16, and (K1) at the
+     widest shape its gate takes, with the tolerances stated below; then
+     each kernel's autograd Function against autograd of its plain version
+     (float32, b=4, L=128);
+  4. end-to-end checks: one default_config()-width denoiser forward (6
+     layers, 8 designs of one L=128 target) on the card against the CPU
+     plain path, in bf16 and in float32; on small inputs, sample() on the
+     card (kernels) against sample() on the CPU (plain versions) from one
+     initial state with the same injected noise, and one training loss
+     with its gradients on the card against the CPU with the same draws,
+     each for fuse_ipa_layer None (fused-layer kernel) and False
+     (attention-core kernel);
   5. the sampling main path: CDR-H3 codesign sampling with default_config()
      in bfloat16, 128 designs of one synthetic 128-residue target, T=100,
      seeded random weights; launch counts, output checks, designs/s and a
-     profiler breakdown of one call;
+     profiler breakdown of one call; then the same in float32, the default
+     compute dtype, with default_config() exactly as it stands ([main-f32]);
   6. the training main path, once per flag: production_config() (bf16,
      batch 32, L=128) from a seeded init on one synthetic batch, 3 warm-up
      and 20 timed steps through fit(); launch counts, loss trajectory,
@@ -59,13 +61,14 @@ N_DESIGNS, L_MAIN, N_GENERATE = 128, 128, 8
 
 # K1's bf16 kernels (csrc/ipa_fused_layer_bf16.cuh), by profiler name
 K1_LAUNCHES = ("layer_heads_kernel", "out_proj_kernel")
-K1_DESIGN = ("bf16: two launches, products on the tensor cores (mma.sync m16n8k16 bf16->f32, "
-             "ldmatrix, cp.async). 1: one block of 8 warps per (head, design): the head's Q/K/V "
+K1_DESIGN = ("two launches on head-major weights, every product on the tensor cores "
+             "(mma.sync, cp.async). 1: one block of 8 warps per (head, design): the head's Q/K/V "
              "projection kept on chip, frames and augmented operands in shared memory, each "
              "warp's 16 x L logits and float32 softmax in registers, P [v_s|v_p] from register "
-             "fragments, inverse frames and norms, bf16 per-head features out. 2: the output "
-             "projection as a cp.async double-buffered tensor-core GEMM. float32: three "
-             "CUDA-core launches")
+             "fragments, inverse frames and norms, per-head features out. 2: the output "
+             "projection as a cp.async double-buffered tensor-core GEMM. bf16: mma.sync "
+             "m16n8k16 bf16->f32 (ldmatrix). float32: 3xTF32 on mma.sync m16n8k8 (operands "
+             "split into big + small tf32 as loaded, three products), float32-exact to 1e-4")
 K2_DESIGN = ("one launch, one block of 8 warps per (head, design) (all 128 query rows), "
              "operands copied feature-major into padded shared tiles by cp.async, each warp's "
              "16 x L logits and float32 softmax in registers, P [v_s|v_p] from register "
@@ -167,8 +170,6 @@ def layer_inputs(torch, b, bp, L, d, h, ds, p, dtype, bias_dtype, seed, n_masked
     mask = torch.ones(b, L)
     mask[:, L - n_masked:] = 0.0
     scales = (ds ** -0.5, (4.5 * p) ** -0.5, 3 ** -0.5)
-    # packed on the card, as the models do: bf16 packs there carry the
-    # kernel's head-major copies
     wts = pack_layer_weights(
         w(d, h * ds), w(d, h * ds), w(d, h * ds),
         w(d, h * p * 3), w(d, h * p * 3), w(d, h * p * 3),
@@ -334,21 +335,33 @@ def check_grads(torch, name, kernel_fn, plain_fn, leaves, consts):
         raise RuntimeError(f"{name}: autograd Function disagrees with the plain version")
 
 
-def check_e2e_bf16(torch, n_designs=8, L=128, seed=0):
-    """One default_config()-width denoiser forward in bfloat16 (6 IPA
+def check_e2e(torch, compute_dtype, n_designs=8, L=128, seed=0):
+    """One default_config()-width denoiser forward in `compute_dtype` (6 IPA
     layers through K1, n_designs designs of one L-residue target, bp=1) on
     the card against the CPU plain path with the same weights and inputs.
+    The CPU runs it in float32 and in bfloat16.
 
-    Tolerance: the two round at the same points but sum in other orders
-    (K1's tensor-core tiles, cuBLAS against the CPU's kernels), so wherever
-    a float32 sum lands on the other side of a bf16 rounding boundary the
-    two round apart, and over six layers and the heads such flips spread to
-    every output.  Each is a bf16 computation of the same function, about
-    as far from the exact result as bf16 rounding puts it; taking the CPU
-    float32 forward as exact, the triangle inequality bounds their distance
-    by twice that: for each output, the largest and the mean |card - CPU
-    bf16| must be at most 2x those of |CPU float32 - CPU bf16|.  A wrong
-    kernel misses by orders of magnitude.  K1 must launch once per layer."""
+    bfloat16 tolerance: the card and the CPU round at the same points but
+    sum in other orders (K1's tensor-core tiles, cuBLAS against the CPU's
+    kernels), so wherever a float32 sum lands on the other side of a bf16
+    rounding boundary the two round apart, and over six layers and the
+    heads such flips spread to every output.  Each is a bf16 computation of
+    the same function, about as far from the exact result as bf16 rounding
+    puts it; taking the CPU float32 forward as exact, the triangle
+    inequality bounds their distance by twice that: for each output, the
+    largest and the mean |card - CPU bf16| must be at most 2x those of
+    |CPU float32 - CPU bf16|.
+
+    float32 tolerance, derived the same way: taking the CPU float32
+    forward as exact, the card's float32 forward differs from it by the
+    error of its own products, ~3 2^-22 relative for K1's 3xTF32 (cuBLAS
+    runs full float32), against bf16's 2^-8 steps for the CPU bf16
+    forward: 2^13 times finer.  So for each output, the largest and the
+    mean |card - CPU float32| must be at most 1/64 (2^-6) of those of
+    |CPU bf16 - CPU float32|, a factor 2^7 looser than that ratio for the
+    six layers to amplify the two alike.  A kernel with plain TF32
+    products (2^-11, only 2^3 finer than bf16) misses, and a wrong kernel
+    misses by orders of magnitude.  K1 must launch once per layer."""
     from diffab_pytorch_tpu_torch import config as C
     from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
     from diffab_pytorch_tpu_torch.geometry import so3
@@ -357,8 +370,11 @@ def check_e2e_bf16(torch, n_designs=8, L=128, seed=0):
     from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
     from diffab_pytorch_tpu_torch.weights import init_parameters
 
-    mcfg = C.ModelConfig(compute_dtype="bfloat16")
-    cpu_bf16 = init_parameters(DiffAbModel(mcfg, device="cpu"), torch.Generator().manual_seed(seed))
+    bf16 = compute_dtype == "bfloat16"
+    tag = "[e2e-bf16]" if bf16 else "[e2e-f32]"
+    mcfg = C.ModelConfig(compute_dtype=compute_dtype)
+    cpu_bf16 = init_parameters(DiffAbModel(C.ModelConfig(compute_dtype="bfloat16"), device="cpu"),
+                               torch.Generator().manual_seed(seed))
     models = {"card": DiffAbModel(mcfg, device="cuda"),
               "cpu_f32": DiffAbModel(C.ModelConfig(), device="cpu"), "cpu_bf16": cpu_bf16}
     for m in models.values():
@@ -386,22 +402,23 @@ def check_e2e_bf16(torch, n_designs=8, L=128, seed=0):
         if name == "card":
             launched = op.fused_ipa_layer_packed.launches - before
     ok = launched == mcfg.n_ipa_layers
+    ref, other, factor = ("cpu_bf16", "cpu_f32", 2.0) if bf16 else ("cpu_f32", "cpu_bf16", 1 / 64)
     for key in ("translations_eps", "orientations_t0", "seq_logits"):
-        ref = outs["cpu_bf16"][key]
-        d_card = (outs["card"][key] - ref).abs()
-        d_f32 = (outs["cpu_f32"][key] - ref).abs()
+        d_card = (outs["card"][key] - outs[ref][key]).abs()
+        d_other = (outs[other][key] - outs[ref][key]).abs()
         finite = bool(torch.isfinite(outs["card"][key]).all())
-        passed = (finite and d_card.max() <= 2 * d_f32.max()
-                  and d_card.mean() <= 2 * d_f32.mean())
+        passed = (finite and d_card.max() <= factor * d_other.max()
+                  and d_card.mean() <= factor * d_other.mean())
         ok = ok and passed
-        print(f"[e2e-bf16] denoiser forward, default_config() widths bf16, {n_designs} designs "
-              f"x L={L}: {key}: card vs CPU bf16 max|d| {d_card.max().item():.3e} mean "
-              f"{d_card.mean().item():.3e}; CPU f32 vs CPU bf16 max|d| {d_f32.max().item():.3e} "
-              f"mean {d_f32.mean().item():.3e} (tol: 2x these); "
-              f"{'ok' if passed else 'FAILED'}")
-    print(f"[e2e-bf16] K1 launches in the card forward {launched} (expected {mcfg.n_ipa_layers})")
+        print(f"{tag} denoiser forward, default_config() widths {compute_dtype}, {n_designs} "
+              f"designs x L={L}: {key}: card vs CPU {ref[4:]} max|d| {d_card.max().item():.3e} "
+              f"mean {d_card.mean().item():.3e}; CPU {other[4:]} vs CPU {ref[4:]} max|d| "
+              f"{d_other.max().item():.3e} mean {d_other.mean().item():.3e} (tol: {factor:g}x "
+              f"these); {'ok' if passed else 'FAILED'}")
+    print(f"{tag} K1 launches in the card forward {launched} (expected {mcfg.n_ipa_layers})")
     if not ok:
-        raise RuntimeError("the bf16 denoiser forward on the card disagrees with the CPU plain path")
+        raise RuntimeError(f"the {compute_dtype} denoiser forward on the card disagrees with the "
+                           f"CPU plain path")
 
 
 class RecordingLogger:
@@ -454,6 +471,84 @@ def profile_device(torch, fn, wall_s, label, top=12):
             print(f"[profile]   {dev_us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
     else:
         print(f"[profile] {label}: device time not measured (profiler reported none)")
+
+
+def sampling_main_path(torch, card, compute_dtype, n_calls, tag):
+    """The sampling main path: CDR-H3 codesign sample() with
+    default_config() (its model in `compute_dtype`; float32 is
+    default_config() exactly as it stands), one synthetic L=128 target,
+    128 designs sharing the context, T=100, seeded random weights.  One
+    warm-up call, then n_calls timed calls with the launch counts set to 0
+    just before them and read just after; output checks on the last; a
+    profile of one more call.  Returns ((K1, K2) launches over the timed
+    calls, designs/s of the median call)."""
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
+    from diffab_pytorch_tpu_torch.diffusion.orientation import make_orientation_tables
+    from diffab_pytorch_tpu_torch.diffusion.schedule import cosine_variance_schedule
+    from diffab_pytorch_tpu_torch.models.diffab import DiffAbModel
+    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+    from diffab_pytorch_tpu_torch.sampling.sampler import sample
+    from diffab_pytorch_tpu_torch.weights import init_parameters
+
+    cfg = C.default_config()
+    mcfg = dataclasses.replace(cfg.model, compute_dtype=compute_dtype)
+    dcfg = cfg.diffusion
+    t0 = time.perf_counter()
+    model = init_parameters(DiffAbModel(mcfg), torch.Generator().manual_seed(0))
+    sched = cosine_variance_schedule(dcfg.T, s=dcfg.s, beta_max=dcfg.beta_max, device="cuda")
+    tables = make_orientation_tables(sched)
+    target = synthetic_batch(0, 1, L_MAIN, mcfg.n_atoms, n_generate=N_GENERATE, device="cuda")
+    print(f"{tag} default_config(), compute dtype {mcfg.compute_dtype}: set-up (model, IGSO(3) "
+          f"tables, target) {time.perf_counter() - t0:.2f} s")
+
+    def run(seed):
+        return sample(model, sched, tables, target, n_designs=N_DESIGNS,
+                      generator=torch.Generator(device="cuda").manual_seed(seed))
+
+    t0 = time.perf_counter()
+    run(10)
+    torch.cuda.synchronize()
+    print(f"{tag} warm-up sample() {time.perf_counter() - t0:.2f} s")
+    op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
+    call_s = []
+    for i in range(n_calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(11 + i)
+        torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t0)
+    launches = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+    expected = (n_calls * mcfg.n_ipa_layers * dcfg.T, 0)
+    wall = sorted(call_s)[n_calls // 2]  # median call
+    print(f"{tag} {n_calls} x sample(n_designs={N_DESIGNS}, T={dcfg.T}) in {mcfg.compute_dtype}: "
+          f"{', '.join(f'{c:.4f}' for c in call_s)} s; median {N_DESIGNS / wall:.2f} designs/s "
+          f"on {card}; ipa_fused_layer launches {launches[0]} ({launches[0] / n_calls:g} per "
+          f"call), ipa_attention launches {launches[1]} (expected {expected[0]}, {expected[1]})")
+    if launches != expected:
+        raise RuntimeError(f"main path launched (fused layer, attention core) {launches} times, "
+                           f"expected {expected}")
+    ctx = ~target.generation_mask[0]
+    checks = {
+        "finite": bool(torch.isfinite(out.translations).all()
+                       and torch.isfinite(out.orientations).all()),
+        "shapes": tuple(out.translations.shape) == (N_DESIGNS, L_MAIN, 3)
+        and tuple(out.orientations.shape) == (N_DESIGNS, L_MAIN, 3, 3),
+        "orthonormal": float((out.orientations.transpose(-1, -2) @ out.orientations
+                              - torch.eye(3, device="cuda")).abs().max()) < 1e-3,
+        "context_unchanged": bool(
+            (out.seq_idx[:, ctx] == target.seq_idx[0, ctx]).all()
+            and (out.translations[:, ctx] == target.translations[0, ctx]).all()
+            and (out.orientations[:, ctx] == target.orientations[0, ctx]).all()),
+        "sequence_in_vocab": bool(((out.seq_idx >= 0) & (out.seq_idx < 21)).all()),
+        "designs_differ": bool((out.translations[0] != out.translations[1]).any()),
+    }
+    print(f"{tag} output checks {checks}")
+    if not all(checks.values()):
+        raise RuntimeError(f"main path output check failed: {checks}")
+    profile_device(torch, lambda: run(20), wall, f"one {mcfg.compute_dtype} sample() call")
+    return launches, N_DESIGNS / wall
 
 
 def main() -> int:
@@ -522,6 +617,21 @@ def main() -> int:
             torch, "bf16 L=77 with f32 bias (b=8 bp=2)",
             layer_inputs(torch, 8, 2, 77, 128, 8, 32, 8, torch.bfloat16, torch.float32, 8, 9),
             bf16=True))
+        # float32 at the tile edges: L % 8 != 0 with d % 4 != 0 (x read
+        # element by element), the training shape, and the widest shape the
+        # gate takes (ds + 3P = 64, P = 21) at narrow d and h
+        err_f32 = max(err_f32, check_layer(
+            torch, "f32 L=77 d=30 (b=8 bp=2 h=8 ds=32 p=8)",
+            layer_inputs(torch, 8, 2, 77, 30, 8, 32, 8, torch.float32, torch.float32, 9, 9),
+            bf16=False))
+        err_f32 = max(err_f32, check_layer(
+            torch, "train f32 (b=32 bp=32 L=128)",
+            layer_inputs(torch, 32, 32, **main_shape, dtype=torch.float32,
+                         bias_dtype=torch.float32, seed=18, n_masked=8), bf16=False))
+        err_f32 = max(err_f32, check_layer(
+            torch, "widest f32 (b=4 bp=1 L=128 d=20 h=2 ds=1 p=21)",
+            layer_inputs(torch, 4, 1, 128, 20, 2, 1, 21, torch.float32, torch.float32, 19, 11),
+            bf16=False))
 
         check_attention(torch, "K2 tiny f32 (b=2 bp=1 L=24 h=4 ds=8 p=4)",
                         attention_inputs(torch, 2, 1, 24, 4, 8, 4, torch.float32,
@@ -574,7 +684,8 @@ def main() -> int:
                 (aa["scale_total"],))
 
     # ---- 4. end to end on small inputs: card vs CPU ------------------------------
-    check_e2e_bf16(torch)
+    check_e2e(torch, "bfloat16")
+    check_e2e(torch, "float32")
     tiny = C.tiny_config()
     gen_cpu = torch.Generator().manual_seed(0)
     cpu_model = init_parameters(DiffAbModel(tiny.model, device="cpu"), gen_cpu)
@@ -646,65 +757,11 @@ def main() -> int:
         if d_loss > 1e-4 * max(1.0, abs(l_cpu.item())) or rel > 1e-3 or ran != want:
             raise RuntimeError("a training step on the card disagrees with the CPU plain path")
 
-    # ---- 5. sampling main path ----------------------------------------------------
-    cfg = C.default_config()
-    mcfg = C.ModelConfig(compute_dtype="bfloat16")
-    t0 = time.perf_counter()
-    model = init_parameters(DiffAbModel(mcfg), torch.Generator().manual_seed(0))
-    sched = cosine_variance_schedule(cfg.diffusion.T, s=cfg.diffusion.s,
-                                     beta_max=cfg.diffusion.beta_max, device="cuda")
-    tables = make_orientation_tables(sched)
-    target = synthetic_batch(0, 1, L_MAIN, mcfg.n_atoms, n_generate=N_GENERATE, device="cuda")
-    print(f"[main] set-up (model, IGSO(3) tables, target) {time.perf_counter() - t0:.2f} s")
-
-    def run(seed):
-        return sample(model, sched, tables, target, n_designs=N_DESIGNS,
-                      generator=torch.Generator(device="cuda").manual_seed(seed))
-
-    t0 = time.perf_counter()
-    run(10)
-    torch.cuda.synchronize()
-    print(f"[main] warm-up sample() {time.perf_counter() - t0:.2f} s")
-
-    n_calls = 3
-    op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
-    call_s = []
-    for i in range(n_calls):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = run(11 + i)
-        torch.cuda.synchronize()
-        call_s.append(time.perf_counter() - t0)
-    launches = {"sample": (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)}
-    expected = n_calls * mcfg.n_ipa_layers * cfg.diffusion.T
-    wall = sorted(call_s)[n_calls // 2]  # median call
-    designs_per_s = N_DESIGNS / wall
-    print(f"[main] {n_calls} x sample(n_designs={N_DESIGNS}, T={cfg.diffusion.T}): "
-          f"{', '.join(f'{c:.4f}' for c in call_s)} s; median {designs_per_s:.2f} "
-          f"designs/s on {card}; ipa_fused_layer launches {launches['sample'][0]} "
-          f"(expected {expected}), ipa_attention launches {launches['sample'][1]} (expected 0)")
-    if launches["sample"] != (expected, 0):
-        raise RuntimeError(f"main path launched (fused layer, attention core) "
-                           f"{launches['sample']} times, expected ({expected}, 0)")
-    bn = N_DESIGNS
-    ctx = ~target.generation_mask[0]
-    checks = {
-        "finite": bool(torch.isfinite(out.translations).all() and torch.isfinite(out.orientations).all()),
-        "shapes": tuple(out.translations.shape) == (bn, L_MAIN, 3)
-        and tuple(out.orientations.shape) == (bn, L_MAIN, 3, 3),
-        "orthonormal": float((out.orientations.transpose(-1, -2) @ out.orientations
-                              - torch.eye(3, device="cuda")).abs().max()) < 1e-3,
-        "context_unchanged": bool(
-            (out.seq_idx[:, ctx] == target.seq_idx[0, ctx]).all()
-            and (out.translations[:, ctx] == target.translations[0, ctx]).all()
-            and (out.orientations[:, ctx] == target.orientations[0, ctx]).all()),
-        "sequence_in_vocab": bool(((out.seq_idx >= 0) & (out.seq_idx < 21)).all()),
-        "designs_differ": bool((out.translations[0] != out.translations[1]).any()),
-    }
-    print(f"[main] output checks {checks}")
-    if not all(checks.values()):
-        raise RuntimeError(f"main path output check failed: {checks}")
-    profile_device(torch, lambda: run(20), wall, "one sample() call")
+    # ---- 5. sampling main path, bf16 then float32 --------------------------------------
+    launches = {}
+    launches["sample"], designs_per_s = sampling_main_path(torch, card, "bfloat16", 3, "[main]")
+    launches["sample_f32"], designs_per_s_f32 = sampling_main_path(torch, card, "float32", 2,
+                                                                   "[main-f32]")
 
     # ---- 6. training main path: production_config(), both flags -------------------
     pcfg = C.production_config()
@@ -806,12 +863,15 @@ def main() -> int:
     print("[earlier] ipa_fused_layer b=128 bp=1 L=128 bf16: 0.7938 ms per call with the earlier "
           "CUDA-core design (PERF.md, K1 row; CUDA events, calls issued by the host)")
 
-    # K1's float32 path (three CUDA-core launches), timed as bf16 above
+    # K1's float32 route (3xTF32), timed as bf16 above
     k1_f32 = {}
     for label, b, bp, seed in (("sample", N_DESIGNS, 1, 4), ("train", pb, pb, 6)):
         with torch.no_grad():
             a = layer_inputs(torch, b, bp, **main_shape, dtype=torch.float32,
                              bias_dtype=torch.float32, seed=seed, n_masked=0)
+            if label == "sample":
+                err_f32 = max(err_f32, check_layer(torch, "main f32 (b=128 bp=1 L=128)", a,
+                                                   bf16=False))
             kern = lambda a=a: op.fused_ipa_layer_packed(**a)
             km = cuda_time_ms(kern, 20)
             pm = cuda_time_ms(lambda a=a: op.fused_ipa_layer_packed_reference(**a), 5)
@@ -823,6 +883,9 @@ def main() -> int:
               f"kernel {km:.4f} / {km2:.4f} ms, plain version {pm:.4f} ms, bound {bnd:.4f} ms "
               f"({fl / 1e9:.2f} GFLOP at the 3xTF32 rate -> {t_o:.4f} ms, {nb / 1e6:.2f} MB -> "
               f"{t_b:.4f} ms; bound by {by}), {bnd / min(km, km2):.3%} of bound")
+    print("[earlier] ipa_fused_layer L=128 f32 with the earlier CUDA-core design (three "
+          "launches): 0.9785-0.9824 ms at b=128 bp=1 and 0.3148-0.3155 ms at b=bp=32 (PERF.md, "
+          "K1 row; CUDA events, queued; H100 80GB HBM3, 700 W)")
 
     # K2 in both dtypes
     k2_times = {}
@@ -884,8 +947,9 @@ def main() -> int:
         "f32": {label: k2_times[("float32", label)] for label in ("train", "sample")},
     }]
     print(json.dumps({"kernels": kernels}))
-    print(f"[main] designs/s {designs_per_s:.3f}; training steps/s {train_rates[None]:.3f} "
-          f"(fused layer) / {train_rates[False]:.3f} (attention core) (card: {card})")
+    print(f"[main] designs/s {designs_per_s:.3f} (bf16) / {designs_per_s_f32:.3f} (float32); "
+          f"training steps/s {train_rates[None]:.3f} (fused layer) / {train_rates[False]:.3f} "
+          f"(attention core) (card: {card})")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

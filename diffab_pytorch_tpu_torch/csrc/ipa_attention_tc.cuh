@@ -2,7 +2,9 @@
 // rows of one (design, head) at a time: the augmented logits
 // S = Q_aug K_aug^T, the bias, the float32 softmax, the attention weights and
 // the weighted sums P [v_s | v_p].  The caller owns the shared-memory
-// operand tiles, the grid and the epilogue (ipa_attention.cu).
+// operand tiles, the grid and the epilogue: K2 (ipa_attention.cu) in both
+// dtypes, and the float32 fused layer (ipa_fused_layer_f32.cuh), which
+// builds its float32 tiles itself in the layout described here.
 //
 // Two product routes, by the compute dtype T:
 //   bfloat16: mma.sync m16n8k16 (bf16 operands, f32 accumulation), which
@@ -23,9 +25,10 @@
 //   qa  FP x qs    [feature][query row], the block's query rows
 //   ka  FP x ks    [feature][key]
 //   va  FVP x ks   [value feature][key]
-// FP is the augmented width rounded up to 16, FVP = ds + 3P rounded up to 8,
-// keys padded to LP (a multiple of 16) with zeros; strides come from
-// tile_stride so that every fragment access is free of bank conflicts.
+// FP is the augmented width rounded up to 16 (8 is enough in float32),
+// FVP = ds + 3P rounded up to 8, keys padded to LP (a multiple of 16) with
+// zeros; strides come from tile_stride so that every fragment access is
+// free of bank conflicts.
 // Keys >= L get logit -inf, so weight exactly 0; masked keys carry
 // -1e9 / scale_total in the operands and underflow to exactly 0 as well.
 //
@@ -40,16 +43,13 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ptx.cuh"
 
 #include <cmath>
-#include <type_traits>
 
 namespace ipa_tc {
 
-using bf16 = __nv_bfloat16;
+using namespace ptx;
 
 constexpr int MAX_L = 128;                // keys and query rows per (design, head)
 constexpr int MAX_FV = 64;                // ds + 3P
@@ -57,111 +57,7 @@ constexpr int MAX_F = 80;                 // augmented features (ds + 3P + 3 pad
 constexpr int MAX_KEY_TILES = MAX_L / 8;  // 8-key tiles of one warp's logits
 constexpr int MAX_V_TILES = MAX_FV / 8;   // 8-feature tiles of its outputs
 
-template <typename T> constexpr bool is_bf16 = std::is_same<T, bf16>::value;
-
-// ---- PTX wrappers ----------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronous
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16 x 16, row) b (16 x 8, col): bf16 operands, f32 accumulation
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a (16 x 8, row) b (8 x 8, col): tf32 operands, f32 accumulation
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x rounded to tf32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
-// from zero), the 13 low bits cleared.  Half an ulp added to the magnitude
-// bits, then truncated: two integer instructions, which made the float32
-// kernel faster on the H100 than the cvt instruction did.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-// x = big + small + O(2^-22 |x|), both in tf32; x - big is exact
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<bf16>(bf16 v) { return __bfloat162float(v); }
-
-template <typename TB> __device__ __forceinline__ float load_f(const TB* p) {
-  return to_f<TB>(*p);
-}
-// two neighbours at an even element index
-template <typename TB> __device__ __forceinline__ void load_f2(const TB* p, float& a, float& b);
-template <> __device__ __forceinline__ void load_f2<float>(const float* p, float& a, float& b) {
-  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
-  a = v.x, b = v.y;
-}
-template <> __device__ __forceinline__ void load_f2<bf16>(const bf16* p, float& a, float& b) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
-  a = __low2float(v), b = __high2float(v);
-}
-
 // ---- tiles -------------------------------------------------------------------
-__host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
-
-// Row stride (elements) of a tile whose rows hold n elements (n a multiple
-// of 16).  bf16: an odd count of 16-byte chunks, so the 8 rows one ldmatrix
-// reads fall in 8 distinct groups of 4 banks.  float32: 8 more than a
-// multiple of 32, so rows t and columns g of a fragment load (t * 8 + g)
-// and the 8-byte loads of V (8 g + 2 t) hit 32 distinct banks.
-template <typename T> __host__ __device__ constexpr int tile_stride(int n) {
-  return is_bf16<T> ? ((n / 8) % 2 ? n : n + 8) : round_up(n, 32) + 8;
-}
-
 // rows x cols tile at dst (row stride `stride`) from a row-major source of
 // rows_valid rows of L elements, its first cols columns; zeros outside the
 // source.  vec (L % 8 == 0): 16-byte cp.async pieces, each wholly

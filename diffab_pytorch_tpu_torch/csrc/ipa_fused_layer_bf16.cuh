@@ -35,12 +35,12 @@
 // hide the waits on loads and shared memory.  More warps in flight need
 // less shared memory and fewer registers per block than this layout.
 //
-// Weight layouts (made once by ops/ipa_fused_layer.py head_major_weights,
-// a permutation of pack_layer_weights' output plus zero padding):
-//   w_qkv_heads (h, d, 3 FVP): per head and input row [q | k | v], each
+// Weight layouts (ops/ipa_fused_layer.py pack_layer_weights, the one
+// head-major layout that both product routes read):
+//   w_qkv (h, d, 3 FVP): per head and input row [q | k | v], each
 //     [scalar (ds) | points (3, P) | 0 pad];
-//   w_out_heads (h FH, dP): per head the rows [W_s (ds) | W_p (3, P) |
-//     W_n (P) | 0 pad], columns padded with zeros to dP = d rounded up to 8.
+//   w_out (h FH, dP): per head the rows [W_s (ds) | W_p (3, P) | W_n (P) |
+//     0 pad], columns padded with zeros to dP = d rounded up to 8.
 //
 // Shared memory of launch 1 (layer_dims): frames 13 LP floats, then one
 // region that first holds two projection stages (x slice LP x 72 and W
@@ -56,82 +56,15 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ptx.cuh"
 
 #include <cmath>
 
 namespace tc {
 
-using bf16 = __nv_bfloat16;
-
-// ---- PTX wrappers ----------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronous; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16 x 16, row) b (16 x 8, col): bf16 operands, f32 accumulation
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using namespace ptx;
 
 __device__ __forceinline__ float rnd(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-
-template <typename TB> __device__ __forceinline__ float load_f(const TB* p);
-template <> __device__ __forceinline__ float load_f<float>(const float* p) { return __ldg(p); }
-template <> __device__ __forceinline__ float load_f<bf16>(const bf16* p) {
-  return __bfloat162float(*p);
-}
-// two neighbours at an even element index
-template <typename TB> __device__ __forceinline__ void load_f2(const TB* p, float& a, float& b);
-template <> __device__ __forceinline__ void load_f2<float>(const float* p, float& a, float& b) {
-  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
-  a = v.x, b = v.y;
-}
-template <> __device__ __forceinline__ void load_f2<bf16>(const bf16* p, float& a, float& b) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
-  a = __low2float(v), b = __high2float(v);
-}
 
 // ---- shapes -------------------------------------------------------------------
 constexpr int THREADS = 256;
@@ -139,12 +72,6 @@ constexpr int KC = 64;             // projection depth per cp.async stage
 constexpr int MAX_FA_STEPS = 5;    // FAP / 16 with FAP <= 80
 constexpr int MAX_KEY_TILES = 16;  // LP / 8 with LP <= 128
 constexpr int MAX_V_TILES = 8;     // FVP / 8
-
-__host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
-// row stride (elements) of a bf16 tile whose rows hold n (a multiple of 8)
-// elements: an odd count of 16-byte chunks, so that the 8 rows one
-// ldmatrix reads fall in 8 distinct groups of 4 banks
-__host__ __device__ constexpr int stride_of(int n) { return (n / 8) % 2 ? n : n + 8; }
 
 struct Dims {
   int L, LP, d, h, ds, p, FV, FVP, FAP, NQ, FH;
@@ -160,9 +87,9 @@ inline Dims layer_dims(int L, int d, int h, int ds, int p) {
   D.L = L, D.LP = round_up(L, 16), D.d = d, D.h = h, D.ds = ds, D.p = p;
   D.FV = ds + 3 * p, D.FVP = round_up(D.FV, 8), D.FAP = round_up(D.FV + 3, 16);
   D.NQ = 3 * D.FVP, D.FH = round_up(ds + 4 * p, 8);
-  D.xs = stride_of(KC), D.ws = stride_of(D.NQ), D.qs = stride_of(D.FAP),
-  D.vs = stride_of(D.FVP);
-  D.ps = D.LP + 4, D.as = D.LP + 8, D.os = stride_of(D.FVP);
+  D.xs = tile_stride<bf16>(KC), D.ws = tile_stride<bf16>(D.NQ);
+  D.qs = tile_stride<bf16>(D.FAP), D.vs = tile_stride<bf16>(D.FVP);
+  D.ps = D.LP + 4, D.as = D.LP + 8, D.os = tile_stride<bf16>(D.FVP);
   D.warp_bytes = 16 * (D.as * 2 > D.os * 4 ? D.as * 2 : D.os * 4);
   D.stage_bytes = (D.LP * D.xs + KC * D.ws) * 2;
   const int points = 9 * p * D.ps * 4, warps = D.LP / 16 * D.warp_bytes;
@@ -179,7 +106,7 @@ layer_heads_kernel(const bf16* __restrict__ x,        // (b, L, d)
                    const bf16* __restrict__ rot,      // (b, L, 3, 3)
                    const bf16* __restrict__ trans,    // (b, L, 3)
                    const bf16* __restrict__ mask,     // (b, L)
-                   const bf16* __restrict__ w_heads,  // (h, d, 3 FVP)
+                   const bf16* __restrict__ w_qkv,    // (h, d, 3 FVP)
                    const float* __restrict__ g,       // (h,)
                    const TB* __restrict__ bias,       // (bp, h, L, L)
                    bf16* __restrict__ feat,           // (b L, h FH)
@@ -208,7 +135,7 @@ layer_heads_kernel(const bf16* __restrict__ x,        // (b, L, d)
 
   const size_t row_base = (size_t)design * L;
   const bf16* xg = x + row_base * d;
-  const bf16* wg = w_heads + (size_t)hh * d * NQ;
+  const bf16* wg = w_qkv + (size_t)hh * d * NQ;
   const float g_t = rnd(g[hh]);
 
   // ---- a. projection ---------------------------------------------------------
@@ -278,7 +205,7 @@ layer_heads_kernel(const bf16* __restrict__ x,        // (b, L, d)
             if (vt < v_tiles) {
               uint32_t b[2];
               ldsm_x2_t(b, wrow + part * FVP + vt * 8);
-              mma(acc[part][vt], a, b[0], b[1]);
+              mma_bf16(acc[part][vt], a, b[0], b[1]);
             }
           }
       }
@@ -376,8 +303,8 @@ layer_heads_kernel(const bf16* __restrict__ x,        // (b, L, d)
           uint32_t kb[4];
           ldsm_x4(kb, ka + (np * 16 + (lane & 7) + (lane >> 4) * 8) * D.qs + ks * 16 +
                           ((lane >> 3) & 1) * 8);
-          mma(s[2 * np], a, kb[0], kb[1]);
-          mma(s[2 * np + 1], a, kb[2], kb[3]);
+          mma_bf16(s[2 * np], a, kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], a, kb[2], kb[3]);
         }
       }
     }
@@ -476,21 +403,22 @@ layer_heads_kernel(const bf16* __restrict__ x,        // (b, L, d)
 #pragma unroll
   for (int ks = 0; ks < MAX_KEY_TILES / 2; ++ks) {
     if (2 * ks < key_tiles) {
-      const uint32_t a[4] = {pack(s[2 * ks][0], s[2 * ks][1]), pack(s[2 * ks][2], s[2 * ks][3]),
-                             pack(s[2 * ks + 1][0], s[2 * ks + 1][1]),
-                             pack(s[2 * ks + 1][2], s[2 * ks + 1][3])};
+      const uint32_t a[4] = {pack_bf16(s[2 * ks][0], s[2 * ks][1]),
+                             pack_bf16(s[2 * ks][2], s[2 * ks][3]),
+                             pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]),
+                             pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3])};
 #pragma unroll
       for (int vp = 0; vp < MAX_V_TILES / 2; ++vp) {
         if (2 * vp + 1 < v_tiles) {
           uint32_t vb[4];
           ldsm_x4_t(vb, va + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * D.vs + vp * 16 +
                             (lane >> 4) * 8);
-          mma(o[2 * vp], a, vb[0], vb[1]);
-          mma(o[2 * vp + 1], a, vb[2], vb[3]);
+          mma_bf16(o[2 * vp], a, vb[0], vb[1]);
+          mma_bf16(o[2 * vp + 1], a, vb[2], vb[3]);
         } else if (2 * vp < v_tiles) {
           uint32_t vb[2];
           ldsm_x2_t(vb, va + (ks * 16 + (lane & 15)) * D.vs + vp * 16);
-          mma(o[2 * vp], a, vb[0], vb[1]);
+          mma_bf16(o[2 * vp], a, vb[0], vb[1]);
         }
       }
     }
@@ -611,8 +539,8 @@ out_proj_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __
                         [wn + np * 16 + (lane >> 4) * 8]);
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
-          mma(acc[mi][2 * np], a[mi], b[0], b[1]);
-          mma(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
+          mma_bf16(acc[mi][2 * np], a[mi], b[0], b[1]);
+          mma_bf16(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
         }
       }
     }

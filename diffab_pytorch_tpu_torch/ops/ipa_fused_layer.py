@@ -11,11 +11,10 @@ inverse frames and point norms, and the W_s / W_p / W_n output
 projections.  Returns (acc (b, L, d), attn (b, h, L, L)).
 
 Weights enter in their native flax column orders; `pack_layer_weights`
-reorders the point columns (h, P, 3) -> (h, 3, P) and folds
-scale_scalar and g = sqrt(0.5 * scale_point * gamma) into them, as the
-JAX wrapper does.  For bfloat16 weights on the card it also makes the
-head-major copies the tensor-core kernel reads (`head_major_weights`: a
-permutation of the packed weights plus zero padding).  The sampler packs
+reorders the point columns (h, P, 3) -> (h, 3, P), folds scale_scalar and
+g = sqrt(0.5 * scale_point * gamma) into them, as the JAX wrapper does, and
+lays them out head-major with zero padding: the one layout that both
+kernel routes, the plain version and the backward read.  The sampler packs
 once per `sample()` call.
 
 On a CPU tensor the wrapper runs `fused_ipa_layer_packed_reference`; on a
@@ -31,7 +30,7 @@ directly and nothing is saved.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -44,16 +43,15 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 class LayerKernelWeights(NamedTuple):
-    """One layer's kernel operands in the compute dtype.
+    """One layer's kernel operands in the compute dtype, head-major (FVP =
+    ds + 3P and FH = ds + 4P rounded up to 8, dP = d rounded up to 8):
 
-    w_qkv: (d, 3 h (ds + 3P)) = [wq | wk | wv], per block [scalar columns
-        (h, ds) | point columns (h, 3, P)], scale_scalar folded into the
+    w_qkv: (h, d, 3 FVP), per head and input row [q | k | v], each
+        [scalar (ds) | points (3, P) | zeros], scale_scalar folded into the
         q scalar columns and g into the q/k point columns;
-    w_out: (h (ds + 4P), d) = [W_s; W_p with rows (h, 3, P); W_n];
-    g: (h,) float32, sqrt(0.5 * scale_point * gamma);
-    w_qkv_heads, w_out_heads: the bfloat16 kernel's head-major copies of
-        w_qkv and w_out (`head_major_weights`); None in float32 and on the
-        CPU, where nothing reads them."""
+    w_out: (h FH, dP), per head the rows [W_s (ds) | W_p (3, P) | W_n (P) |
+        zeros], its columns padded with zeros;
+    g: (h,) float32, sqrt(0.5 * scale_point * gamma)."""
 
     w_qkv: torch.Tensor
     w_out: torch.Tensor
@@ -61,12 +59,16 @@ class LayerKernelWeights(NamedTuple):
     n_head: int
     d_scalar: int
     n_point: int
-    w_qkv_heads: Optional[torch.Tensor] = None
-    w_out_heads: Optional[torch.Tensor] = None
 
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+def _pad(t, pad):
+    """F.pad with zeros, skipped where there is nothing to pad (the default
+    widths): a pad by 0 would still copy t."""
+    return F.pad(t, pad) if any(pad) else t
 
 
 def check_kernel_shape(L: int, d: int, h: int, ds: int, p: int) -> None:
@@ -82,64 +84,39 @@ def check_kernel_shape(L: int, d: int, h: int, ds: int, p: int) -> None:
                          f"ds + 3P = {ds + 3 * p}")
 
 
-@torch.no_grad()  # read by the kernel only, never differentiated
-def head_major_weights(w_qkv, w_out, h: int, ds: int, p: int):
-    """The bfloat16 kernel's weight layouts, a permutation of the packed
-    weights plus zero padding (FVP = ds + 3P and FH = ds + 4P rounded up to
-    8, dP = d rounded up to 8):
-
-    w_qkv_heads (h, d, 3 FVP): per head and input row [q | k | v], each
-        [scalar (ds) | points (3, P) | zeros];
-    w_out_heads (h FH, dP): per head the rows [W_s (ds) | W_p (3, P) |
-        W_n (P) | zeros], columns padded with zeros."""
-    d = w_qkv.shape[0]
-    fv = ds + 3 * p
-    fvp, fh, dp = _round_up(fv, 8), _round_up(ds + 4 * p, 8), _round_up(d, 8)
-    parts = w_qkv.reshape(d, 3, h * fv)
-    per_head = torch.cat([parts[..., : h * ds].reshape(d, 3, h, ds),
-                          parts[..., h * ds:].reshape(d, 3, h, 3 * p)], dim=-1)
-    w_qkv_heads = F.pad(per_head, (0, fvp - fv)).permute(2, 0, 1, 3).reshape(h, d, 3 * fvp)
-    w_s, w_p, w_n = torch.split(w_out, [h * ds, h * 3 * p, h * p])
-    rows = torch.cat([w_s.reshape(h, ds, d), w_p.reshape(h, 3 * p, d),
-                      w_n.reshape(h, p, d)], dim=1)
-    w_out_heads = F.pad(rows, (0, dp - d, 0, fh - ds - 4 * p)).reshape(h * fh, dp)
-    return w_qkv_heads.contiguous(), w_out_heads.contiguous()
-
-
 def pack_layer_weights(
     w_qs, w_ks, w_vs, w_qp, w_kp, w_vp, w_os, w_op, w_on,
     gamma, scale_scalar: float, scale_point: float, dtype: torch.dtype,
 ) -> LayerKernelWeights:
     """Reorder and pre-scale the native weights (ipa_pallas.py _pallas_layer,
-    the weight block): products are taken in the weights' own dtype, then
-    cast to `dtype`.  bfloat16 weights on the card also get the kernel's
-    head-major copies."""
+    the weight block) into the head-major layout of `LayerKernelWeights`:
+    products are taken in the weights' own dtype, then cast to `dtype`.  A
+    permutation plus zero padding, differentiable: gradients reach the
+    native weights and gamma through it."""
     d = w_qs.shape[0]
     h = gamma.shape[0]
     ds = w_qs.shape[1] // h
-    pq = w_qp.shape[1] // (h * 3)
-    pv = w_vp.shape[1] // (h * 3)
-    if pq != pv:
+    p = w_qp.shape[1] // (h * 3)
+    if w_vp.shape[1] // (h * 3) != p:
         raise ValueError("fused layer kernel assumes equal q/v point counts")
-    g = torch.sqrt(0.5 * scale_point * gamma.float())
+    fv = ds + 3 * p
+    fvp, fh, dp = _round_up(fv, 8), _round_up(ds + 4 * p, 8), _round_up(d, 8)
+    g = torch.sqrt(0.5 * scale_point * gamma.to(torch.promote_types(gamma.dtype, torch.float32)))
 
-    def reorder(w, n):  # columns (h, n, 3) -> (h, 3, n)
-        return w.reshape(d, h, n, 3).transpose(2, 3).reshape(d, h * 3 * n)
+    def heads(w_s, w_p, scale_points):  # -> (h, d, FVP) [scalar | points (3, P) | zeros]
+        pts = w_p.reshape(d, h, p, 3).transpose(2, 3)
+        if scale_points:
+            pts = pts * g.to(w_p.dtype)[None, :, None, None]
+        block = torch.cat([w_s.reshape(d, h, ds), pts.reshape(d, h, 3 * p)], dim=-1)
+        return _pad(block.to(dtype), (0, fvp - fv)).transpose(0, 1)
 
-    def scale_heads(w, n):
-        return (w.reshape(d, h, 3 * n) * g.to(w.dtype)[None, :, None]).reshape(d, h * 3 * n)
-
-    wq = torch.cat([w_qs * torch.tensor(scale_scalar, dtype=w_qs.dtype),
-                    scale_heads(reorder(w_qp, pq), pq)], dim=1).to(dtype)
-    wk = torch.cat([w_ks, scale_heads(reorder(w_kp, pq), pq)], dim=1).to(dtype)
-    wv = torch.cat([w_vs, reorder(w_vp, pv)], dim=1).to(dtype)
-    w_op_r = w_op.reshape(h, pv, 3, d).transpose(1, 2).reshape(h * 3 * pv, d)
-    w_out = torch.cat([w_os.to(dtype), w_op_r.to(dtype), w_on.to(dtype)], dim=0)
-    w_qkv = torch.cat([wq, wk, wv], dim=1).contiguous()
-    heads = (None, None)
-    if dtype == torch.bfloat16 and w_qkv.is_cuda:
-        heads = head_major_weights(w_qkv, w_out, h, ds, pq)
-    return LayerKernelWeights(w_qkv, w_out.contiguous(), g.contiguous(), h, ds, pq, *heads)
+    w_qkv = torch.cat([heads(w_qs * torch.tensor(scale_scalar, dtype=w_qs.dtype), w_qp, True),
+                       heads(w_ks, w_kp, True), heads(w_vs, w_vp, False)], dim=-1)
+    rows = torch.cat([w_os.reshape(h, ds, d),
+                      w_op.reshape(h, p, 3, d).transpose(1, 2).reshape(h, 3 * p, d),
+                      w_on.reshape(h, p, d)], dim=1).to(dtype)
+    w_out = _pad(rows, (0, dp - d, 0, fh - ds - 4 * p)).reshape(h * fh, dp)
+    return LayerKernelWeights(w_qkv.contiguous(), w_out.contiguous(), g.contiguous(), h, ds, p)
 
 
 def fused_ipa_layer_packed_reference(x, rot, trans, mask, wts: LayerKernelWeights,
@@ -152,18 +129,20 @@ def fused_ipa_layer_packed_reference(x, rot, trans, mask, wts: LayerKernelWeight
     dt = x.dtype
     b, L, d = x.shape
     h, ds, p = wts.n_head, wts.d_scalar, wts.n_point
+    fv = ds + 3 * p
     bp = bias.shape[0]
     n = b // bp
-    fq = h * (ds + 3 * p)
-    proj = (x.to(f32).reshape(b * L, d) @ wts.w_qkv.to(f32)).reshape(b, L, 3, fq)
+    # per head [q | k | v], the zero padding dropped
+    proj = torch.einsum("bld,hdn->blhn", x.to(f32), wts.w_qkv.to(f32))
+    proj = proj.reshape(b, L, h, 3, -1)[..., :fv]
     R = rot.to(f32)  # (b, L, 3, 3), values in the compute dtype
     trv = trans.to(f32)
     trg = (trans[:, :, None, :] * wts.g.to(dt)[None, None, :, None]).to(f32)
 
     def split(part, t):
-        pr = proj[:, :, part]
-        sc = pr[..., : h * ds].reshape(b, L, h, ds)
-        pt = pr[..., h * ds:].reshape(b, L, h, 3, p)
+        pr = proj[:, :, :, part]
+        sc = pr[..., :ds]
+        pt = pr[..., ds:].reshape(b, L, h, 3, p)
         # frames: out_c = sum_i pt_i R[i, c] + t_c
         pg = (pt[:, :, :, 0:1] * R[:, :, None, 0, :, None]
               + pt[:, :, :, 1:2] * R[:, :, None, 1, :, None]
@@ -195,9 +174,9 @@ def fused_ipa_layer_packed_reference(x, rot, trans, mask, wts: LayerKernelWeight
            + dd[:, :, :, None, 1] * R[:, :, None, :, 1, None]
            + dd[:, :, :, None, 2] * R[:, :, None, :, 2, None])  # (b, L, h, 3, P)
     nrm = torch.sqrt((loc * loc).sum(dim=-2) + 1e-8)  # (b, L, h, P)
-    feat = torch.cat([os_.reshape(b, L, h * ds), loc.reshape(b, L, h * 3 * p),
-                      nrm.reshape(b, L, h * p)], dim=-1).to(dt).to(f32)
-    acc = (feat @ wts.w_out.to(f32)).to(dt)
+    feat = torch.cat([os_, loc.reshape(b, L, h, 3 * p), nrm], dim=-1).to(dt).to(f32)
+    w_out = wts.w_out.reshape(h, -1, wts.w_out.shape[-1])[:, :ds + 4 * p, :d]
+    acc = torch.einsum("blhf,hfd->bld", feat, w_out.to(f32)).to(dt)
     return acc, at
 
 
@@ -207,29 +186,24 @@ def _check(x, rot, trans, mask, wts, bias):
     dt = x.dtype
     if dt not in _DTYPE_CODE:
         raise TypeError(f"unsupported compute dtype {dt}")
+    fvp, fh = _round_up(ds + 3 * p, 8), _round_up(ds + 4 * p, 8)
     expect = {
         "rot": (rot, (b, L, 3, 3), dt), "trans": (trans, (b, L, 3), dt),
         "mask": (mask, (b, L), dt),
-        "w_qkv": (wts.w_qkv, (d, 3 * h * (ds + 3 * p)), dt),
-        "w_out": (wts.w_out, (h * (ds + 4 * p), d), dt),
+        "w_qkv": (wts.w_qkv, (h, d, 3 * fvp), dt),
+        "w_out": (wts.w_out, (h * fh, _round_up(d, 8)), dt),
         "g": (wts.g, (h,), torch.float32),
     }
-    if wts.w_qkv_heads is not None or wts.w_out_heads is not None:
-        fvp, fh = _round_up(ds + 3 * p, 8), _round_up(ds + 4 * p, 8)
-        expect["w_qkv_heads"] = (wts.w_qkv_heads, (h, d, 3 * fvp), dt)
-        expect["w_out_heads"] = (wts.w_out_heads, (h * fh, _round_up(d, 8)), dt)
     for name, (t, shape, dtype) in expect.items():
-        if t is None or tuple(t.shape) != shape or t.dtype != dtype:
-            got = None if t is None else (tuple(t.shape), t.dtype)
-            raise ValueError(f"{name}: expected {shape} {dtype}, got {got}")
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {shape} {dtype}, got {(tuple(t.shape), t.dtype)}")
     bp = bias.shape[0]
     if bias.dim() != 4 or tuple(bias.shape[1:]) != (h, L, L) or b % bp:
         raise ValueError(f"bias: expected (bp, {h}, {L}, {L}) with b % bp == 0, "
                          f"got {tuple(bias.shape)}")
     if bias.dtype not in (torch.float32, dt):
         raise TypeError(f"bias dtype {bias.dtype} is neither float32 nor {dt}")
-    tensors = tuple(t for t in (x, rot, trans, mask, bias, wts.w_qkv, wts.w_out, wts.g,
-                                wts.w_qkv_heads, wts.w_out_heads) if t is not None)
+    tensors = (x, rot, trans, mask, bias, wts.w_qkv, wts.w_out, wts.g)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {devices}")
@@ -241,10 +215,8 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("ipa_fused_layer")
     if lib.ipa_fused_layer_forward.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ipa_fused_layer_forward.argtypes = [p] * 12 + [i] * 7 + [f, f, p]
-        lib.ipa_fused_layer_forward_bf16.argtypes = [i] + [p] * 11 + [i] * 7 + [f, f, p]
+        lib.ipa_fused_layer_forward.argtypes = [i, i] + [p] * 11 + [i] * 7 + [f, f, p]
         lib.ipa_fused_layer_forward.restype = ctypes.c_int
-        lib.ipa_fused_layer_forward_bf16.restype = ctypes.c_int
         lib.ipa_fused_layer_error_string.argtypes = [ctypes.c_int]
         lib.ipa_fused_layer_error_string.restype = ctypes.c_char_p
     return lib
@@ -257,26 +229,14 @@ def _launch(x, rot, trans, mask, wts, bias, scale_total):
     dev, dt = x.device, x.dtype
     acc = torch.empty((b, L, d), dtype=dt, device=dev)
     attn = torch.empty((b, h, L, L), dtype=dt, device=dev)
+    feat = torch.empty((b * L, h * _round_up(ds + 4 * p, 8)), dtype=dt, device=dev)
     lib = _library()
-    shape = (b, bias.shape[0], L, d, h, ds, p,
-             float(scale_total), float(-_NEG_INF / float(scale_total)))
+    args = (x, rot, trans, mask, wts.w_qkv, wts.w_out, wts.g, bias, feat, acc, attn)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if dt == torch.bfloat16:
-            heads = (wts.w_qkv_heads, wts.w_out_heads)
-            if heads[0] is None:
-                raise ValueError("the bfloat16 kernel reads head-major weights: pack the "
-                                 "weights on the card with pack_layer_weights")
-            feat = torch.empty((b * L, h * _round_up(ds + 4 * p, 8)), dtype=dt, device=dev)
-            args = (x, rot, trans, mask, *heads, wts.g, bias, feat, acc, attn)
-            err = lib.ipa_fused_layer_forward_bf16(
-                _DTYPE_CODE[bias.dtype], *(t.data_ptr() for t in args), *shape, stream)
-        else:
-            proj = torch.empty((b * L, 3 * h * (ds + 3 * p)), dtype=torch.float32, device=dev)
-            feat = torch.empty((b * L, h * (ds + 4 * p)), dtype=dt, device=dev)
-            args = (x, rot, trans, mask, wts.w_qkv, wts.w_out, wts.g, bias, proj, feat, acc,
-                    attn)
-            err = lib.ipa_fused_layer_forward(*(t.data_ptr() for t in args), *shape, stream)
+        err = lib.ipa_fused_layer_forward(
+            _DTYPE_CODE[dt], _DTYPE_CODE[bias.dtype], *(t.data_ptr() for t in args),
+            b, bias.shape[0], L, d, h, ds, p, float(scale_total),
+            float(-_NEG_INF / float(scale_total)), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         msg = lib.ipa_fused_layer_error_string(err).decode()
         raise RuntimeError(f"ipa_fused_layer kernel launch failed: {msg} ({err})")
@@ -292,15 +252,13 @@ def _packed_reference(x, rot, trans, mask, w_qkv, w_out, g, bias, shape, scale_t
 
 class _FusedLayer(torch.autograd.Function):
     """Forward: the kernel.  Backward: autograd of the plain version on the
-    saved inputs and packed weights.  The head-major copies ride along as a
-    tuple, outside autograd: they are permutations of w_qkv and w_out, so
-    the gradients reach the parameters through those two."""
+    saved inputs and head-major weights."""
 
     @staticmethod
-    def forward(ctx, x, rot, trans, mask, w_qkv, w_out, g, bias, heads, shape, scale_total):
+    def forward(ctx, x, rot, trans, mask, w_qkv, w_out, g, bias, shape, scale_total):
         ctx.save_for_backward(x, rot, trans, mask, w_qkv, w_out, g, bias)
         ctx.shape, ctx.scale_total = shape, scale_total
-        wts = LayerKernelWeights(w_qkv, w_out, g, *shape, *heads)
+        wts = LayerKernelWeights(w_qkv, w_out, g, *shape)
         return _launch(x, rot, trans, mask, wts, bias, scale_total)
 
     @staticmethod
@@ -308,7 +266,7 @@ class _FusedLayer(torch.autograd.Function):
         grads = recompute_grads(_packed_reference, ctx.saved_tensors,
                                 ctx.needs_input_grad[:8], (g_acc, g_attn),
                                 ctx.shape, ctx.scale_total)
-        return (*grads, None, None, None)
+        return (*grads, None, None)
 
 
 def fused_ipa_layer_packed(x, rot, trans, mask, wts: LayerKernelWeights, bias,
@@ -324,8 +282,8 @@ def fused_ipa_layer_packed(x, rot, trans, mask, wts: LayerKernelWeights, bias,
         raise ValueError(f"no fused IPA layer for device {x.device}")
     args = (x, rot, trans, mask, wts.w_qkv, wts.w_out, wts.g, bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return _FusedLayer.apply(*args, (wts.w_qkv_heads, wts.w_out_heads),
-                                 (wts.n_head, wts.d_scalar, wts.n_point), float(scale_total))
+        return _FusedLayer.apply(*args, (wts.n_head, wts.d_scalar, wts.n_point),
+                                 float(scale_total))
     return _launch(x, rot, trans, mask, wts, bias, scale_total)
 
 
