@@ -5,7 +5,8 @@
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit, torch and CUDA versions;
-  2. build every kernel from csrc/ (nvcc, sm_90a) and print the build time;
+  2. build every kernel from csrc/ (nvcc, sm_90a) and print the build time,
+     registers, shared memory and each kernel's instruction count ([sass]);
   3. each kernel against its plain PyTorch version on the card, at tiny
      shapes in float32 and bfloat16, at an L that is not a multiple of 16,
      at the main paths' shapes in float32 and bfloat16, and (K1) at the
@@ -15,25 +16,43 @@ Phases (any failure raises and the script exits non-zero):
   4. end-to-end checks: one default_config()-width denoiser forward (6
      layers, 8 designs of one L=128 target) on the card against the CPU
      plain path, in bf16 and in float32; on small inputs, sample() on the
-     card (kernels) against sample() on the CPU (plain versions) from one
-     initial state with the same injected noise, and one training loss
-     with its gradients on the card against the CPU with the same draws,
-     each for fuse_ipa_layer None (fused-layer kernel) and False
-     (attention-core kernel);
+     card (kernels) against sample() on the CPU (plain versions) with the
+     same injected draws, and one training loss with its gradients on the
+     card against the CPU with the same draws, each for fuse_ipa_layer None
+     (fused-layer kernel) and False (attention-core kernel);
   5. the sampling main path: CDR-H3 codesign sampling with default_config()
      in bfloat16, 128 designs of one synthetic 128-residue target, T=100,
      seeded random weights; launch counts, output checks, designs/s and a
      profiler breakdown of one call; then the same in float32, the default
-     compute dtype, with default_config() exactly as it stands ([main-f32]);
+     compute dtype ([main-f32]);
   6. the training main path, once per flag: production_config() (bf16,
      batch 32, L=128) from a seeded init on one synthetic batch, 3 warm-up
      and 20 timed steps through fit(); launch counts, loss trajectory,
      state checks, steps/s and samples/s, and a profile of one step;
-  7. per-launch kernel times against the plain version and the bound, in
-     bfloat16 and float32 (float32 bounds at the 3xTF32 rate), K1's two
-     bf16 launches timed apart with the card's idle time between them
-     (profiler), and K2 with one block or two per (head, design);
-  8. a `kernels` JSON line, the card line, and the final JSON line.
+  7. per-launch kernel times at L = 128 against the plain version and the
+     bound, in bfloat16 and float32 (float32 bounds at the 3xTF32 rate),
+     K1's two bf16 launches timed apart with the card's idle time between
+     them (profiler);
+  8. [long] patches longer than 128 residues: both kernels against their
+     plain versions at L = 136, 200, 256 (b = bp = 32 and b = 128, bp = 1),
+     129 and 384, in both dtypes, and their times at L = 256; [e2e-long]
+     sample() and a training loss with its gradients, card against CPU,
+     at L = 256 for both flags;
+  9. [fast] short few-step chains (chord init, fine tail, noise_t_max,
+     heun, ab2, ddim, posterior orientations, t-restart, trajectory),
+     card against CPU for both flags;
+  10. [main-256]: the sampling main path on one 256-residue target, and a
+     few production fit() steps at L = 256, batch 8, per flag; [fast]:
+     K1 against its plain version at b = 512 (the recipes' widest shape),
+     then bench.py's three few-step recipes on the [main] target (chord-10
+     and 22-eval at 512 designs, the 25-step chain at 128);
+  11. a `kernels` JSON line, the card line, and the final JSON line.
+
+The L = 128 kernel times (phase 7) run where they ran before the long-patch
+and few-step phases existed, so that two versions of this script read them
+after the same work.  To time another checkout's package with this script's
+phase, load this file with importlib from inside that checkout and call
+kernel_times(torch, card, 32).
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
 """
@@ -44,6 +63,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -58,6 +78,15 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 494.7e12 / 3}
 PEAK_BYTES = 3.35e12
 
 N_DESIGNS, L_MAIN, N_GENERATE = 128, 128, 8
+
+# the few-step recipes bench.py times after the headline (name, designs,
+# sample() options; t_start = 6 T / 10 at T = 100)
+FAST_RECIPES = (
+    ("chord-10", 512, dict(n_steps=10, init="chord", t_start=60, noise_scale=0.0)),
+    ("22-eval", 512, dict(n_steps=22, n_fine_tail=12, noise_t_max=12, init="chord",
+                          t_start=60, noise_scale=1.0)),
+    ("25-step", 128, dict(n_steps=25)),
+)
 
 # K1's bf16 kernels (csrc/ipa_fused_layer_bf16.cuh), by profiler name
 K1_LAUNCHES = ("layer_heads_kernel", "out_proj_kernel")
@@ -93,6 +122,29 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def sass_counts(build) -> dict:
+    """Machine instructions per kernel in each built library (`cuobjdump
+    -sass`), keyed "<source>: <demangled kernel>", to compare the code two
+    trees generate.  `build` is the package's `ops._build` module."""
+    cuda_bin = os.path.dirname(os.path.realpath(build._nvcc()))
+    counts = {}
+    for name in sorted(p.stem for p in build.CSRC.glob("*.cu")):
+        sass = subprocess.run([os.path.join(cuda_bin, "cuobjdump"), "-sass",
+                               str(build._library_path(name))],
+                              capture_output=True, text=True, check=True).stdout
+        kernel = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                kernel = subprocess.run([os.path.join(cuda_bin, "cu++filt")],
+                                        input=line.split("Function :")[1].strip(),
+                                        capture_output=True, text=True).stdout.strip()
+                kernel = f"{name}: {kernel}"
+                counts[kernel] = 0
+            elif kernel and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):  # one per instruction
+                counts[kernel] += 1
+    return counts
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2, queued: bool = True) -> float:
@@ -236,8 +288,9 @@ def check_layer(torch, name, args, bf16: bool):
     share_attn = (d_attn > tol_attn).float().mean().item()
     share_acc = (d_acc > tol_acc).float().mean().item()
     allowed = 1e-4 if bf16 else 0.0
-    masked = args["mask"][:, -1] == 0
-    padded = attn_k[masked][..., -1].float().abs().max().item() if masked.any() else 0.0
+    masked_keys = args["mask"][0] == 0  # every design pads the same keys
+    padded = (attn_k[..., masked_keys].float().abs().max().item()
+              if masked_keys.any() else 0.0)
     print(f"[parity] {name}: max|d attn| {d_attn.max().item():.3e}, "
           f"max|d acc| {d_acc.max().item():.3e} = {d_acc.max().item() / scale:.3e} of "
           f"max|acc| {scale:.3e}; share beyond tol (attn {tol_attn:.1e}, acc "
@@ -309,6 +362,72 @@ def check_attention(torch, name, args, n_masked, bf16: bool):
     if max(shares) > allowed or padded != 0.0:
         raise RuntimeError(f"{name}: kernel disagrees with its plain version")
     return worst
+
+
+LONG_L = (136, 200, 256)  # one key chunk partly padding, a ragged chunk, two whole chunks
+
+
+def long_patch_phase(torch, card):
+    """[long]: K1 and K2 at L > 128 (query and key chunks of 128) against
+    their plain versions on the card, at the default widths (d=128, h=8,
+    ds=32, P=8), L = 136, 200, 256 at b = bp = 32 and at b = 128, bp = 1,
+    and L = 129 (element-wise loads and stores) and 384 at b = 4, bp = 2,
+    in bf16 and float32, 9 padded keys (each
+    must get weight exactly 0), the tolerances of check_layer and
+    check_attention; then each kernel's time at L = 256 at both shapes
+    beside its bound.  Returns (K1 error, K2 error, {(kernel, dtype,
+    shape): times})."""
+    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+
+    widths = dict(d=128, h=8, ds=32, p=8)
+    cases = ([(L, b, bp) for L in LONG_L for b, bp in ((32, 32), (128, 1))]
+             + [(129, 4, 2), (384, 4, 2)])
+    err1 = err2 = 0.0
+    with torch.no_grad():
+        for i, (L, b, bp) in enumerate(cases):
+            for dtype in (torch.bfloat16, torch.float32):
+                bf = dtype == torch.bfloat16
+                tag = f"[long] {'bf16' if bf else 'f32'} L={L} b={b} bp={bp}"
+                err1 = max(err1, check_layer(
+                    torch, f"{tag} K1", layer_inputs(torch, b, bp, L, **widths, dtype=dtype,
+                                                     bias_dtype=dtype, seed=200 + i,
+                                                     n_masked=9), bf16=bf))
+                err2 = max(err2, check_attention(
+                    torch, f"{tag} K2",
+                    attention_inputs(torch, b, bp, L, widths["h"], widths["ds"], widths["p"],
+                                     dtype, dtype, 300 + i, 9), 9, bf16=bf))
+        times = {}
+        L = 256
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).removeprefix("torch.")
+            for label, b, bp in (("train", 32, 32), ("sample", N_DESIGNS, 1)):
+                la = layer_inputs(torch, b, bp, L, **widths, dtype=dtype, bias_dtype=dtype,
+                                  seed=400 + b, n_masked=0)
+                aa = attention_inputs(torch, b, bp, L, widths["h"], widths["ds"], widths["p"],
+                                      dtype, dtype, 500 + b, 0)
+                for kname, kern, plain, (fl, nb) in (
+                        ("ipa_fused_layer", lambda: op.fused_ipa_layer_packed(**la),
+                         lambda: op.fused_ipa_layer_packed_reference(**la),
+                         ipa_layer_flops_bytes(b, bp, L, **widths, itemsize=dtype.itemsize,
+                                               bias_itemsize=dtype.itemsize)),
+                        ("ipa_attention", lambda: k2.ipa_attention_core(**aa),
+                         lambda: k2.ipa_attention_core_reference(**aa),
+                         attention_flops_bytes(b, bp, L, widths["h"], widths["ds"],
+                                               widths["p"], itemsize=dtype.itemsize,
+                                               bias_itemsize=dtype.itemsize))):
+                    km = cuda_time_ms(kern, 20)
+                    pm = cuda_time_ms(plain, 3)
+                    km2 = cuda_time_ms(kern, 20)
+                    bnd, by, t_o, t_b = bound_ms(fl, nb, dname)
+                    times[(kname, dname, label)] = dict(ms=min(km, km2), plain_ms=pm,
+                                                        bound_ms=bnd, bound_by=by)
+                    print(f"[time] [long] {kname} b={b} bp={bp} L={L} {dname} ({label} shape) "
+                          f"on {card}: kernel {km:.4f} / {km2:.4f} ms, plain version "
+                          f"{pm:.4f} ms, bound {bnd:.4f} ms ({fl / 1e9:.2f} GFLOP -> "
+                          f"{t_o:.4f} ms, {nb / 1e6:.2f} MB -> {t_b:.4f} ms; bound by {by}), "
+                          f"{bnd / min(km, km2):.3%} of bound")
+    return err1, err2, times
 
 
 def check_grads(torch, name, kernel_fn, plain_fn, leaves, consts):
@@ -473,15 +592,218 @@ def profile_device(torch, fn, wall_s, label, top=12):
         print(f"[profile] {label}: device time not measured (profiler reported none)")
 
 
-def sampling_main_path(torch, card, compute_dtype, n_calls, tag):
+def denoiser_calls(t_seq, opts):
+    """Denoiser calls of one sample() chain over t_seq: one per step, and
+    heun's corrector on each active step (t > coord_solver_t_min, s >= 1)."""
+    s_seq = list(t_seq[1:]) + [0]
+    extra = 0
+    if opts.get("coord_solver") == "heun":
+        t_min = opts.get("coord_solver_t_min", 0)
+        extra = sum(1 for t, s in zip(t_seq, s_seq) if t > t_min and s >= 1)
+    return len(t_seq) + extra
+
+
+def e2e_sample_check(torch, tag, L, T, single_chain=False, **opts):
+    """sample() on the card (kernels) against sample() on the CPU (plain
+    versions): tiny_config() widths in float32, 2 designs of one synthetic
+    L-residue target (6 generated residues; single_chain: one chain, so the
+    span has both anchors), a T-step schedule and the options `opts`, the
+    same injected initialization and step draws on both, once per
+    fuse_ipa_layer flag (None: K1, False: K2).  Tolerance: sequences equal,
+    1e-3 on coordinates and frames (float32 sums in another order through
+    the chain, as the CPU parity tests); each kernel launches once per
+    layer and denoiser call."""
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
+    from diffab_pytorch_tpu_torch.diffusion.orientation import make_orientation_tables
+    from diffab_pytorch_tpu_torch.diffusion.schedule import cosine_variance_schedule
+    from diffab_pytorch_tpu_torch.geometry.igso3 import AxisAngleNoise
+    from diffab_pytorch_tpu_torch.models.diffab import DiffAbModel
+    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+    from diffab_pytorch_tpu_torch.sampling.sampler import (InitNoise, StepNoise, sample,
+                                                          timestep_schedule)
+    from diffab_pytorch_tpu_torch.weights import init_parameters
+
+    tiny = C.tiny_config()
+    cpu_model = init_parameters(DiffAbModel(tiny.model, device="cpu"),
+                                torch.Generator().manual_seed(0))
+    sched = cosine_variance_schedule(T, s=tiny.diffusion.s, beta_max=tiny.diffusion.beta_max)
+    tables = make_orientation_tables(sched)
+    target = synthetic_batch(0, 1, L, n_generate=6)
+    if single_chain:
+        target.chain_idx[:] = 1
+    bn = 2
+    g = torch.Generator().manual_seed(1)
+    t_seq = timestep_schedule(opts.get("t_start", T), opts.get("n_steps"),
+                              opts.get("step_schedule", "uniform"),
+                              opts.get("step_schedule_p", 0.5), opts.get("n_fine_tail")).tolist()
+    init = InitNoise(seq=torch.randint(0, 21, (bn, L), generator=g),
+                     coord=torch.randn(bn, L, 3, generator=g),
+                     coord_prior=torch.randn(bn, L, 3, generator=g),
+                     rot=AxisAngleNoise.draw((bn, L), g), rot_prior=torch.randn(bn, L, 4, generator=g))
+    if opts.get("t_start", T) < T and opts.get("init", "prior") == "prior":
+        init = init._replace(seq=-torch.log(-torch.log(torch.rand(bn, L, 21, generator=g))))
+    noise = {t: StepNoise(gumbel=-torch.log(-torch.log(torch.rand(bn, L, 21, generator=g))),
+                          coord=torch.randn(bn, L, 3, generator=g),
+                          orientation=AxisAngleNoise.draw((bn, L), g))
+             for t in t_seq}
+    to = lambda x, dev: (None if x is None else AxisAngleNoise(*(a.to(dev) for a in x))
+                         if isinstance(x, AxisAngleNoise) else x.to(dev))
+    on = lambda dev: (lambda t: StepNoise(*(to(x, dev) for x in noise[t])))
+    per_call = tiny.model.n_ipa_layers * denoiser_calls(t_seq, opts)
+    for fuse in (None, False):
+        mcfg_small = dataclasses.replace(tiny.model, fuse_ipa_layer=fuse)
+        outs, ran = {}, None
+        for dev in ("cpu", "cuda"):
+            m = DiffAbModel(mcfg_small, device=dev)
+            m.load_state_dict(cpu_model.state_dict())
+            before = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+            outs[dev] = sample(m, sched, tables, target, device=dev, n_designs=bn,
+                               init_noise=InitNoise(*(to(x, dev) for x in init)),
+                               step_noise=on(dev), **opts)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                ran = (op.fused_ipa_layer_packed.launches - before[0],
+                       k2.ipa_attention_core.launches - before[1])
+        want = (per_call, 0) if fuse is None else (0, per_call)
+        out_cpu, out_card = outs["cpu"], outs["cuda"]
+        seq_same = torch.equal(out_card.seq_idx.cpu(), out_cpu.seq_idx)
+        d_x = (out_card.translations.cpu() - out_cpu.translations).abs().max().item()
+        d_r = (out_card.orientations.cpu() - out_cpu.orientations).abs().max().item()
+        finite = bool(torch.isfinite(out_card.translations).all())
+        print(f"{tag} sample() card vs CPU, tiny_config f32 L={L} fuse_ipa_layer={fuse}, "
+              f"T={T}, {len(t_seq)} steps {opts}: sequences equal {seq_same}, max|d x| "
+              f"{d_x:.3e}, max|d R| {d_r:.3e} (tol 1e-3); launches K1 {ran[0]}, K2 {ran[1]} "
+              f"(expected {want[0]}, {want[1]})")
+        if not (seq_same and finite and d_x <= 1e-3 and d_r <= 1e-3 and ran == want):
+            raise RuntimeError(f"{tag} sample() on the card disagrees with the CPU plain path")
+
+
+def e2e_train_check(torch, tag, L):
+    """One training loss and all its gradients on the card (the kernels'
+    forward, the recomputing backward) against the plain versions on the
+    CPU with the same draws: tiny_config() in float32 with mode dropout,
+    a batch of 4 synthetic L-residue patches, once per kernel flag.
+    Tolerance 1e-4 of the loss, 1e-3 of each gradient leaf's largest entry
+    (the CPU parity tests' float32 tolerance against JAX)."""
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
+    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+    from diffab_pytorch_tpu_torch.train.harness import DiffAb
+
+    tiny = C.tiny_config()
+    tiny_train = dataclasses.replace(tiny, train=dataclasses.replace(tiny.train, mode_dropout=0.3))
+    tb = synthetic_batch(3, 4, L, n_generate=8)
+    for fuse in (None, False):
+        tcfg = dataclasses.replace(tiny_train, model=dataclasses.replace(tiny.model,
+                                                                         fuse_ipa_layer=fuse))
+        h_cpu, h_card = DiffAb(tcfg, device="cpu"), DiffAb(tcfg, device="cuda")
+        draws = h_cpu.draw(tb, torch.Generator().manual_seed(4))
+        before = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+        l_cpu, _, g_cpu = h_cpu.loss_and_grads(h_cpu.init(0).params, tb, draws)
+        l_card, _, g_card = h_card.loss_and_grads(h_card.init(0).params, tb.to("cuda"),
+                                                  draws.to("cuda"))
+        torch.cuda.synchronize()
+        ran = (op.fused_ipa_layer_packed.launches - before[0],
+               k2.ipa_attention_core.launches - before[1])
+        d_loss = abs(l_card.item() - l_cpu.item())
+        rel = max(((g_card[k].cpu() - g).abs().max() / g.abs().max().clamp(min=1.0)).item()
+                  for k, g in g_cpu.items())
+        print(f"{tag} loss and {len(g_cpu)} gradients card vs CPU, tiny_config f32 L={L} "
+              f"fuse_ipa_layer={fuse}: loss {l_card.item():.6f} vs {l_cpu.item():.6f}, "
+              f"max gradient |d| / scale {rel:.2e} (tol 1e-3); launches K1 {ran[0]}, K2 {ran[1]}")
+        want = (tiny.model.n_ipa_layers, 0) if fuse is None else (0, tiny.model.n_ipa_layers)
+        if d_loss > 1e-4 * max(1.0, abs(l_cpu.item())) or rel > 1e-3 or ran != want:
+            raise RuntimeError(f"{tag} a training step on the card disagrees with the CPU "
+                               f"plain path")
+
+
+def training_main_path(torch, card, tag, fuse, L, n_warm, n_timed, batch_size=None,
+                       profile=True):
+    """production_config() training through fit() on one synthetic batch of
+    L-residue patches (batch_size, default the config's 32), from a seeded
+    init: n_warm warm-up steps, then n_timed timed steps with the launch
+    counts set to 0 just before and read just after; loss trajectory and
+    state checks; a profile of one more step.  Returns ((K1, K2) launches,
+    steps/s)."""
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
+    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+    from diffab_pytorch_tpu_torch.train.harness import DiffAb
+    from diffab_pytorch_tpu_torch.train.trainer import fit
+
+    pcfg = C.production_config()
+    pcfg = dataclasses.replace(pcfg, train=dataclasses.replace(
+        pcfg.train, log_every=4, batch_size=batch_size or pcfg.train.batch_size))
+    pb = pcfg.train.batch_size
+    pool = [synthetic_batch(100, pb, L, pcfg.model.n_atoms, device="cuda")]
+    kname = "fused layer (K1)" if fuse is None else "attention core (K2)"
+    hcfg = dataclasses.replace(pcfg, model=dataclasses.replace(pcfg.model, fuse_ipa_layer=fuse))
+    harness = DiffAb(hcfg)
+    init_params = {k: v.detach().clone() for k, v in harness.init(hcfg.train.seed).params.items()}
+    logger = RecordingLogger(f"{tag} {kname}")
+    t0 = time.perf_counter()
+    state = fit(harness, pool, max_steps=n_warm, logger=logger)
+    torch.cuda.synchronize()
+    print(f"{tag} {kname}: {n_warm} warm-up steps {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = fit(harness, pool, max_steps=n_warm + n_timed, logger=logger, state=state)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+    steps_per_s = n_timed / wall_s
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{tag} {kname}: {n_timed} steps of production_config() (bf16, batch {pb}, "
+          f"L={L}) in {wall_s:.4f} s: {steps_per_s:.3f} steps/s, "
+          f"{steps_per_s * pb:.1f} samples/s on {card}; peak memory {peak_gb:.2f} GB")
+    n_layers = hcfg.model.n_ipa_layers
+    want = (n_layers * n_timed, 0) if fuse is None else (0, n_layers * n_timed)
+    print(f"{tag} {kname}: launches ipa_fused_layer {counts[0]}, ipa_attention "
+          f"{counts[1]} (expected {want[0]}, {want[1]})")
+    losses = [row["train/loss"] for _, row in logger.rows]
+    moved = sum(not torch.equal(state.params[k].detach(), v) for k, v in init_params.items())
+    tchecks = {
+        "steps": state.step == n_warm + n_timed,
+        "losses_finite": bool(losses) and all(map(math.isfinite, losses)),
+        "params_finite": all(bool(torch.isfinite(v).all()) for v in state.params.values()),
+        "params_moved": moved >= 0.9 * len(init_params),
+        "ema_differs": any(not torch.equal(state.ema_params[k], state.params[k].detach())
+                           for k in init_params),
+        "launches": counts == want,
+    }
+    print(f"{tag} {kname}: loss trajectory {[round(v, 4) for v in losses]}; "
+          f"{moved}/{len(init_params)} parameter tensors moved; checks {tchecks}")
+    if not all(tchecks.values()):
+        raise RuntimeError(f"{tag} training main path check failed: {tchecks}")
+    if profile:
+        gen = torch.Generator(device="cuda").manual_seed(99)
+        step_state = state
+
+        def one_step():
+            nonlocal step_state
+            step_state, _ = harness.train_step(step_state, pool[0], harness.draw(pool[0], gen))
+        profile_device(torch, one_step, wall_s / n_timed, f"one training step, {kname}, L={L}")
+    return counts, steps_per_s
+
+
+def sampling_main_path(torch, card, compute_dtype, n_calls, tag, L=L_MAIN,
+                       n_designs=N_DESIGNS, **opts):
     """The sampling main path: CDR-H3 codesign sample() with
     default_config() (its model in `compute_dtype`; float32 is
-    default_config() exactly as it stands), one synthetic L=128 target,
-    128 designs sharing the context, T=100, seeded random weights.  One
-    warm-up call, then n_calls timed calls with the launch counts set to 0
-    just before them and read just after; output checks on the last; a
-    profile of one more call.  Returns ((K1, K2) launches over the timed
-    calls, designs/s of the median call)."""
+    default_config() exactly as it stands), one synthetic L-residue target
+    (default 128), n_designs designs sharing the context (default 128),
+    T=100 and the sampler options `opts` (none: the full chain from the
+    prior), seeded random weights.  One warm-up call, then n_calls timed
+    calls with the launch counts set to 0 just before them and read just
+    after; output checks on the last; a profile of one more call.  Returns
+    ((K1, K2) launches over the timed calls, designs/s of the median
+    call)."""
     from diffab_pytorch_tpu_torch import config as C
     from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
     from diffab_pytorch_tpu_torch.diffusion.orientation import make_orientation_tables
@@ -489,7 +811,7 @@ def sampling_main_path(torch, card, compute_dtype, n_calls, tag):
     from diffab_pytorch_tpu_torch.models.diffab import DiffAbModel
     from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
     from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
-    from diffab_pytorch_tpu_torch.sampling.sampler import sample
+    from diffab_pytorch_tpu_torch.sampling.sampler import sample, timestep_schedule
     from diffab_pytorch_tpu_torch.weights import init_parameters
 
     cfg = C.default_config()
@@ -499,13 +821,13 @@ def sampling_main_path(torch, card, compute_dtype, n_calls, tag):
     model = init_parameters(DiffAbModel(mcfg), torch.Generator().manual_seed(0))
     sched = cosine_variance_schedule(dcfg.T, s=dcfg.s, beta_max=dcfg.beta_max, device="cuda")
     tables = make_orientation_tables(sched)
-    target = synthetic_batch(0, 1, L_MAIN, mcfg.n_atoms, n_generate=N_GENERATE, device="cuda")
+    target = synthetic_batch(0, 1, L, mcfg.n_atoms, n_generate=N_GENERATE, device="cuda")
     print(f"{tag} default_config(), compute dtype {mcfg.compute_dtype}: set-up (model, IGSO(3) "
           f"tables, target) {time.perf_counter() - t0:.2f} s")
 
     def run(seed):
-        return sample(model, sched, tables, target, n_designs=N_DESIGNS,
-                      generator=torch.Generator(device="cuda").manual_seed(seed))
+        return sample(model, sched, tables, target, n_designs=n_designs,
+                      generator=torch.Generator(device="cuda").manual_seed(seed), **opts)
 
     t0 = time.perf_counter()
     run(10)
@@ -520,10 +842,15 @@ def sampling_main_path(torch, card, compute_dtype, n_calls, tag):
         torch.cuda.synchronize()
         call_s.append(time.perf_counter() - t0)
     launches = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
-    expected = (n_calls * mcfg.n_ipa_layers * dcfg.T, 0)
+    t_seq = timestep_schedule(opts.get("t_start", dcfg.T), opts.get("n_steps"),
+                              opts.get("step_schedule", "uniform"),
+                              opts.get("step_schedule_p", 0.5), opts.get("n_fine_tail"))
+    per_call = mcfg.n_ipa_layers * denoiser_calls(t_seq.tolist(), opts)
+    expected = (n_calls * per_call, 0)
     wall = sorted(call_s)[n_calls // 2]  # median call
-    print(f"{tag} {n_calls} x sample(n_designs={N_DESIGNS}, T={dcfg.T}) in {mcfg.compute_dtype}: "
-          f"{', '.join(f'{c:.4f}' for c in call_s)} s; median {N_DESIGNS / wall:.2f} designs/s "
+    print(f"{tag} {n_calls} x sample(n_designs={n_designs}, T={dcfg.T}, L={L}, "
+          f"{len(t_seq)} steps {opts}) in {mcfg.compute_dtype}: "
+          f"{', '.join(f'{c:.4f}' for c in call_s)} s; median {n_designs / wall:.2f} designs/s "
           f"on {card}; ipa_fused_layer launches {launches[0]} ({launches[0] / n_calls:g} per "
           f"call), ipa_attention launches {launches[1]} (expected {expected[0]}, {expected[1]})")
     if launches != expected:
@@ -533,8 +860,8 @@ def sampling_main_path(torch, card, compute_dtype, n_calls, tag):
     checks = {
         "finite": bool(torch.isfinite(out.translations).all()
                        and torch.isfinite(out.orientations).all()),
-        "shapes": tuple(out.translations.shape) == (N_DESIGNS, L_MAIN, 3)
-        and tuple(out.orientations.shape) == (N_DESIGNS, L_MAIN, 3, 3),
+        "shapes": tuple(out.translations.shape) == (n_designs, L, 3)
+        and tuple(out.orientations.shape) == (n_designs, L, 3, 3),
         "orthonormal": float((out.orientations.transpose(-1, -2) @ out.orientations
                               - torch.eye(3, device="cuda")).abs().max()) < 1e-3,
         "context_unchanged": bool(
@@ -547,8 +874,109 @@ def sampling_main_path(torch, card, compute_dtype, n_calls, tag):
     print(f"{tag} output checks {checks}")
     if not all(checks.values()):
         raise RuntimeError(f"main path output check failed: {checks}")
-    profile_device(torch, lambda: run(20), wall, f"one {mcfg.compute_dtype} sample() call")
-    return launches, N_DESIGNS / wall
+    profile_device(torch, lambda: run(20), wall, f"{tag} one {mcfg.compute_dtype} sample() call")
+    return launches, n_designs / wall
+
+
+def kernel_times(torch, card, pb):
+    """Per-launch times at L = 128, the main paths' shapes (b = 128, bp = 1
+    and b = bp = pb): K1 in bf16 (also host-paced, and its two launches
+    apart by the profiler) and float32, K2 in both dtypes, each beside its
+    plain version and its bound; K1 is held to its plain version at
+    b = 128 first.  Returns (K1 bf16 times, K1 float32 times, K2 times,
+    K1 bf16 error, K1 float32 error)."""
+    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+
+    main_shape = dict(L=L_MAIN, d=128, h=8, ds=32, p=8)
+    att_shape = dict(L=L_MAIN, h=8, ds=32, p=8)
+    k1_times = {}
+    for label, b, bp, seed in (("sample", N_DESIGNS, 1, 4), ("train", pb, pb, 6)):
+        with torch.no_grad():
+            a = layer_inputs(torch, b, bp, **main_shape, dtype=torch.bfloat16,
+                             bias_dtype=torch.bfloat16, seed=seed, n_masked=0)
+            if label == "sample":
+                err_bf16 = check_layer(torch, "main bf16 (b=128 bp=1 L=128)", a, bf16=True)
+            kern = lambda a=a: op.fused_ipa_layer_packed(**a)
+            km = cuda_time_ms(kern, 20)
+            pm = cuda_time_ms(lambda a=a: op.fused_ipa_layer_packed_reference(**a), 5)
+            km2 = cuda_time_ms(kern, 20)
+            host_paced = cuda_time_ms(kern, 20, queued=False)
+            tl = device_timeline(torch, kern, 20, K1_LAUNCHES)
+        fl, nb = ipa_layer_flops_bytes(b, bp, **main_shape, itemsize=2, bias_itemsize=2)
+        bnd, by, t_o, t_b = bound_ms(fl, nb, "bfloat16")
+        k1_times[label] = dict(ms=min(km, km2), plain_ms=pm, bound_ms=bnd, bound_by=by,
+                               host_paced_ms=host_paced,
+                               launch_ms=tl and {n: tl[n] for n in K1_LAUNCHES})
+        print(f"[time] ipa_fused_layer b={b} bp={bp} L=128 bf16 ({label} shape) on {card}: "
+              f"kernel {km:.4f} / {km2:.4f} ms (CUDA events, 20 calls queued behind a sleep), "
+              f"{host_paced:.4f} ms issued call by call from the host (the earlier design's "
+              f"method), "
+              f"plain version {pm:.4f} ms, bound {bnd:.4f} ms ({fl / 1e9:.2f} GFLOP -> "
+              f"{t_o:.4f} ms, {nb / 1e6:.2f} MB -> {t_b:.4f} ms; bound by {by}), "
+              f"{bnd / min(km, km2):.3%} of bound")
+        if tl is None:
+            print(f"[time] ipa_fused_layer {label} shape, its launches: not measured "
+                  f"(the profiler reported no device time)")
+            continue
+        print(f"[time] ipa_fused_layer {label} shape, profiler over 20 queued calls "
+              f"({tl['calls_seen']} seen): " + ", ".join(
+            f"{n} {'not measured' if tl[n] is None else f'{tl[n]:.4f} ms'}"
+            for n in K1_LAUNCHES)
+            + f"; {tl['events_per_call']:.2f} device events per call, {tl['kernels_ms']:.4f} ms "
+            f"in all; card idle between them per call: " + ", ".join(
+                f"before {k} {v:.4f} ms" for k, v in tl["idle_before_ms"].items()))
+    print("[earlier] ipa_fused_layer b=128 bp=1 L=128 bf16: 0.7938 ms per call with the earlier "
+          "CUDA-core design (PERF.md, K1 row; CUDA events, calls issued by the host)")
+
+    # K1's float32 route (3xTF32), timed as bf16 above
+    k1_f32 = {}
+    for label, b, bp, seed in (("sample", N_DESIGNS, 1, 4), ("train", pb, pb, 6)):
+        with torch.no_grad():
+            a = layer_inputs(torch, b, bp, **main_shape, dtype=torch.float32,
+                             bias_dtype=torch.float32, seed=seed, n_masked=0)
+            if label == "sample":
+                err_f32 = check_layer(torch, "main f32 (b=128 bp=1 L=128)", a, bf16=False)
+            kern = lambda a=a: op.fused_ipa_layer_packed(**a)
+            km = cuda_time_ms(kern, 20)
+            pm = cuda_time_ms(lambda a=a: op.fused_ipa_layer_packed_reference(**a), 5)
+            km2 = cuda_time_ms(kern, 20)
+        fl, nb = ipa_layer_flops_bytes(b, bp, **main_shape, itemsize=4, bias_itemsize=4)
+        bnd, by, t_o, t_b = bound_ms(fl, nb, "float32")
+        k1_f32[label] = dict(ms=min(km, km2), plain_ms=pm, bound_ms=bnd, bound_by=by)
+        print(f"[time] ipa_fused_layer b={b} bp={bp} L=128 f32 ({label} shape) on {card}: "
+              f"kernel {km:.4f} / {km2:.4f} ms, plain version {pm:.4f} ms, bound {bnd:.4f} ms "
+              f"({fl / 1e9:.2f} GFLOP at the 3xTF32 rate -> {t_o:.4f} ms, {nb / 1e6:.2f} MB -> "
+              f"{t_b:.4f} ms; bound by {by}), {bnd / min(km, km2):.3%} of bound")
+    print("[earlier] ipa_fused_layer L=128 f32 with the earlier CUDA-core design (three "
+          "launches): 0.9785-0.9824 ms at b=128 bp=1 and 0.3148-0.3155 ms at b=bp=32 (PERF.md, "
+          "K1 row; CUDA events, queued; H100 80GB HBM3, 700 W)")
+
+    # K2 in both dtypes
+    k2_times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).removeprefix("torch.")
+        for label, b, bp in (("train", pb, pb), ("sample", N_DESIGNS, 1)):
+            with torch.no_grad():
+                aargs = attention_inputs(torch, b, bp, **att_shape, dtype=dtype,
+                                         bias_dtype=dtype, seed=30 + b, n_masked=0)
+                km = cuda_time_ms(lambda: k2.ipa_attention_core(**aargs), 20)
+                pm = cuda_time_ms(lambda: k2.ipa_attention_core_reference(**aargs), 5)
+                km2 = cuda_time_ms(lambda: k2.ipa_attention_core(**aargs), 20)
+            fl, nb = attention_flops_bytes(b, bp, **att_shape, itemsize=dtype.itemsize,
+                                           bias_itemsize=dtype.itemsize)
+            bnd, by, t_o, t_b = bound_ms(fl, nb, dname)
+            k2_times[(dname, label)] = dict(ms=min(km, km2), plain_ms=pm, bound_ms=bnd,
+                                            bound_by=by)
+            print(f"[time] ipa_attention b={b} bp={bp} L=128 {dname} ({label} shape) on {card}: "
+                  f"kernel {km:.4f} / {km2:.4f} ms, plain version {pm:.4f} ms, bound "
+                  f"{bnd:.4f} ms ({fl / 1e9:.2f} GFLOP -> {t_o:.4f} ms, {nb / 1e6:.2f} MB -> "
+                  f"{t_b:.4f} ms; bound by {by}), {bnd / min(km, km2):.3%} of bound")
+    print("[earlier] ipa_attention with the earlier CUDA-core design: bf16 0.1064-0.1071 ms at "
+          "b=bp=32 and 0.4235-0.4263 ms at b=128 bp=1; float32 0.1152-0.1159 / 0.4263-0.4293 ms "
+          "(PERF.md, K2 row; CUDA events, queued; H100 80GB HBM3, 700 W)")
+
+    return k1_times, k1_f32, k2_times, err_bf16, err_f32
 
 
 def main() -> int:
@@ -559,18 +987,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from diffab_pytorch_tpu_torch import config as C
-    from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
-    from diffab_pytorch_tpu_torch.diffusion.orientation import make_orientation_tables
-    from diffab_pytorch_tpu_torch.diffusion.schedule import cosine_variance_schedule
-    from diffab_pytorch_tpu_torch.geometry.igso3 import AxisAngleNoise
-    from diffab_pytorch_tpu_torch.models.diffab import DiffAbModel
     from diffab_pytorch_tpu_torch.ops import _build
     from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
     from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
-    from diffab_pytorch_tpu_torch.sampling.sampler import StepNoise, sample
-    from diffab_pytorch_tpu_torch.train.harness import DiffAb
-    from diffab_pytorch_tpu_torch.train.trainer import fit
-    from diffab_pytorch_tpu_torch.weights import init_parameters
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -585,6 +1004,8 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    for kernel, n in sass_counts(_build).items():
+        print(f"[sass] {kernel}: {n} instructions")
 
     # ---- 3. kernel vs plain version ----------------------------------------
     main_shape = dict(L=L_MAIN, d=128, h=8, ds=32, p=8)
@@ -686,76 +1107,8 @@ def main() -> int:
     # ---- 4. end to end on small inputs: card vs CPU ------------------------------
     check_e2e(torch, "bfloat16")
     check_e2e(torch, "float32")
-    tiny = C.tiny_config()
-    gen_cpu = torch.Generator().manual_seed(0)
-    cpu_model = init_parameters(DiffAbModel(tiny.model, device="cpu"), gen_cpu)
-    s8 = cosine_variance_schedule(8, s=tiny.diffusion.s, beta_max=tiny.diffusion.beta_max)
-    t8 = make_orientation_tables(s8)
-    small = synthetic_batch(0, 1, 24, n_generate=6)
-    n_small, bn = 2, 2
-    g = torch.Generator().manual_seed(1)
-    init = (torch.randint(0, 21, (bn, 24), generator=g), torch.randn(bn, 24, 3, generator=g),
-            torch.linalg.qr(torch.randn(bn, 24, 3, 3, generator=g))[0])
-    init = (init[0], init[1], init[2] * torch.det(init[2])[..., None, None].sign())
-    noise = {t: StepNoise(gumbel=-torch.log(-torch.log(torch.rand(bn, 24, 21, generator=g))),
-                          coord=torch.randn(bn, 24, 3, generator=g),
-                          orientation=AxisAngleNoise.draw((bn, 24), g))
-             for t in range(1, 9)}
-    on = lambda dev: (lambda t: StepNoise(noise[t].gumbel.to(dev), noise[t].coord.to(dev),
-                                          AxisAngleNoise(*(a.to(dev) for a in noise[t].orientation))))
-    for fuse in (None, False):
-        mcfg_small = dataclasses.replace(tiny.model, fuse_ipa_layer=fuse)
-        cpu_m = DiffAbModel(mcfg_small, device="cpu")
-        cpu_m.load_state_dict(cpu_model.state_dict())
-        card_m = DiffAbModel(mcfg_small, device="cuda")
-        card_m.load_state_dict(cpu_model.state_dict())
-        out_cpu = sample(cpu_m, s8, t8, small, device="cpu", n_designs=n_small,
-                         initial_state=init, step_noise=on("cpu"))
-        before = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
-        out_card = sample(card_m, s8, t8, small, device="cuda", n_designs=n_small,
-                          initial_state=init, step_noise=on("cuda"))
-        torch.cuda.synchronize()
-        ran = (op.fused_ipa_layer_packed.launches - before[0],
-               k2.ipa_attention_core.launches - before[1])
-        per_call = tiny.model.n_ipa_layers * 8
-        want = (per_call, 0) if fuse is None else (0, per_call)
-        seq_same = torch.equal(out_card.seq_idx.cpu(), out_cpu.seq_idx)
-        d_x = (out_card.translations.cpu() - out_cpu.translations).abs().max().item()
-        d_r = (out_card.orientations.cpu() - out_cpu.orientations).abs().max().item()
-        print(f"[e2e-small] sample() card vs CPU, tiny_config f32 fuse_ipa_layer={fuse}, T=8, "
-              f"2 designs: sequences equal {seq_same}, max|d x| {d_x:.3e}, max|d R| "
-              f"{d_r:.3e} (tol 1e-3); launches K1 {ran[0]}, K2 {ran[1]} (expected "
-              f"{want[0]}, {want[1]})")
-        if not seq_same or d_x > 1e-3 or d_r > 1e-3 or ran != want:
-            raise RuntimeError("sample() on the card disagrees with the CPU plain path")
-
-    # one training loss and its gradients: the kernels' forward and the
-    # recomputing backward on the card against the plain versions on the
-    # CPU; tolerance 1e-4 of the loss, 1e-3 of each gradient leaf's largest
-    # entry (the CPU parity tests' float32 tolerance against JAX)
-    tiny_train = dataclasses.replace(tiny, train=dataclasses.replace(tiny.train, mode_dropout=0.3))
-    tb = synthetic_batch(3, 4, 32, n_generate=8)
-    for fuse in (None, False):
-        tcfg = dataclasses.replace(tiny_train, model=dataclasses.replace(tiny.model,
-                                                                         fuse_ipa_layer=fuse))
-        h_cpu, h_card = DiffAb(tcfg, device="cpu"), DiffAb(tcfg, device="cuda")
-        draws = h_cpu.draw(tb, torch.Generator().manual_seed(4))
-        before = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
-        l_cpu, _, g_cpu = h_cpu.loss_and_grads(h_cpu.init(0).params, tb, draws)
-        l_card, _, g_card = h_card.loss_and_grads(h_card.init(0).params, tb.to("cuda"),
-                                                  draws.to("cuda"))
-        torch.cuda.synchronize()
-        ran = (op.fused_ipa_layer_packed.launches - before[0],
-               k2.ipa_attention_core.launches - before[1])
-        d_loss = abs(l_card.item() - l_cpu.item())
-        rel = max(((g_card[k].cpu() - g).abs().max() / g.abs().max().clamp(min=1.0)).item()
-                  for k, g in g_cpu.items())
-        print(f"[e2e-train] loss and {len(g_cpu)} gradients card vs CPU, tiny_config f32 "
-              f"fuse_ipa_layer={fuse}: loss {l_card.item():.6f} vs {l_cpu.item():.6f}, "
-              f"max gradient |d| / scale {rel:.2e} (tol 1e-3); launches K1 {ran[0]}, K2 {ran[1]}")
-        want = (tiny.model.n_ipa_layers, 0) if fuse is None else (0, tiny.model.n_ipa_layers)
-        if d_loss > 1e-4 * max(1.0, abs(l_cpu.item())) or rel > 1e-3 or ran != want:
-            raise RuntimeError("a training step on the card disagrees with the CPU plain path")
+    e2e_sample_check(torch, "[e2e-small]", 24, 8)
+    e2e_train_check(torch, "[e2e-train]", 32)
 
     # ---- 5. sampling main path, bf16 then float32 --------------------------------------
     launches = {}
@@ -764,154 +1117,51 @@ def main() -> int:
                                                                    "[main-f32]")
 
     # ---- 6. training main path: production_config(), both flags -------------------
-    pcfg = C.production_config()
-    pcfg = dataclasses.replace(pcfg, train=dataclasses.replace(pcfg.train, log_every=4))
-    pb = pcfg.train.batch_size
-    pool = [synthetic_batch(100, pb, L_MAIN, pcfg.model.n_atoms, device="cuda")]
     n_warm, n_timed = 3, 20
+    pb = C.production_config().train.batch_size
     train_rates = {}
     for fuse in (None, False):
-        tag = "fused layer (K1)" if fuse is None else "attention core (K2)"
-        hcfg = dataclasses.replace(pcfg, model=dataclasses.replace(pcfg.model,
-                                                                   fuse_ipa_layer=fuse))
-        harness = DiffAb(hcfg)
-        init_params = {k: v.detach().clone() for k, v in harness.init(hcfg.train.seed).params.items()}
-        logger = RecordingLogger(tag)
-        t0 = time.perf_counter()
-        state = fit(harness, pool, max_steps=n_warm, logger=logger)
-        torch.cuda.synchronize()
-        print(f"[train] {tag}: {n_warm} warm-up steps {time.perf_counter() - t0:.2f} s")
-        torch.cuda.reset_peak_memory_stats()
-        op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state = fit(harness, pool, max_steps=n_warm + n_timed, logger=logger, state=state)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        counts = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
-        launches[f"train_fuse_{fuse}"] = counts
-        steps_per_s = n_timed / wall_s
-        train_rates[fuse] = steps_per_s
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        print(f"[train] {tag}: {n_timed} steps of production_config() (bf16, batch {pb}, "
-              f"L={L_MAIN}) in {wall_s:.4f} s: {steps_per_s:.3f} steps/s, "
-              f"{steps_per_s * pb:.1f} samples/s on {card}; peak memory {peak_gb:.2f} GB")
-        n_layers = hcfg.model.n_ipa_layers
-        want = (n_layers * n_timed, 0) if fuse is None else (0, n_layers * n_timed)
-        print(f"[train] {tag}: launches ipa_fused_layer {counts[0]}, ipa_attention "
-              f"{counts[1]} (expected {want[0]}, {want[1]})")
-        losses = [row["train/loss"] for _, row in logger.rows]
-        moved = sum(not torch.equal(state.params[k].detach(), v) for k, v in init_params.items())
-        tchecks = {
-            "steps": state.step == n_warm + n_timed,
-            "losses_finite": bool(losses) and all(map(math.isfinite, losses)),
-            "params_finite": all(bool(torch.isfinite(v).all()) for v in state.params.values()),
-            "params_moved": moved >= 0.9 * len(init_params),
-            "ema_differs": any(not torch.equal(state.ema_params[k], state.params[k].detach())
-                               for k in init_params),
-            "launches": counts == want,
-        }
-        print(f"[train] {tag}: loss trajectory {[round(v, 4) for v in losses]}; "
-              f"{moved}/{len(init_params)} parameter tensors moved; checks {tchecks}")
-        if not all(tchecks.values()):
-            raise RuntimeError(f"training main path check failed: {tchecks}")
-        gen = torch.Generator(device="cuda").manual_seed(99)
-        step_state = state
-        def one_step():
-            nonlocal step_state
-            step_state, _ = harness.train_step(step_state, pool[0], harness.draw(pool[0], gen))
-        profile_device(torch, one_step, wall_s / n_timed, f"one training step, {tag}")
+        launches[f"train_fuse_{fuse}"], train_rates[fuse] = training_main_path(
+            torch, card, "[train]", fuse, L_MAIN, n_warm, n_timed)
 
-    # ---- 7. per-launch times ------------------------------------------------------
-    k1_times = {}
-    for label, b, bp, seed in (("sample", N_DESIGNS, 1, 4), ("train", pb, pb, 6)):
-        with torch.no_grad():
-            a = layer_inputs(torch, b, bp, **main_shape, dtype=torch.bfloat16,
-                             bias_dtype=torch.bfloat16, seed=seed, n_masked=0)
-            if label == "sample":
-                err_bf16 = max(err_bf16, check_layer(torch, "main bf16 (b=128 bp=1 L=128)", a,
-                                                     bf16=True))
-            kern = lambda a=a: op.fused_ipa_layer_packed(**a)
-            km = cuda_time_ms(kern, 20)
-            pm = cuda_time_ms(lambda a=a: op.fused_ipa_layer_packed_reference(**a), 5)
-            km2 = cuda_time_ms(kern, 20)
-            host_paced = cuda_time_ms(kern, 20, queued=False)
-            tl = device_timeline(torch, kern, 20, K1_LAUNCHES)
-        fl, nb = ipa_layer_flops_bytes(b, bp, **main_shape, itemsize=2, bias_itemsize=2)
-        bnd, by, t_o, t_b = bound_ms(fl, nb, "bfloat16")
-        k1_times[label] = dict(ms=min(km, km2), plain_ms=pm, bound_ms=bnd, bound_by=by,
-                               host_paced_ms=host_paced,
-                               launch_ms=tl and {n: tl[n] for n in K1_LAUNCHES})
-        print(f"[time] ipa_fused_layer b={b} bp={bp} L=128 bf16 ({label} shape) on {card}: "
-              f"kernel {km:.4f} / {km2:.4f} ms (CUDA events, 20 calls queued behind a sleep), "
-              f"{host_paced:.4f} ms issued call by call from the host (the earlier design's "
-              f"method), "
-              f"plain version {pm:.4f} ms, bound {bnd:.4f} ms ({fl / 1e9:.2f} GFLOP -> "
-              f"{t_o:.4f} ms, {nb / 1e6:.2f} MB -> {t_b:.4f} ms; bound by {by}), "
-              f"{bnd / min(km, km2):.3%} of bound")
-        if tl is None:
-            print(f"[time] ipa_fused_layer {label} shape, its launches: not measured "
-                  f"(the profiler reported no device time)")
-            continue
-        print(f"[time] ipa_fused_layer {label} shape, profiler over 20 queued calls "
-              f"({tl['calls_seen']} seen): " + ", ".join(
-            f"{n} {'not measured' if tl[n] is None else f'{tl[n]:.4f} ms'}"
-            for n in K1_LAUNCHES)
-            + f"; {tl['events_per_call']:.2f} device events per call, {tl['kernels_ms']:.4f} ms "
-            f"in all; card idle between them per call: " + ", ".join(
-                f"before {k} {v:.4f} ms" for k, v in tl["idle_before_ms"].items()))
-    print("[earlier] ipa_fused_layer b=128 bp=1 L=128 bf16: 0.7938 ms per call with the earlier "
-          "CUDA-core design (PERF.md, K1 row; CUDA events, calls issued by the host)")
+    # ---- 7. per-launch times at L = 128 ---------------------------------------------
+    k1_times, k1_f32, k2_times, e_bf16, e_f32 = kernel_times(torch, card, pb)
+    err_bf16, err_f32 = max(err_bf16, e_bf16), max(err_f32, e_f32)
 
-    # K1's float32 route (3xTF32), timed as bf16 above
-    k1_f32 = {}
-    for label, b, bp, seed in (("sample", N_DESIGNS, 1, 4), ("train", pb, pb, 6)):
-        with torch.no_grad():
-            a = layer_inputs(torch, b, bp, **main_shape, dtype=torch.float32,
-                             bias_dtype=torch.float32, seed=seed, n_masked=0)
-            if label == "sample":
-                err_f32 = max(err_f32, check_layer(torch, "main f32 (b=128 bp=1 L=128)", a,
-                                                   bf16=False))
-            kern = lambda a=a: op.fused_ipa_layer_packed(**a)
-            km = cuda_time_ms(kern, 20)
-            pm = cuda_time_ms(lambda a=a: op.fused_ipa_layer_packed_reference(**a), 5)
-            km2 = cuda_time_ms(kern, 20)
-        fl, nb = ipa_layer_flops_bytes(b, bp, **main_shape, itemsize=4, bias_itemsize=4)
-        bnd, by, t_o, t_b = bound_ms(fl, nb, "float32")
-        k1_f32[label] = dict(ms=min(km, km2), plain_ms=pm, bound_ms=bnd, bound_by=by)
-        print(f"[time] ipa_fused_layer b={b} bp={bp} L=128 f32 ({label} shape) on {card}: "
-              f"kernel {km:.4f} / {km2:.4f} ms, plain version {pm:.4f} ms, bound {bnd:.4f} ms "
-              f"({fl / 1e9:.2f} GFLOP at the 3xTF32 rate -> {t_o:.4f} ms, {nb / 1e6:.2f} MB -> "
-              f"{t_b:.4f} ms; bound by {by}), {bnd / min(km, km2):.3%} of bound")
-    print("[earlier] ipa_fused_layer L=128 f32 with the earlier CUDA-core design (three "
-          "launches): 0.9785-0.9824 ms at b=128 bp=1 and 0.3148-0.3155 ms at b=bp=32 (PERF.md, "
-          "K1 row; CUDA events, queued; H100 80GB HBM3, 700 W)")
+    # ---- 8. patches longer than 128 residues ------------------------------------------
+    err1_long, err2_long, long_times = long_patch_phase(torch, card)
+    e2e_sample_check(torch, "[e2e-long]", 256, 4)
+    e2e_train_check(torch, "[e2e-long]", 256)
 
-    # K2 in both dtypes
-    k2_times = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        dname = str(dtype).removeprefix("torch.")
-        for label, b, bp in (("train", pb, pb), ("sample", N_DESIGNS, 1)):
-            with torch.no_grad():
-                aargs = attention_inputs(torch, b, bp, **att_shape, dtype=dtype,
-                                         bias_dtype=dtype, seed=30 + b, n_masked=0)
-                km = cuda_time_ms(lambda: k2.ipa_attention_core(**aargs), 20)
-                pm = cuda_time_ms(lambda: k2.ipa_attention_core_reference(**aargs), 5)
-                km2 = cuda_time_ms(lambda: k2.ipa_attention_core(**aargs), 20)
-            fl, nb = attention_flops_bytes(b, bp, **att_shape, itemsize=dtype.itemsize,
-                                           bias_itemsize=dtype.itemsize)
-            bnd, by, t_o, t_b = bound_ms(fl, nb, dname)
-            k2_times[(dname, label)] = dict(ms=min(km, km2), plain_ms=pm, bound_ms=bnd,
-                                            bound_by=by)
-            print(f"[time] ipa_attention b={b} bp={bp} L=128 {dname} ({label} shape) on {card}: "
-                  f"kernel {km:.4f} / {km2:.4f} ms, plain version {pm:.4f} ms, bound "
-                  f"{bnd:.4f} ms ({fl / 1e9:.2f} GFLOP -> {t_o:.4f} ms, {nb / 1e6:.2f} MB -> "
-                  f"{t_b:.4f} ms; bound by {by}), {bnd / min(km, km2):.3%} of bound")
-    print("[earlier] ipa_attention with the earlier CUDA-core design: bf16 0.1064-0.1071 ms at "
-          "b=bp=32 and 0.4235-0.4263 ms at b=128 bp=1; float32 0.1152-0.1159 / 0.4263-0.4293 ms "
-          "(PERF.md, K2 row; CUDA events, queued; H100 80GB HBM3, 700 W)")
+    # ---- 9. the few-step recipes: card vs CPU on a short chain -------------------------
+    for opts in (dict(init="chord", t_start=12, n_steps=6, n_fine_tail=2, noise_t_max=2,
+                      orientation_reverse="posterior"),
+                 dict(init="chord", chord_orientations=True, t_start=12, n_steps=5,
+                      coord_solver="heun", coord_solver_t_min=3),
+                 dict(t_start=10, n_steps=6, coord_solver="ab2", step_schedule="hight"),
+                 dict(n_steps=6, coord_ddim_t_min=8, noise_scale=0.5,
+                      return_trajectory=True)):
+        e2e_sample_check(torch, "[fast]", 32, 20, single_chain=True, **opts)
 
-    # ---- 8. records ---------------------------------------------------------------
+    # ---- 10. L = 256 and the fast recipes at full width ---------------------------------
+    launches["sample_L256"], designs_per_s_256 = sampling_main_path(
+        torch, card, "bfloat16", 2, "[main-256]", L=256)
+    for fuse in (None, False):
+        launches[f"train_L256_fuse_{fuse}"], _ = training_main_path(
+            torch, card, "[main-256] train", fuse, 256, 2, 4, batch_size=8, profile=False)
+    # K1 at the widest shape the recipes give it (b = n_designs, bp = 1)
+    b_fast = max(n for _, n, _ in FAST_RECIPES)
+    with torch.no_grad():
+        err_bf16 = max(err_bf16, check_layer(
+            torch, f"[fast] bf16 (b={b_fast} bp=1 L=128)",
+            layer_inputs(torch, b_fast, 1, **main_shape, dtype=torch.bfloat16,
+                         bias_dtype=torch.bfloat16, seed=22, n_masked=8), bf16=True))
+    fast_rates = {}
+    for name, n_designs, opts in FAST_RECIPES:
+        launches[f"sample_{name}"], fast_rates[name] = sampling_main_path(
+            torch, card, "bfloat16", 2, f"[fast] {name}", n_designs=n_designs, **opts)
+
+    # ---- 11. records ---------------------------------------------------------------
     by_path = lambda i: {path: c[i] for path, c in launches.items()}
     kernels = [{
         "name": "ipa_fused_layer",
@@ -929,6 +1179,9 @@ def main() -> int:
         "design": K1_DESIGN,
         "train_shape": k1_times["train"],
         "f32": k1_f32,
+        "max_err_L_over_128": err1_long,
+        "L256": {f"{d}_{shape}": t for (k, d, shape), t in long_times.items()
+                 if k == "ipa_fused_layer"},
     }, {
         "name": "ipa_attention",
         "route": "cuda",
@@ -945,8 +1198,14 @@ def main() -> int:
         "design": K2_DESIGN,
         "sample_shape": k2_times[("bfloat16", "sample")],
         "f32": {label: k2_times[("float32", label)] for label in ("train", "sample")},
+        "max_err_L_over_128": err2_long,
+        "L256": {f"{d}_{shape}": t for (k, d, shape), t in long_times.items()
+                 if k == "ipa_attention"},
     }]
     print(json.dumps({"kernels": kernels}))
+    print(f"[main] L=256: designs/s {designs_per_s_256:.3f} (bf16); few-step recipes: "
+          + ", ".join(f"{name} {rate:.3f} designs/s" for name, rate in fast_rates.items())
+          + f" (card: {card})")
     print(f"[main] designs/s {designs_per_s:.3f} (bf16) / {designs_per_s_f32:.3f} (float32); "
           f"training steps/s {train_rates[None]:.3f} (fused layer) / {train_rates[False]:.3f} "
           f"(attention core) (card: {card})")

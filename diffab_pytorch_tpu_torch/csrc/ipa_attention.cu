@@ -51,8 +51,22 @@
 // per SM to hide the waits, and 3xTF32 issues six times the mma.sync
 // instructions of bf16.
 //
-// Limits: L <= 128, ds + 3 P <= 64, ds + 3 P < F <= 80 (the augmented width
-// ds + 3 P + 3 padded to 16).
+// Patches longer than 128 residues (attention_chunked_kernel): the grid
+// gains a third dimension over chunks of 128 query rows, one block each,
+// rather than a loop over them inside one block: a (design, head) at
+// L = 256 then fills two blocks instead of keeping one SM twice as long,
+// and each block's shared memory stays that of L = 128.  Every block
+// streams the keys through its tiles in chunks of 128, twice
+// (ipa_tc::chunked_attention: pass 1 the rows' max and sum, pass 2 the
+// logits again, the normalised weights and the weighted sums), so K is
+// read 2 x (L / 128) times and V L / 128 times per (design, head), from
+// L2 mostly, and the logits' product is done twice.  Shared memory at
+// L = 256 is that of L = 128: bf16 84,864 and float32 100,096 bytes at
+// the default shape, 121,856 at the largest (float32, F = 80, FV = 64).
+// The L <= 128 kernel is unchanged.
+//
+// Limits: ds + 3 P <= 64, ds + 3 P < F <= 80 (the augmented width
+// ds + 3 P + 3 padded to 16); any L >= 1 whose tensors fit the card.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,7 +77,7 @@ using namespace ipa_tc;
 
 namespace {
 
-constexpr int WARPS = MAX_L / 16;  // 16 query rows each: the whole (design, head)
+constexpr int WARPS = MAX_L / 16;  // 16 query rows each: a (design, head) up to MAX_L
 constexpr int THREADS = WARPS * 32;
 
 struct Dims {
@@ -84,6 +98,49 @@ template <typename T> Dims attention_dims(int L, int F, int ds, int p3) {
   return D;
 }
 
+// The warp's outputs o of rows i0 .. i0 + 15 (those < L) to out_s / out_p,
+// transposed through its own 16 columns ot of the q tile (FVP <= FP rows,
+// only this warp reads them): ot[c][r] for feature c of row i0 + r; they
+// leave feature-major, 16 bytes per store where the rows allow
+template <typename T>
+__device__ __forceinline__ void write_outputs(const float (&o)[MAX_V_TILES][4], T* ot,
+                                              const Dims& D, T* __restrict__ out_s,
+                                              T* __restrict__ out_p, size_t g, int i0,
+                                              int lane, bool vec) {
+  const int L = D.L, ds = D.ds, p3 = D.p3;
+  __syncwarp();
+#pragma unroll
+  for (int vt = 0; vt < MAX_V_TILES; ++vt) {
+    if (vt < D.FVP / 8) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = lane / 4 + hr * 8, c = vt * 8 + (lane & 3) * 2;
+        ot[c * D.ts + r] = from_f<T>(o[vt][2 * hr]);
+        ot[(c + 1) * D.ts + r] = from_f<T>(o[vt][2 * hr + 1]);
+      }
+    }
+  }
+  __syncwarp();
+  const int rows = L - i0 < 16 ? L - i0 : 16;
+  auto out_row = [&](int c) {  // feature c's row of L outputs
+    return c < ds ? out_s + (g * ds + c) * L : out_p + (g * p3 + c - ds) * L;
+  };
+  if (vec && rows == 16) {
+    constexpr int PER = 16 / sizeof(T), PIECES = 16 / PER;  // per row of 16 outputs
+    for (int e = lane; e < D.FV * PIECES; e += 32) {
+      const int c = e / PIECES, q = (e - c * PIECES) * PER;
+      *reinterpret_cast<uint4*>(out_row(c) + i0 + q) =
+          *reinterpret_cast<const uint4*>(ot + c * D.ts + q);
+    }
+  } else {
+    for (int e = lane; e < D.FV * rows; e += 32) {
+      const int c = e / rows, r = e - c * rows;
+      out_row(c)[i0 + r] = ot[c * D.ts + r];
+    }
+  }
+}
+
+// L <= MAX_L: one block per (head, design) holds every query row and key
 template <typename T, typename TB>
 __global__ void __launch_bounds__(THREADS, 2)
 attention_kernel(const T* __restrict__ q_aug,  // (b, h, F, L)
@@ -108,10 +165,10 @@ attention_kernel(const T* __restrict__ q_aug,  // (b, h, F, L)
   T* va = reinterpret_cast<T*>(smem + 2 * D.qk_bytes);
   T* wtile = reinterpret_cast<T*>(smem + 2 * D.qk_bytes + D.v_bytes + warp * D.warp_bytes);
 
-  load_tile(qa, q_aug + g * F * L, F, D.FP, L, D.LP, D.ts, vec, tid, THREADS);
-  load_tile(ka, k_aug + g * F * L, F, D.FP, L, D.LP, D.ts, vec, tid, THREADS);
-  load_tile(va, v_s + g * ds * L, ds, ds, L, D.LP, D.ts, vec, tid, THREADS);
-  load_tile(va + ds * D.ts, v_p + g * p3 * L, p3, D.FVP - ds, L, D.LP, D.ts, vec, tid,
+  load_tile(qa, q_aug + g * F * L, F, D.FP, L, L, D.LP, D.ts, vec, tid, THREADS);
+  load_tile(ka, k_aug + g * F * L, F, D.FP, L, L, D.LP, D.ts, vec, tid, THREADS);
+  load_tile(va, v_s + g * ds * L, ds, ds, L, L, D.LP, D.ts, vec, tid, THREADS);
+  load_tile(va + ds * D.ts, v_p + g * p3 * L, p3, D.FVP - ds, L, L, D.LP, D.ts, vec, tid,
             THREADS);
   cp_async_wait_all();
   __syncthreads();
@@ -121,58 +178,59 @@ attention_kernel(const T* __restrict__ q_aug,  // (b, h, F, L)
   logits<T>(qa, D.ts, m0, ka, D.ts, D.FP, D.LP, lane, s);
   softmax_rows<T, TB>(s, bias + ((size_t)target * h + hh) * L * L, L, D.LP, m0, scale_total,
                       lane);
-  store_weights<T>(s, attn + g * L * L, L, D.LP, m0, lane, wtile, D.as);
+  store_weights<T>(s, attn + g * L * L, L, m0, 0, D.LP, lane, wtile, D.as);
   float o[MAX_V_TILES][4];
   weighted_sums<T>(s, va, D.ts, D.FVP, D.LP, lane, o);
+  write_outputs<T>(o, qa + m0, D, out_s, out_p, g, m0, lane, vec);
+}
 
-  // outputs, transposed through this warp's own 16 columns of the q tile
-  // (FVP <= FP rows): ot[c][r] for feature c of row m0 + r
-  T* ot = qa + m0;
-  __syncwarp();
-#pragma unroll
-  for (int vt = 0; vt < MAX_V_TILES; ++vt) {
-    if (vt < D.FVP / 8) {
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int r = lane / 4 + hr * 8, c = vt * 8 + (lane & 3) * 2;
-        ot[c * D.ts + r] = from_f<T>(o[vt][2 * hr]);
-        ot[(c + 1) * D.ts + r] = from_f<T>(o[vt][2 * hr + 1]);
-      }
-    }
-  }
-  __syncwarp();
-  const int rows = L - m0 < 16 ? L - m0 : 16;
-  auto out_row = [&](int c) {  // feature c's row of L outputs
-    return c < ds ? out_s + (g * ds + c) * L : out_p + (g * p3 + c - ds) * L;
-  };
-  if (vec && rows == 16) {
-    constexpr int PER = 16 / sizeof(T), PIECES = 16 / PER;  // per row of 16 outputs
-    for (int e = lane; e < D.FV * PIECES; e += 32) {
-      const int c = e / PIECES, q = (e - c * PIECES) * PER;
-      *reinterpret_cast<uint4*>(out_row(c) + m0 + q) =
-          *reinterpret_cast<const uint4*>(ot + c * D.ts + q);
-    }
-  } else {
-    for (int e = lane; e < D.FV * rows; e += 32) {
-      const int c = e / rows, r = e - c * rows;
-      out_row(c)[m0 + r] = ot[c * D.ts + r];
-    }
-  }
+// L > MAX_L: one block per (head, design, chunk of CHUNK query rows), the
+// keys streamed through the tiles in chunks (ipa_tc::chunked_attention);
+// the tiles are those of L = CHUNK (D is made for CHUNK, D.L is the
+// patch's L)
+template <typename T, typename TB>
+__global__ void __launch_bounds__(THREADS, 2)
+attention_chunked_kernel(const T* __restrict__ q_aug, const T* __restrict__ k_aug,
+                         const T* __restrict__ v_s, const T* __restrict__ v_p,
+                         const TB* __restrict__ bias, T* __restrict__ out_s,
+                         T* __restrict__ out_p, T* __restrict__ attn, const Dims D, int h,
+                         int n_designs, float scale_total) {
+  const int hh = blockIdx.x, design = blockIdx.y, target = design / n_designs;
+  const int q0 = blockIdx.z * CHUNK, tid = threadIdx.x, warp = tid / 32;
+  const int L = D.L, F = D.F, ds = D.ds, p3 = D.p3;
+  const size_t g = (size_t)design * h + hh;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qa = reinterpret_cast<T*>(smem);
+  T* ka = reinterpret_cast<T*>(smem + D.qk_bytes);
+  T* va = reinterpret_cast<T*>(smem + 2 * D.qk_bytes);
+  T* wtile = reinterpret_cast<T*>(smem + 2 * D.qk_bytes + D.v_bytes + warp * D.warp_bytes);
+
+  float o[MAX_V_TILES][4];
+  chunked_attention<T, TB>(q_aug + g * F * L, k_aug + g * F * L, F, D.FP, v_s + g * ds * L, ds,
+                           v_p + g * p3 * L, p3, D.FVP, L, L, L,
+                           bias + ((size_t)target * h + hh) * L * L, attn + g * L * L, q0,
+                           scale_total, qa, ka, va, D.ts, wtile, D.as, tid, THREADS, o);
+  const int i0 = q0 + 16 * warp;
+  if (i0 >= round_up(L, 16)) return;  // warp-uniform; no block barrier follows
+  write_outputs<T>(o, qa + 16 * warp, D, out_s, out_p, g, i0, tid % 32, L % 8 == 0);
 }
 
 template <typename T, typename TB>
 int run(const void* q_aug, const void* k_aug, const void* v_s, const void* v_p,
         const void* bias, void* out_s, void* out_p, void* attn, int b, int bp, int L, int h,
         int F, int ds, int p3, float scale_total, cudaStream_t stream) {
-  const Dims D = attention_dims<T>(L, F, ds, p3);
+  const bool chunked = L > MAX_L;
+  Dims D = attention_dims<T>(chunked ? CHUNK : L, F, ds, p3);
+  D.L = L;
   if (D.FVP > D.FP || D.total > 232448) return cudaErrorInvalidValue;
-  auto kernel = attention_kernel<T, TB>;
+  auto kernel = chunked ? attention_chunked_kernel<T, TB> : attention_kernel<T, TB>;
   if (D.total > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, D.total);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<dim3(h, b), THREADS, D.total, stream>>>(
+  kernel<<<dim3(h, b, (L + CHUNK - 1) / CHUNK), THREADS, D.total, stream>>>(
       static_cast<const T*>(q_aug), static_cast<const T*>(k_aug),
       static_cast<const T*>(v_s), static_cast<const T*>(v_p), static_cast<const TB*>(bias),
       static_cast<T*>(out_s), static_cast<T*>(out_p), static_cast<T*>(attn), D, h, b / bp,
@@ -190,7 +248,7 @@ int ipa_attention_forward(int dtype, int bias_dtype, const void* q_aug, const vo
                           const void* v_s, const void* v_p, const void* bias, void* out_s,
                           void* out_p, void* attn, int b, int bp, int L, int h, int F,
                           int ds, int p3, float scale_total, void* stream) {
-  if (L < 1 || L > MAX_L || bp < 1 || b % bp != 0 || h < 1 || ds < 0 || p3 < 0 ||
+  if (L < 1 || bp < 1 || b % bp != 0 || h < 1 || ds < 0 || p3 < 0 ||
       ds + p3 < 1 || ds + p3 > MAX_FV || F <= ds + p3 || F > MAX_F)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

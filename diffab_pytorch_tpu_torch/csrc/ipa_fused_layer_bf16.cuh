@@ -53,9 +53,13 @@
 // P = 8) that is 95,872 bytes, two blocks per SM; at the largest shapes
 // taken (L = 128, ds + 3P = 64, P = 21) 169,936 bytes, within the 227 KB a
 // block may use whatever d and h are (d is sliced, h is the grid).
+// Beyond 128 rows each block takes 128 of them (CHUNKED below), with the
+// same layout and bytes.
 
 #pragma once
 
+#include "ipa_attention_tc.cuh"
+#include "ipa_fused_layer_features.cuh"
 #include "ptx.cuh"
 
 #include <cmath>
@@ -100,7 +104,12 @@ inline Dims layer_dims(int L, int d, int h, int ds, int p) {
 }
 
 // ---- launch 1 ------------------------------------------------------------------
-template <typename TB>
+// CHUNKED (L > MAX_L): the block takes rows row0 .. row0 + CHUNK - 1 of the
+// patch (D made for CHUNK rows, D.L the patch's L), stops after the
+// operands and writes them feature-major to opnd: q, k (b, h, FAP, LS)
+// then v (b, h, FVP, LS), LS = D.L rounded up to 16, padded rows included
+// (finite; their keys get weight 0 in the chunked core)
+template <typename TB, bool CHUNKED = false>
 __global__ void __launch_bounds__(THREADS, 2)
 layer_heads_kernel(const bf16* __restrict__ x,        // (b, L, d)
                    const bf16* __restrict__ rot,      // (b, L, 3, 3)
@@ -112,10 +121,12 @@ layer_heads_kernel(const bf16* __restrict__ x,        // (b, L, d)
                    bf16* __restrict__ feat,           // (b L, h FH)
                    bf16* __restrict__ attn,           // (b, h, L, L)
                    const Dims D, int n_designs, float scale_total, float nk_scale,
-                   int x_vec) {
+                   int x_vec, bf16* __restrict__ opnd) {
   const int hh = blockIdx.x, design = blockIdx.y, target = design / n_designs;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int L = D.L, LP = D.LP, d = D.d, h = D.h, ds = D.ds, p = D.p;
+  const int row0 = CHUNKED ? blockIdx.z * ipa_tc::CHUNK : 0;  // the block's first row
+  const int L = CHUNKED ? min(ipa_tc::CHUNK, D.L - row0) : D.L;  // its rows
+  const int LP = D.LP, d = D.d, h = D.h, ds = D.ds, p = D.p;
   const int FV = D.FV, FVP = D.FVP, FAP = D.FAP, NQ = D.NQ;
   const int m0 = warp * 16;  // this warp's query / projection rows
   const bf16 zero = __float2bfloat16_rn(0.f);
@@ -133,7 +144,7 @@ layer_heads_kernel(const bf16* __restrict__ x,        // (b, L, d)
   // point staging, f32, column-major: pts[(part 3P + column) ps + row]
   float* pts = reinterpret_cast<float*>(stg);
 
-  const size_t row_base = (size_t)design * L;
+  const size_t row_base = (size_t)design * D.L + row0;
   const bf16* xg = x + row_base * d;
   const bf16* wg = w_qkv + (size_t)hh * d * NQ;
   const float g_t = rnd(g[hh]);
@@ -280,6 +291,19 @@ layer_heads_kernel(const bf16* __restrict__ x,        // (b, L, d)
     for (int c = pad; c < (part < 2 ? FAP : FVP); ++c) row[c] = zero;
   }
   __syncthreads();
+  if constexpr (CHUNKED) {
+    const int LS = round_up(D.L, 16), cols = LS - row0 < LP ? LS - row0 : LP;
+    const size_t gi = (size_t)design * h + hh, qk = (size_t)gridDim.y * h * FAP * LS;
+    bf16* qo = opnd + gi * FAP * LS + row0;
+    bf16* vo = opnd + 2 * qk + gi * FVP * LS + row0;
+    for (int e = tid; e < (2 * FAP + FVP) * cols; e += THREADS) {
+      const int f = e / cols, l = e - f * cols;
+      if (f < FAP) qo[(size_t)f * LS + l] = qa[l * D.qs + f];
+      else if (f < 2 * FAP) qo[qk + (size_t)(f - FAP) * LS + l] = ka[l * D.qs + f - FAP];
+      else vo[(size_t)(f - 2 * FAP) * LS + l] = va[l * D.vs + f - 2 * FAP];
+    }
+    return;
+  }
   if (m0 >= LP) return;  // warp-uniform; no block barrier follows
   unsigned char* wbuf = stg + warp * D.warp_bytes;  // the staging is free now
   bf16* at = reinterpret_cast<bf16*>(wbuf);  // this warp's attn tile, stride as
@@ -437,43 +461,9 @@ layer_heads_kernel(const bf16* __restrict__ x,        // (b, L, d)
     }
   }
   __syncwarp();
-  // lane owns feature columns 2 cp and 2 cp + 1 of every row: out_s (kind
-  // 0), coordinate kc of point pp's loc (1), point pp's norm (2), zero (3)
-  const int FH = D.FH;
-  for (int cp = lane; cp < FH / 2; cp += 32) {
-    int kind[2], kc[2], pp[2];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int c = 2 * cp + u, q = c - ds;
-      kind[u] = c < ds ? 0 : c < ds + 3 * p ? 1 : c < ds + 4 * p ? 2 : 3;
-      kc[u] = kind[u] == 1 ? q / p : 0;
-      pp[u] = kind[u] == 1 ? q - kc[u] * p : kind[u] == 2 ? q - 3 * p : 0;
-    }
-    for (int r = 0; r < rows; ++r) {
-      const int i = m0 + r;
-      const float* orr = orow + r * D.os;
-      const float* R = rs + i * 9;
-      const float t0 = ts[i * 3], t1 = ts[i * 3 + 1], t2 = ts[i * 3 + 2];
-      float v[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {  // every lane takes one path: no divergence
-        const float d0 = orr[ds + pp[u]] - t0, d1 = orr[ds + p + pp[u]] - t1,
-                    d2 = orr[ds + 2 * p + pp[u]] - t2;
-        const float l0 = d0 * R[0] + d1 * R[1] + d2 * R[2];
-        const float l1 = d0 * R[3] + d1 * R[4] + d2 * R[5];
-        const float l2 = d0 * R[6] + d1 * R[7] + d2 * R[8];
-        float nrm = 0.f;
-        nrm += l0 * l0;
-        nrm += l1 * l1;
-        nrm += l2 * l2;
-        const float loc = kc[u] == 0 ? l0 : kc[u] == 1 ? l1 : l2;
-        const float sc = orr[kind[u] == 0 ? 2 * cp + u : 0];
-        v[u] = kind[u] == 0 ? sc : kind[u] == 1 ? loc : kind[u] == 2 ? sqrtf(nrm + 1e-8f) : 0.f;
-      }
-      *reinterpret_cast<__nv_bfloat162*>(feat + ((row_base + i) * h + hh) * FH + 2 * cp) =
-          __floats2bfloat162_rn(v[0], v[1]);
-    }
-  }
+  ipa_layer::write_features<bf16>(orow, D.os, 1, rs + m0 * 9, ts + m0 * 3, rows, ds, p, D.FH,
+                                  feat + ((row_base + m0) * h + hh) * D.FH, (size_t)h * D.FH,
+                                  lane);
 }
 
 // ---- launch 2: C (M x N) = A (M x K) @ B (K x NP), bf16 out ---------------------------

@@ -50,11 +50,13 @@
 // the default shapes (L = 128, ds = 32, P = 8) that is 106,752 bytes, two
 // blocks per SM; at the largest shapes taken (L = 128, ds + 3P = 64,
 // P = 21) 119,808 bytes, within the 227 KB a block may use whatever d and
-// h are (d is sliced, h is the grid).
+// h are (d is sliced, h is the grid).  Beyond 128 rows each block takes
+// 128 of them (CHUNKED below), with the same layout and bytes.
 
 #pragma once
 
 #include "ipa_attention_tc.cuh"
+#include "ipa_fused_layer_features.cuh"
 #include "ptx.cuh"
 
 #include <cmath>
@@ -90,6 +92,10 @@ inline Dims layer_dims(int L, int d, int h, int ds, int p) {
 }
 
 // ---- launch 1 ------------------------------------------------------------------
+// CHUNKED (L > MAX_L): as the bf16 layer's (tc::layer_heads_kernel), the
+// block takes rows row0 .. row0 + CHUNK - 1, stops after the operands and
+// writes them feature-major to opnd: q, k (b, h, FP, LS), v (b, h, FVP, LS)
+template <bool CHUNKED = false>
 __global__ void __launch_bounds__(THREADS, 2)
 layer_heads_kernel(const float* __restrict__ x,        // (b, L, d)
                    const float* __restrict__ rot,      // (b, L, 3, 3)
@@ -101,11 +107,13 @@ layer_heads_kernel(const float* __restrict__ x,        // (b, L, d)
                    float* __restrict__ feat,           // (b L, h FH)
                    float* __restrict__ attn,           // (b, h, L, L)
                    const Dims D, int n_designs, float scale_total, float nk_scale,
-                   int x_vec) {
+                   int x_vec, float* __restrict__ opnd) {
   const int hh = blockIdx.x, design = blockIdx.y, target = design / n_designs;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int gq = lane / 4, tq = lane % 4;  // fragment row group, column pair
-  const int L = D.L, LP = D.LP, d = D.d, h = D.h, ds = D.ds, p = D.p;
+  const int row0 = CHUNKED ? blockIdx.z * ipa_tc::CHUNK : 0;  // the block's first row
+  const int L = CHUNKED ? min(ipa_tc::CHUNK, D.L - row0) : D.L;  // its rows
+  const int LP = D.LP, d = D.d, h = D.h, ds = D.ds, p = D.p;
   const int FV = D.FV, FVP = D.FVP, FP = D.FP, NQ = D.NQ, ts = D.ts;
   const int m0 = warp * 16;  // this warp's query / projection rows
 
@@ -119,7 +127,7 @@ layer_heads_kernel(const float* __restrict__ x,        // (b, L, d)
   float* ka = qa + FP * ts;   // FP x ts   [feature][key]
   float* va = ka + FP * ts;   // FVP x ts  [value feature][key]
 
-  const size_t row_base = (size_t)design * L;
+  const size_t row_base = (size_t)design * D.L + row0;
   const float* xg = x + row_base * d;
   const float* wg = w_qkv + (size_t)hh * d * NQ;
   const float gh = g[hh];
@@ -262,6 +270,20 @@ layer_heads_kernel(const float* __restrict__ x,        // (b, L, d)
     for (int c = pad; c < (part < 2 ? FP : FVP); ++c) tile[c * ts + l] = 0.f;
   }
   __syncthreads();
+  if constexpr (CHUNKED) {
+    const int LS = round_up(D.L, 16), cols = LS - row0 < LP ? LS - row0 : LP;
+    const size_t gi = (size_t)design * h + hh, qk = (size_t)gridDim.y * h * FP * LS;
+    float* qo = opnd + gi * FP * LS + row0;
+    float* vo = opnd + 2 * qk + gi * FVP * LS + row0;
+    // qa, ka and va are consecutive rows of stride ts: 2 FP + FVP of them
+    for (int e = tid; e < (2 * FP + FVP) * cols; e += THREADS) {
+      const int f = e / cols, l = e - f * cols;
+      float* dst = f < 2 * FP ? qo + (f < FP ? 0 : qk) + (size_t)(f % FP) * LS
+                              : vo + (size_t)(f - 2 * FP) * LS;
+      dst[l] = qa[f * ts + l];
+    }
+    return;
+  }
   if (m0 >= LP) return;  // warp-uniform; no block barrier follows
 
   // ---- c, d. the attention core ------------------------------------------------
@@ -269,8 +291,8 @@ layer_heads_kernel(const float* __restrict__ x,        // (b, L, d)
   ipa_tc::logits<float>(qa, ts, m0, ka, ts, FP, LP, lane, s);
   ipa_tc::softmax_rows<float, float>(s, bias + ((size_t)target * h + hh) * L * L, L, LP, m0,
                                      scale_total, lane);
-  ipa_tc::store_weights<float>(s, attn + ((size_t)design * h + hh) * L * L, L, LP, m0, lane,
-                               nullptr, 0);
+  ipa_tc::store_weights<float>(s, attn + ((size_t)design * h + hh) * L * L, L, m0, 0, LP,
+                               lane, nullptr, 0);
   float o[MAX_V_TILES][4];
   ipa_tc::weighted_sums<float>(s, va, ts, FVP, LP, lane, o);
 
@@ -288,42 +310,10 @@ layer_heads_kernel(const float* __restrict__ x,        // (b, L, d)
     }
   }
   __syncwarp();
-  // lane owns feature columns 2 cp and 2 cp + 1 of every row: out_s (kind
-  // 0), coordinate kc of point pp's loc (1), point pp's norm (2), zero (3)
-  const int FH = D.FH, rows = L - m0 < 16 ? L - m0 : 16;
-  for (int cp = lane; cp < FH / 2; cp += 32) {
-    int kind[2], kc[2], pp[2];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int c = 2 * cp + u, q = c - ds;
-      kind[u] = c < ds ? 0 : c < ds + 3 * p ? 1 : c < ds + 4 * p ? 2 : 3;
-      kc[u] = kind[u] == 1 ? q / p : 0;
-      pp[u] = kind[u] == 1 ? q - kc[u] * p : kind[u] == 2 ? q - 3 * p : 0;
-    }
-    for (int r = 0; r < rows; ++r) {
-      const int i = m0 + r;
-      const float* R = rs + i * 9;
-      const float t0 = tr[i * 3], t1 = tr[i * 3 + 1], t2 = tr[i * 3 + 2];
-      float v[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {  // every lane takes one path: no divergence
-        const float* op = ot + (ds + pp[u]) * ts + r;  // coordinate k at op[k p ts]
-        const float d0 = op[0] - t0, d1 = op[p * ts] - t1, d2 = op[2 * p * ts] - t2;
-        const float l0 = d0 * R[0] + d1 * R[1] + d2 * R[2];
-        const float l1 = d0 * R[3] + d1 * R[4] + d2 * R[5];
-        const float l2 = d0 * R[6] + d1 * R[7] + d2 * R[8];
-        float nrm = 0.f;
-        nrm += l0 * l0;
-        nrm += l1 * l1;
-        nrm += l2 * l2;
-        const float loc = kc[u] == 0 ? l0 : kc[u] == 1 ? l1 : l2;
-        const float sc = ot[(kind[u] == 0 ? 2 * cp + u : 0) * ts + r];
-        v[u] = kind[u] == 0 ? sc : kind[u] == 1 ? loc : kind[u] == 2 ? sqrtf(nrm + 1e-8f) : 0.f;
-      }
-      *reinterpret_cast<float2*>(feat + ((row_base + i) * h + hh) * FH + 2 * cp) =
-          make_float2(v[0], v[1]);
-    }
-  }
+  const int rows = L - m0 < 16 ? L - m0 : 16;
+  ipa_layer::write_features<float>(ot, 1, ts, rs + m0 * 9, tr + m0 * 3, rows, ds, p, D.FH,
+                                   feat + ((row_base + m0) * h + hh) * D.FH, (size_t)h * D.FH,
+                                   lane);
 }
 
 // ---- launch 2: C (M x N) = A (M x K) @ B (K x NP), float32 ------------------------------

@@ -126,6 +126,15 @@ template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f<bf16>(bf16 v) { return __bfloat162float(v); }
 
+// two neighbouring outputs a, b at an even element index
+template <typename T> __device__ __forceinline__ void store2(T* p, float a, float b);
+template <> __device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <> __device__ __forceinline__ void store2<bf16>(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 // one element of a read-only input, as float (a plain load: __ldg here
 // made the float32 attention kernel ~6% slower on the H100)
 template <typename TB> __device__ __forceinline__ float load_f(const TB* p) {

@@ -7,7 +7,8 @@ The IGSO(3) sigma table is sqrt(1 - abar_t) indexed by timestep, so the
 timestep is the sigma index.  Reverse step ("renoise", the DiffAb-paper
 heuristic): apply the forward kernel at s to the predicted R0,
   R_s = scale_rot(R0_hat, sqrt(abar_s)) @ IGSO3-noise(sigma_s),
-with zero noise at s = 0 (sigma_0 = 0).
+with zero noise at s = 0 (sigma_0 = 0); or ("posterior") the geodesic
+analogue of the DDPM posterior, noised at a sigma between the table's rows.
 """
 
 from __future__ import annotations
@@ -91,17 +92,40 @@ def reverse_step(
     generator: torch.Generator | None = None,
     noise: igso3_lib.AxisAngleNoise | None = None,
 ) -> torch.Tensor:
-    """One reverse step R_t -> R_s (s defaults to t - 1) by renoising the
-    predicted clean frames to level s; context frames are kept."""
-    if mode != "renoise":
-        raise NotImplementedError(
-            f"orientation reverse mode {mode!r} is not ported; use 'renoise'"
-        )
+    """One reverse step R_t -> R_s (s defaults to t - 1); context frames
+    are kept.  mode "renoise": the forward kernel at s applied to the
+    predicted clean frames.  mode "posterior": the rotational analogue of
+    the DDPM posterior q(x_s | x_t, x0_hat), with wt = alpha_ts (1 -
+    abar_s) / (1 - abar_t) and sigma_tilde = sqrt((1 - abar_s) beta_ts /
+    (1 - abar_t)):
+      A = scale_rot(R0_hat, sqrt(abar_s)), B = scale_rot(R_t, 1 / sqrt(alpha_ts)),
+      R_s = A scale_rot(A^T B, wt) IGSO3(sigma_tilde).
+    noise_scale scales the sampled angle in both modes."""
     if s is None:
         s = t - 1
-    r_prev = _apply_forward_kernel(tables, orientations_t0_hat, s,
-                                   noise_scale=noise_scale,
-                                   generator=generator, noise=noise)
+    if mode == "renoise":
+        r_prev = _apply_forward_kernel(tables, orientations_t0_hat, s,
+                                       noise_scale=noise_scale,
+                                       generator=generator, noise=noise)
+    elif mode == "posterior":
+        sched = tables.sched
+        abar_t, abar_s = sched.alpha_bar[t], sched.alpha_bar[s]
+        alpha_ts = abar_t / abar_s
+        beta_ts = 1.0 - alpha_ts
+        one_m_t = torch.clamp(1.0 - abar_t, min=1e-12)
+        one_m_s = 1.0 - abar_s
+        w_t = alpha_ts * one_m_s / one_m_t  # (b,)
+        sigma_tilde = torch.sqrt(torch.clamp(one_m_s * beta_ts / one_m_t, min=0.0))
+        a = so3.scale_rot(orientations_t0_hat, torch.sqrt(abar_s))
+        b_pt = so3.scale_rot(orientations_t, 1.0 / torch.sqrt(torch.clamp(alpha_ts, min=1e-6)))
+        rel = so3.compose(a.transpose(-1, -2), b_pt)
+        mean = so3.compose(a, so3.scale_rot(rel, w_t))
+        rotvec = igso3_lib.sample_axis_angle_continuous(
+            tables.igso3, sigma_tilde, (orientations_t.shape[-3],),
+            generator=generator, noise=noise)
+        r_prev = so3.compose(mean, so3.vector_to_rotation_matrix(noise_scale * rotvec))
+    else:
+        raise ValueError(f"unknown orientation reverse mode: {mode!r}")
     return torch.where(generation_mask[..., None, None], r_prev, orientations_t)
 
 

@@ -1,6 +1,7 @@
 """Multinomial (D3PM uniform-noise) sequence diffusion
 (`diffab_pytorch_tpu/diffusion/sequence.py`): the forward process with its
-true posterior (the training target) and the reverse step.
+true posterior (the training target), the single-step forward kernel and
+the reverse step.
 
 Positions outside `generation_mask` are clamped to the input sequence.
 The categorical draw is Gumbel-max; the Gumbel tensor can be injected.
@@ -36,6 +37,35 @@ def categorical_from_probs(
         gumbel = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
     logits = torch.log(torch.clamp(probs, min=1e-20))
     return torch.argmax(logits + gumbel, dim=-1)
+
+
+def forward_prob_single_step(
+    sched: DiffusionSchedule,
+    seq_idx: torch.Tensor,
+    t: torch.Tensor,
+    generation_mask: torch.Tensor,
+    vocab_size: int = AA_VOCAB_SIZE,
+) -> torch.Tensor:
+    """q(s_t | s_{t-1} = seq_idx) = (1 - beta_t) onehot + beta_t / K:
+    (b, L) -> (b, L, K), context clamped."""
+    beta = sched.beta[t][..., None, None]
+    onehot = F.one_hot(seq_idx, vocab_size).to(sched.beta.dtype)
+    probs = (1.0 - beta) * onehot + beta / vocab_size
+    return _clamp_context(probs, seq_idx, generation_mask)
+
+
+def diffuse_single_step(
+    sched: DiffusionSchedule,
+    seq_idx: torch.Tensor,
+    t: torch.Tensor,
+    generation_mask: torch.Tensor,
+    vocab_size: int = AA_VOCAB_SIZE,
+    generator: torch.Generator | None = None,
+    gumbel: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """s_t ~ q(s_t | s_{t-1}); `gumbel` (b, L, K) injects the draw."""
+    p = forward_prob_single_step(sched, seq_idx, t, generation_mask, vocab_size)
+    return torch.where(generation_mask, categorical_from_probs(p, generator, gumbel), seq_idx)
 
 
 def forward_prob_from_t0(
@@ -83,12 +113,16 @@ def diffuse_from_t0(
     vocab_size: int = AA_VOCAB_SIZE,
     generator: torch.Generator | None = None,
     gumbel: torch.Tensor | None = None,
+    return_posterior: bool = True,
 ):
-    """s_t ~ q(s_t | s_0) and the true posterior q(s_{t-1} | s_t, s_0), the
-    KL target in training.  `gumbel` (b, L, K) injects the draw."""
+    """s_t ~ q(s_t | s_0) and (return_posterior) the true posterior
+    q(s_{t-1} | s_t, s_0), the KL target in training.  `gumbel` (b, L, K)
+    injects the draw."""
     p = forward_prob_from_t0(sched, seq_idx_t0, t, generation_mask, vocab_size)
     seq_idx_t = categorical_from_probs(p, generator, gumbel)
     seq_idx_t = torch.where(generation_mask, seq_idx_t, seq_idx_t0)
+    if not return_posterior:
+        return seq_idx_t
     posterior = posterior_single_step(sched, seq_idx_t, seq_idx_t0, t,
                                       generation_mask, vocab_size)
     return seq_idx_t, posterior

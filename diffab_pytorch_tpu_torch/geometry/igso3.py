@@ -155,3 +155,65 @@ def sample_axis_angle(
     theta = sample_angle(table, sigma_idx, sample_shape, noise.uniform,
                          noise.normal)
     return axis * theta[..., None]
+
+
+def sample_angle_continuous(
+    table: IGSO3Table,
+    sigma: torch.Tensor,
+    sample_shape: tuple,
+    uniform: torch.Tensor,
+    normal: torch.Tensor,
+    sigma_threshold: float = DEFAULT_SIGMA_THRESHOLD,
+) -> torch.Tensor:
+    """Rotation angles of shape sigma.shape + sample_shape at arbitrary
+    sigma values (not only the table's rows), with the given uniform and
+    normal numbers: the folded Gaussian N(2 sigma, sigma^2) mod pi for
+    sigma >= sigma_threshold; below it, the piecewise-linear inverse CDFs
+    of the two bracketing table rows read at the same quantile and lerped
+    by sigma.  table.sigmas must be ascending (true for schedule tables)."""
+    out_shape = tuple(sigma.shape) + tuple(sample_shape)
+    expand = tuple(sigma.shape) + (1,) * len(sample_shape)
+    srt = table.sigmas
+    hi = torch.clamp(torch.searchsorted(srt, sigma.contiguous()), 1, srt.shape[0] - 1)
+    lo = hi - 1
+    w = (sigma - srt[lo]) / torch.clamp(srt[hi] - srt[lo], min=1e-12)
+    w = torch.clamp(w, 0.0, 1.0).reshape(expand)
+
+    n_q = table.inv_cdf.shape[-1]
+    pos = uniform * (n_q - 1)
+    i0 = torch.clamp(torch.floor(pos).long(), 0, n_q - 2)
+    frac = pos - i0.to(pos.dtype)
+
+    def row_theta(idx):
+        flat = idx.reshape(-1)
+        rows = table.inv_cdf[flat]  # (S, n_q)
+        i0_rows = i0.reshape(flat.shape[0], -1)
+        t0 = torch.gather(rows, 1, i0_rows).reshape(out_shape)
+        t1 = torch.gather(rows, 1, i0_rows + 1).reshape(out_shape)
+        return t0 * (1.0 - frac) + t1 * frac
+
+    theta_hist = (1.0 - w) * row_theta(lo) + w * row_theta(hi)
+    sig = sigma.reshape(expand).to(table.sigmas.dtype)
+    theta_gauss = torch.remainder(2.0 * sig + sig * normal, math.pi)
+    return torch.where(sig < sigma_threshold, theta_hist, theta_gauss)
+
+
+def sample_axis_angle_continuous(
+    table: IGSO3Table,
+    sigma: torch.Tensor,
+    sample_shape: tuple,
+    generator: torch.Generator | None = None,
+    noise: AxisAngleNoise | None = None,
+    sigma_threshold: float = DEFAULT_SIGMA_THRESHOLD,
+) -> torch.Tensor:
+    """Axis-angle IGSO3(I, sigma) vectors at arbitrary sigma (see
+    `sample_angle_continuous`), shape sigma.shape + sample_shape + (3,).
+    `noise` injects the draw (the same numbers as `sample_axis_angle`)."""
+    out_shape = tuple(sigma.shape) + tuple(sample_shape)
+    if noise is None:
+        noise = AxisAngleNoise.draw(out_shape, generator, table.sigmas.dtype,
+                                    table.sigmas.device)
+    axis = noise.axis / torch.linalg.norm(noise.axis, dim=-1, keepdim=True)
+    theta = sample_angle_continuous(table, sigma, sample_shape, noise.uniform,
+                                    noise.normal, sigma_threshold)
+    return axis * theta[..., None]

@@ -13,7 +13,9 @@ The kernel (`csrc/ipa_attention.cu`, the tensor-core core in
 `csrc/ipa_attention_tc.cuh`) computes the logits, the bias add, the
 float32 softmax, the attention weights in the compute dtype and the two
 weighted sums: bfloat16 on `mma.sync` bf16 tiles, float32 as 3xTF32
-(split operands, float32-exact to the 1e-4 checks).
+(split operands, float32-exact to the 1e-4 checks).  Patches longer than
+128 residues run in chunks of 128 query rows and keys (two passes over
+the keys: the rows' max and sum, then the weights and sums).
 
 On a CPU tensor `ipa_attention_core` runs `ipa_attention_core_reference`;
 on a CUDA tensor it launches the kernel (counted in `.launches`) or
@@ -121,14 +123,14 @@ def _check(q_aug, k_aug, v_s, v_p, bias):
 
 def check_attention_shape(L: int, F: int, ds: int, p3: int) -> None:
     """Raise ValueError for an operand shape the kernel does not take:
-    L <= 128 and ds + 3P <= 64 (one warp's logits and values in registers),
-    and ds + 3P < F <= 80, the augmented width that `augmented_operands`
-    gives (ds + 3P + 3 padded to 16)."""
+    ds + 3P <= 64 (one warp's values in registers) and ds + 3P < F <= 80,
+    the augmented width that `augmented_operands` gives (ds + 3P + 3 padded
+    to 16).  Every L >= 1: beyond 128 the kernel runs in query and key
+    chunks of 128 with the shared memory of L = 128 (csrc/ipa_attention.cu)."""
     if min(L, ds + p3) < 1 or min(ds, p3) < 0:
         raise ValueError(f"the kernel takes positive sizes, got L={L}, ds={ds}, 3P={p3}")
-    if L > 128 or ds + p3 > 64:
-        raise ValueError(f"the kernel takes L <= 128 and ds + 3P <= 64, got L={L}, "
-                         f"ds + 3P = {ds + p3}")
+    if ds + p3 > 64:
+        raise ValueError(f"the kernel takes ds + 3P <= 64, got ds + 3P = {ds + p3}")
     if not ds + p3 < F <= 80:
         raise ValueError(f"the kernel takes ds + 3P < F <= 80 augmented features, got "
                          f"F={F}, ds + 3P = {ds + p3}")

@@ -19,6 +19,9 @@ once per `sample()` call.
 
 On a CPU tensor the wrapper runs `fused_ipa_layer_packed_reference`; on a
 CUDA tensor it launches the kernel in `csrc/ipa_fused_layer.cu` or raises.
+Patches longer than 128 residues run in chunks of 128 rows and keys, with
+the augmented operands in a device scratch the wrapper allocates
+(`scratch_elems`).
 Under autograd the launch sits in a `torch.autograd.Function` whose
 backward differentiates the plain version on the saved inputs, as
 `_bwd_layer` differentiates `_layer_core_jnp`; the weights are packed
@@ -72,16 +75,29 @@ def _pad(t, pad):
 
 
 def check_kernel_shape(L: int, d: int, h: int, ds: int, p: int) -> None:
-    """Raise ValueError for a layer shape the kernel does not take: L <= 128
-    and ds + 3P <= 64 (one warp's logits and values in registers); for
-    those every d and h fit a block's shared memory (the budget is stated
-    in csrc/ipa_fused_layer.cu)."""
+    """Raise ValueError for a layer shape the kernel does not take:
+    ds + 3P <= 64 (one warp's values in registers); for those every L, d
+    and h fit a block's shared memory (the budget is stated in
+    csrc/ipa_fused_layer.cu).  Beyond L = 128 the kernel runs in chunks of
+    128 rows and keys, with an operand scratch of `scratch_elems`."""
     if min(L, d, h, ds, p) < 1:
         raise ValueError(f"the kernel takes positive sizes, got L={L}, d={d}, h={h}, "
                          f"ds={ds}, P={p}")
-    if L > 128 or ds + 3 * p > 64:
-        raise ValueError(f"the kernel takes L <= 128 and ds + 3P <= 64, got L={L}, "
-                         f"ds + 3P = {ds + 3 * p}")
+    if ds + 3 * p > 64:
+        raise ValueError(f"the kernel takes ds + 3P <= 64, got ds + 3P = {ds + 3 * p}")
+
+
+def scratch_elems(dtype: torch.dtype, b: int, L: int, h: int, ds: int, p: int) -> int:
+    """Elements (of the compute dtype) of the device scratch that holds the
+    augmented operands for L > 128, 0 up to 128: q and k (b, h, FP, LS)
+    and v (b, h, FVP, LS), LS = L rounded up to 16, FP = ds + 3P + 3 rounded
+    up to 16 (bf16) or 8 (float32), FVP = ds + 3P rounded up to 8.  The same
+    count as `ipa_fused_layer_scratch_elems` in csrc/ipa_fused_layer.cu."""
+    if L <= 128:
+        return 0
+    fv = ds + 3 * p
+    fp = _round_up(fv + 3, 16 if dtype == torch.bfloat16 else 8)
+    return b * h * (2 * fp + _round_up(fv, 8)) * _round_up(L, 16)
 
 
 def pack_layer_weights(
@@ -215,8 +231,10 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("ipa_fused_layer")
     if lib.ipa_fused_layer_forward.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ipa_fused_layer_forward.argtypes = [i, i] + [p] * 11 + [i] * 7 + [f, f, p]
+        lib.ipa_fused_layer_forward.argtypes = [i, i] + [p] * 12 + [i] * 7 + [f, f, p]
         lib.ipa_fused_layer_forward.restype = ctypes.c_int
+        lib.ipa_fused_layer_scratch_elems.argtypes = [i] * 6
+        lib.ipa_fused_layer_scratch_elems.restype = ctypes.c_longlong
         lib.ipa_fused_layer_error_string.argtypes = [ctypes.c_int]
         lib.ipa_fused_layer_error_string.restype = ctypes.c_char_p
     return lib
@@ -231,10 +249,17 @@ def _launch(x, rot, trans, mask, wts, bias, scale_total):
     attn = torch.empty((b, h, L, L), dtype=dt, device=dev)
     feat = torch.empty((b * L, h * _round_up(ds + 4 * p, 8)), dtype=dt, device=dev)
     lib = _library()
-    args = (x, rot, trans, mask, wts.w_qkv, wts.w_out, wts.g, bias, feat, acc, attn)
+    args = [x, rot, trans, mask, wts.w_qkv, wts.w_out, wts.g, bias, feat, acc, attn]
+    ptrs = [t.data_ptr() for t in args] + [None]
+    if L > 128:  # the operand scratch of the chunked path
+        n_scratch = scratch_elems(dt, b, L, h, ds, p)
+        if n_scratch != lib.ipa_fused_layer_scratch_elems(_DTYPE_CODE[dt], b, L, h, ds, p):
+            raise RuntimeError("operand scratch size disagrees with the kernel's")
+        scratch = torch.empty(n_scratch, dtype=dt, device=dev)
+        ptrs[-1] = scratch.data_ptr()
     with torch.cuda.device(dev):
         err = lib.ipa_fused_layer_forward(
-            _DTYPE_CODE[dt], _DTYPE_CODE[bias.dtype], *(t.data_ptr() for t in args),
+            _DTYPE_CODE[dt], _DTYPE_CODE[bias.dtype], *ptrs,
             b, bias.shape[0], L, d, h, ds, p, float(scale_total),
             float(-_NEG_INF / float(scale_total)), torch.cuda.current_stream(dev).cuda_stream)
     if err:

@@ -41,6 +41,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 L = 24
+LONG_L = (129, 136, 200, 256, 384)  # patches beyond one 128-key chunk
 SCALES = (8 ** -0.5, (4.5 * 4) ** -0.5, 3 ** -0.5)
 
 
@@ -139,11 +140,11 @@ def _tf32(x):
     return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _tf32_core(q_aug, k_aug, v_s, v_p, bias, scale_total, products):
-    """The kernel's float32 design in plain PyTorch: each operand split
-    into big = tf32(x) and small = tf32(x - big); each of the two products
+def _tf32_product(products):
+    """An einsum as the float32 kernels take it: each operand split into
+    big = tf32(x) and small = tf32(x - big), and a b summed in float32 as
     a_small b_big + a_big b_small + a_big b_big (products=3, 3xTF32) or
-    a_big b_big alone (products=1, plain TF32), summed in float32."""
+    a_big b_big alone (products=1, plain TF32)."""
     def product(eq, a, b):
         a_big, b_big = _tf32(a), _tf32(b)
         out = torch.einsum(eq, a_big, b_big)
@@ -151,7 +152,13 @@ def _tf32_core(q_aug, k_aug, v_s, v_p, bias, scale_total, products):
             out = (torch.einsum(eq, _tf32(a - a_big), b_big)
                    + torch.einsum(eq, a_big, _tf32(b - b_big)) + out)
         return out
+    return product
 
+
+def _tf32_core(q_aug, k_aug, v_s, v_p, bias, scale_total, products):
+    """The kernel's float32 design in plain PyTorch: each of the two
+    products as `_tf32_product` takes it."""
+    product = _tf32_product(products)
     b, h, _, n = q_aug.shape
     bp = bias.shape[0]
     logit = product("bhfi,bhfj->bhij", q_aug, k_aug)
@@ -201,7 +208,7 @@ def _attention_shapes():
             z(1, 2, h, ds), z(1, 2, h, ds), z(1, 2, h, ds), z(1, 2, h, p, 3), z(1, 2, h, p, 3),
             z(1, 2, h, p, 3), torch.ones(h), torch.ones(1, 2), *SCALES)
         out |= {(n, q_aug.shape[2], v_s.shape[2], v_p.shape[2])
-                for n in (24, 32, 77, cfg.data.patch_size)}
+                for n in (24, 32, 77, cfg.data.patch_size, *LONG_L)}
     return sorted(out)
 
 
@@ -210,7 +217,76 @@ def test_attention_shape_gate_accepts_the_port_shapes(shape):
     k2.check_attention_shape(*shape)
 
 
-@pytest.mark.parametrize("shape", [(129, 64, 32, 24), (128, 80, 41, 24), (128, 56, 32, 24),
+def _chunked_core(q_aug, k_aug, v_s, v_p, bias, scale_total, product, chunk=128):
+    """The kernels' core beyond 128 keys (csrc/ipa_attention_tc.cuh
+    chunked_attention) in plain PyTorch, in its chunk order and at its
+    rounding points: pass 1 over key chunks keeps each row's running max m
+    and sum l, rescaled by exp(m_old - m_new) when the max grows; pass 2
+    recomputes each chunk's logits, rounds exp(logit - m) / l to the
+    operands' dtype and accumulates the weighted sums in float32 (products
+    by `product`: an exact einsum for bf16 operands, 3xTF32 for float32)."""
+    dt = q_aug.dtype
+    b, h, _, n = q_aug.shape
+    q, k = q_aug.float(), k_aug.float()
+    v = torch.cat([v_s, v_p], dim=2).float()
+    bias_full = torch.repeat_interleave(bias.float(), b // bias.shape[0], dim=0)
+
+    def chunk_logits(j0):
+        s = product("bhfi,bhfj->bhij", q, k[..., j0:j0 + chunk])
+        return (s + bias_full[..., j0:j0 + chunk]) * scale_total
+
+    m = torch.full((b, h, n), -float("inf"))
+    l = torch.zeros(b, h, n)
+    for j0 in range(0, n, chunk):
+        s = chunk_logits(j0)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        base = torch.where(m_new == -float("inf"), torch.zeros(()), m_new)
+        l = l * torch.exp(m - base) + torch.exp(s - base[..., None]).sum(dim=-1)
+        m = m_new
+    inv_l = 1.0 / l
+    attn = torch.empty(b, h, n, n)
+    out = torch.zeros(b, h, v.shape[2], n)
+    for j0 in range(0, n, chunk):
+        w = (torch.exp(chunk_logits(j0) - m[..., None]) * inv_l[..., None]).to(dt).float()
+        attn[..., j0:j0 + chunk] = w
+        out = out + product("bhcj,bhij->bhci", v[..., j0:j0 + chunk], w)
+    ds = v_s.shape[2]
+    return out[:, :, :ds].to(dt), out[:, :, ds:].to(dt), attn.to(dt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_core_meets_the_kernel_rules_at_L256(dtype):
+    """The two-pass chunked core at L = 256 (two key chunks, 16 padded
+    keys) at chip_smoke.py's magnitudes (ds=32, P=8, points x5) against
+    the plain version, under chip_smoke.py's rules: float32 (3xTF32) within
+    1e-4 on weights and 1e-4 of the output scale; bf16 at most 1e-4 of the
+    elements beyond one bf16 step (2^-8 on weights, 2^-7 of the output
+    scale); padded keys exactly 0 in both."""
+    n, n_masked, h, ds, p = 256, 16, 2, 32, 8
+    rng = np.random.default_rng(51)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dtype)
+    mask = torch.ones(2, n, dtype=dtype)
+    mask[:, -n_masked:] = 0.0
+    scales = (ds ** -0.5, (4.5 * p) ** -0.5, 3 ** -0.5)
+    ops = k2.augmented_operands(f(2, n, h, ds), f(2, n, h, ds), f(2, n, h, ds),
+                                f(2, n, h, p, 3) * 5, f(2, n, h, p, 3) * 5, f(2, n, h, p, 3) * 5,
+                                (f(h).abs() + 0.5).float(), mask, *scales)
+    bias = f(1, h, n, n)
+    ref = k2.ipa_attention_core_reference(*ops, bias, scales[2])
+    product = _tf32_product(3) if dtype == torch.float32 else torch.einsum
+    got = _chunked_core(*ops, bias, scales[2], product)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        scale = 1.0 if i == 2 else max(1.0, float(r.float().abs().max()))
+        d = (g.float() - r.float()).abs()
+        if dtype == torch.float32:
+            assert float(d.max()) <= 1e-4 * scale
+        else:
+            step = 2 ** -8 if i == 2 else 2 ** -7 * scale
+            assert float((d > step).float().mean()) <= 1e-4
+    assert float(got[2][..., -n_masked:].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("shape", [(24, 64, -1, 24), (128, 80, 41, 24), (128, 56, 32, 24),
                                    (0, 64, 32, 24)])
 def test_attention_shape_gate_rejects_what_the_kernel_does_not_take(shape):
     with pytest.raises(ValueError):
@@ -248,6 +324,34 @@ def test_layer_fuse_off_matches_jax(b, bp):
     assert torch.isfinite(out_t).all()
     close(out_t, out_j, atol=5e-4)
     close(out_t, out_fused, atol=5e-4)
+
+
+@pytest.mark.parametrize("fuse", [None, False])
+def test_layer_at_L256_matches_pallas_interpret(fuse):
+    """The port's IPA layer at L = 256 (the reference kernel's pinned long
+    patch, tests/test_ipa_pallas.py) against the JAX layer through its
+    Pallas kernels in interpret mode, at tiny widths, 5e-4 as above."""
+    n = 256
+    jcfg = jconfig.ModelConfig(d_residue_emb=16, d_pair_emb=8, n_head=2, d_scalar_per_head=4,
+                               n_query_point_per_head=2, n_value_point_per_head=2,
+                               use_pallas_attention=True, fuse_ipa_layer=fuse)
+    rng = np.random.default_rng(70)
+    x = rng.normal(size=(2, n, 16)).astype(np.float32)
+    pair = (rng.normal(size=(1, n, n, 8)) * 0.1).astype(np.float32)
+    rot = np.array(jso3.uniform(jax.random.key(71), (2, n)))
+    trans = (rng.normal(size=(2, n, 3)) * 3).astype(np.float32)
+    mask = np.ones((2, n), bool)
+    mask[:, -7:] = False
+    args = [x, pair, rot, trans, mask]
+    layer = jipa.InvariantPointAttentionLayer(jcfg)
+    params = perturbed(jax.device_get(
+        layer.init(jax.random.key(72), *(jnp.asarray(a) for a in args))), 73)
+    out_j = jax.jit(layer.apply)(params, *(jnp.asarray(a) for a in args))
+    tl = load_jax_params(tipa.InvariantPointAttentionLayer(port_model_config(jcfg)), params)
+    with torch.no_grad():
+        out_t = tl(*(torch.from_numpy(a) for a in args))
+    assert torch.isfinite(out_t).all()
+    close(out_t, out_j, atol=5e-4)
 
 
 @pytest.mark.parametrize("fuse", [None, False])

@@ -268,14 +268,15 @@ def test_tf32_layer_products_meet_the_float32_rule_only_as_three(products):
 def _model_shapes():
     """(L, d, h, ds, P) of every fused-layer shape the port's configs and
     tests use: tests/test_torch_models.py (L=24 at the tiny widths), the
-    tiny, default and production configs at the patch size, and the
-    card checks' L=77."""
+    tiny, default and production configs at the patch size, the card
+    checks' L=77, and patches longer than 128 residues."""
     out = [(24, 32, 4, 8, 4)]
     for cfg in (tconfig.tiny_config(), tconfig.default_config(), tconfig.production_config()):
         m = cfg.model
         dims = (m.d_residue_emb, m.n_head, m.d_scalar_per_head, m.n_query_point_per_head)
         out += [(L, *dims) for L in (24, 32, 77, cfg.data.patch_size)]
-    return out
+    # patches beyond one 128-row chunk at the default widths
+    return out + [(L, 128, 8, 32, 8) for L in (129, 136, 200, 256, 384)]
 
 
 @pytest.mark.parametrize("shape", _model_shapes())
@@ -283,7 +284,7 @@ def test_shape_gate_accepts_the_port_shapes(shape):
     k1.check_kernel_shape(*shape)
 
 
-@pytest.mark.parametrize("shape", [(129, 128, 8, 32, 8), (128, 128, 8, 32, 11),
+@pytest.mark.parametrize("shape", [(24, 32, 0, 8, 4), (128, 128, 8, 32, 11),
                                    (24, 32, 4, 62, 1), (0, 32, 4, 8, 4), (24, 32, 4, 8, 0)])
 def test_shape_gate_rejects_what_the_kernel_does_not_take(shape):
     with pytest.raises(ValueError):

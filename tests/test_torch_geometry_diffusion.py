@@ -192,6 +192,15 @@ def test_orientation_reverse_step_matches_jax(tables, noise_scale):
         tt, t_(s["r"]), t_(s["r0"]), t_(s["t"]), t_(s["gen"]),
         noise_scale=noise_scale, noise=igso3_draw(key, (B, L)))
     close(out_t, out_j, atol=3e-5)
-    with pytest.raises(NotImplementedError):
+    # the posterior mode, given the same draw (its continuous-sigma sampler
+    # splits the key as the renoise mode's does)
+    out_j = jorient.reverse_step(
+        key, jt, jnp.asarray(s["r"]), jnp.asarray(s["r0"]), jnp.asarray(s["t"], jnp.int32),
+        jnp.asarray(s["gen"]), noise_scale=noise_scale, mode="posterior")
+    out_t = torient.reverse_step(
+        tt, t_(s["r"]), t_(s["r0"]), t_(s["t"]), t_(s["gen"]), noise_scale=noise_scale,
+        mode="posterior", noise=igso3_draw(key, (B, L)))
+    close(out_t, out_j, atol=3e-5)
+    with pytest.raises(ValueError):
         torient.reverse_step(tt, t_(s["r"]), t_(s["r0"]), t_(s["t"]), t_(s["gen"]),
-                             mode="posterior")
+                             mode="geodesic")

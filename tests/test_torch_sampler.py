@@ -3,8 +3,9 @@ the port's own contracts, on the CPU in float32.
 
 The JAX chain is composed here from the package's public pieces
 (`encode_context`, `precompute_pair_biases`, `denoise`, the three reverse
-kernels) with the sampler's key schedule; the port runs `sample()` from
-the same numpy initial state with the numbers those keys draw injected.
+kernels) with the sampler's key schedule; the port runs `sample()` with
+the same prior draws (`InitNoise`) and the numbers those keys draw
+injected (`StepNoise`).
 Tolerance: 1e-3 on coordinates and frames after 8 steps (float32 sums in
 another order, compounded through the chain); sequences must be equal.
 """
@@ -36,7 +37,7 @@ from diffab_pytorch_tpu_torch.diffusion.orientation import make_orientation_tabl
 from diffab_pytorch_tpu_torch.diffusion.schedule import cosine_variance_schedule as tsched
 from diffab_pytorch_tpu_torch.geometry.igso3 import AxisAngleNoise
 from diffab_pytorch_tpu_torch.models.diffab import DiffAbModel
-from diffab_pytorch_tpu_torch.sampling.sampler import StepNoise, sample
+from diffab_pytorch_tpu_torch.sampling.sampler import InitNoise, StepNoise, sample
 from diffab_pytorch_tpu_torch.weights import init_parameters, load_jax_params
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -76,9 +77,11 @@ def test_chain_matches_jax(arrays, port_setup):
     bn = B * N
     rep = lambda a: np.repeat(a, N, axis=0)
     gen = rep(arrays["generation_mask"] & arrays["residue_mask"])
-    seq0 = np.where(gen, rng.integers(0, 21, (bn, L)), rep(arrays["seq_idx"]))
-    x0 = np.where(gen[..., None], rng.normal(size=(bn, L, 3)),
-                  rep(arrays["xyz"][:, :, 1])).astype(np.float32)
+    seq_draw = rng.integers(0, 21, (bn, L))
+    x_draw = rng.normal(size=(bn, L, 3)).astype(np.float32)
+    quat_draw = jax.random.normal(jax.random.key(2), (bn, L, 4))  # jso3.uniform's draw
+    seq0 = np.where(gen, seq_draw, rep(arrays["seq_idx"]))
+    x0 = np.where(gen[..., None], x_draw, rep(arrays["xyz"][:, :, 1])).astype(np.float32)
     r0 = np.where(gen[..., None, None], np.array(jso3.uniform(jax.random.key(2), (bn, L))),
                   rep(arrays["orientations"])).astype(np.float32)
 
@@ -122,7 +125,8 @@ def test_chain_matches_jax(arrays, port_setup):
     tm = load_jax_params(DiffAbModel(port_cfg, device="cpu"), jax.device_get(params))
     ts, tt = port_setup
     out = sample(tm, ts, tt, ProteinBatch.from_numpy(arrays), device="cpu",
-                 n_designs=N, initial_state=(t_(seq0), t_(x0), t_(r0)),
+                 n_designs=N, init_noise=InitNoise(seq=torch.from_numpy(seq_draw),
+                                                   coord=t_(x_draw), rot_prior=t_(quat_draw)),
                  step_noise=noise.__getitem__)
     np.testing.assert_array_equal(out.seq_idx.numpy(), np.asarray(seq_t))
     np.testing.assert_allclose(out.translations.numpy(), np.asarray(x_t), atol=1e-3)
@@ -179,12 +183,11 @@ def test_sample_runs_on_the_card_by_default(arrays, port_setup, monkeypatch):
         DiffAbModel(tconfig.tiny_config().model)
 
 
-@pytest.mark.parametrize("option,value", [
-    ("init", "chord"), ("n_steps", 10), ("n_fine_tail", 2), ("coord_solver", "heun"),
-    ("noise_t_max", 5), ("coord_ddim_t_min", 3), ("t_start", 4),
-    ("orientation_reverse", "posterior"), ("return_trajectory", True),
-])
+@pytest.mark.parametrize("option,value", [("sc_t_max", 5)])
 def test_unported_options_raise(arrays, port_setup, option, value):
+    """Self-conditioning (A11) is the one part of the JAX sampler not
+    ported: its sampling knob and the model flag raise.  The few-step
+    options run; tests/test_torch_fewstep.py holds each against JAX."""
     ts, tt = port_setup
     with pytest.raises(NotImplementedError):
         sample(None, ts, tt, ProteinBatch.from_numpy(arrays), device="cpu",
@@ -194,10 +197,36 @@ def test_unported_options_raise(arrays, port_setup, option, value):
                                         self_conditioning=True), device="cpu")
 
 
+def test_reference_option_defaults_run(arrays, port_setup):
+    """The options the JAX sample CLI passes on every call, at their
+    defaults, give the default chain draw for draw."""
+    cfg = tconfig.tiny_config().model
+    model = init_parameters(DiffAbModel(cfg, device="cpu"), torch.Generator().manual_seed(0))
+    ts, tt = port_setup
+    batch = ProteinBatch.from_numpy(arrays)
+    run = lambda **kw: sample(model, ts, tt, batch, device="cpu",
+                              generator=torch.Generator().manual_seed(3), **kw)
+    base = run()
+    out = run(step_schedule="uniform", step_schedule_p=0.5, coord_solver_t_min=0,
+              coord_solver="none", noise_t_max=None, n_steps=None, n_fine_tail=None,
+              coord_ddim_t_min=None, orientation_reverse="renoise", init="prior",
+              chord_orientations=False, return_trajectory=False, sc_t_max=None)
+    for a, b in zip(out, base):
+        assert (a is None and b is None) or torch.equal(a, b)
+    with pytest.raises(TypeError):
+        run(n_step=3)
+
+
 def test_import_pulls_in_no_jax():
     code = ("import sys, diffab_pytorch_tpu_torch.sampling.sampler, "
             "diffab_pytorch_tpu_torch.weights, diffab_pytorch_tpu_torch.train.trainer, "
-            "diffab_pytorch_tpu_torch.train.checkpoint; "
+            "diffab_pytorch_tpu_torch.train.checkpoint, "
+            "diffab_pytorch_tpu_torch.diffusion.coordinate, "
+            "diffab_pytorch_tpu_torch.diffusion.sequence, "
+            "diffab_pytorch_tpu_torch.diffusion.orientation, "
+            "diffab_pytorch_tpu_torch.geometry.igso3, "
+            "diffab_pytorch_tpu_torch.ops.ipa_attention, "
+            "diffab_pytorch_tpu_torch.ops.ipa_fused_layer; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.split('.')[0] in ('flax', 'optax', 'diffab_pytorch_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
