@@ -46,7 +46,15 @@ Phases (any failure raises and the script exits non-zero):
      K1 against its plain version at b = 512 (the recipes' widest shape),
      then bench.py's three few-step recipes on the [main] target (chord-10
      and 22-eval at 512 designs, the 25-step chain at 128);
-  11. a `kernels` JSON line, the card line, and the final JSON line.
+  11. [design]: the design loop through the entry points: the fixture
+     complex tests/fixtures/ab1_chothia.pdb featurized into a 128-residue
+     patch, a seeded default_config() checkpoint, `cli.sample --rank -n 128
+     --cdrs H3` and `cli.evaluate --json` on the card (files, scores, ranks,
+     the report, K1 launches per sample and score call, designs/s, designs
+     scored/s, relax and PDB-write times, a profile of one score call and
+     one relax call); then score_designs card vs CPU (8 designs, both
+     flags, float32 and bf16, injected ScoreDraws) and relax_ca card vs CPU;
+  12. a `kernels` JSON line, the card line, and the final JSON line.
 
 The L = 128 kernel times (phase 7) run where they ran before the long-patch
 and few-step phases existed, so that two versions of this script read them
@@ -557,15 +565,15 @@ class RecordingLogger:
 
 def profile_device(torch, fn, wall_s, label, top=12):
     """Device time by kernel over one call of fn (torch.profiler).  Only
-    device-side events (kernels, copies) are summed: the profiler also
-    attributes each kernel's time to the CPU op that launched it, and
-    counting those rows too would count the time twice."""
+    device-side events (kernels, copies) are traced and summed: recording
+    the CPU ops as well gives the same device rows, and reading them back
+    took longer than the profiled call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     prof_wall_us = (time.perf_counter() - t0) * 1e6
@@ -878,6 +886,342 @@ def sampling_main_path(torch, card, compute_dtype, n_calls, tag, L=L_MAIN,
     return launches, n_designs / wall
 
 
+DESIGN_FIXTURE = os.path.join("tests", "fixtures", "ab1_chothia.pdb")
+N_DESIGN_CHECK = 8  # designs in the card-vs-CPU score and relax checks
+
+
+class Probe:
+    """Wraps a callable of the design loop: synchronizes the card around
+    each call and records its wall time, its K1 and K2 launches and its
+    arguments (for a profiled call after the run)."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.calls = torch, fn, []
+
+    def __call__(self, *args, **kwargs):
+        from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
+        from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+
+        self.torch.cuda.synchronize()
+        before = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        self.torch.cuda.synchronize()
+        self.calls.append(dict(
+            s=time.perf_counter() - t0, args=args, kwargs=kwargs,
+            launches=(op.fused_ipa_layer_packed.launches - before[0],
+                      k2.ipa_attention_core.launches - before[1])))
+        return out
+
+    def total_s(self):
+        return sum(c["s"] for c in self.calls)
+
+
+def design_loop(torch, card, tmp):
+    """[design] 1-2: featurize the fixture complex (chains H and L, antigen
+    A) into a 128-residue patch with the port's structure modules, write
+    seeded default_config() weights in the port's checkpoint format, then
+    `cli.sample --rank -n 128 --cdrs H3` and `cli.evaluate --json` on the
+    card, through their main().  Returns ({path: (K1, K2) launches}, the
+    score call's and the relax call's records (`Probe.calls` entries))."""
+    import contextlib
+    import io
+
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.cli import evaluate as evaluate_cli
+    from diffab_pytorch_tpu_torch.cli import sample as sample_cli
+    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+    from diffab_pytorch_tpu_torch.sampling.scoring import default_t_grid
+    from diffab_pytorch_tpu_torch.structure import antibody
+    from diffab_pytorch_tpu_torch.structure.patch import featurize_patch, save_patch
+    from diffab_pytorch_tpu_torch.train import checkpoint as ckpt
+    from diffab_pytorch_tpu_torch.train.harness import DiffAb
+
+    tag, n = "[design]", N_DESIGNS
+    t0 = time.perf_counter()
+    complex_ = antibody.from_pdb(os.path.join(HERE, DESIGN_FIXTURE), "H", "L", ["A"],
+                                 keep_fv_only=True)
+    patch = featurize_patch(complex_, patch_size=L_MAIN)
+    patch_path = os.path.join(tmp, "target.npz")
+    save_patch(patch_path, patch)
+    cfg = C.default_config()
+    ck = os.path.join(tmp, "ckpt")
+    ckpt.save_checkpoint(ck, DiffAb(cfg, device="cpu").init(0))
+    ckpt.save_model_config(ck, cfg.model)
+    print(f"{tag} {DESIGN_FIXTURE}: {complex_.n_residues} residues -> a {L_MAIN}-residue patch "
+          f"({int(patch['residue_mask'].sum())} valid, {int((patch['cdr_idx'] == 3).sum())} in "
+          f"H3); seeded default_config() checkpoint; set-up {time.perf_counter() - t0:.2f} s")
+
+    probes = {"sample": Probe(torch, DiffAb.sample), "score": Probe(torch, DiffAb.score_designs),
+              "relax": Probe(torch, sample_cli.relax_ca),
+              "write_pdb": Probe(torch, sample_cli.write_pdb)}
+    out_dir = os.path.join(tmp, "designs")
+    argv = ["--patch", patch_path, "--checkpoint-dir", ck, "-n", str(n), "--cdrs", "H3",
+            "--rank", "-o", out_dir, "-s", "0"]
+    log = io.StringIO()
+    try:
+        DiffAb.sample = lambda self, *a, **k: probes["sample"](self, *a, **k)
+        DiffAb.score_designs = lambda self, *a, **k: probes["score"](self, *a, **k)
+        sample_cli.relax_ca, sample_cli.write_pdb = probes["relax"], probes["write_pdb"]
+        op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = sample_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+    finally:
+        DiffAb.sample, DiffAb.score_designs = probes["sample"].fn, probes["score"].fn
+        sample_cli.relax_ca, sample_cli.write_pdb = probes["relax"].fn, probes["write_pdb"].fn
+    print("\n".join(f"{tag} cli.sample: {line}" for line in log.getvalue().splitlines()
+                    if line.startswith("[sample]")))
+    s_call, sc_call = probes["sample"].calls[0], probes["score"].calls[0]
+    print(f"{tag} cli.sample {' '.join(argv[4:])}: wall {wall:.3f} s (card: {card})")
+    print(f"{tag} sample() {s_call['s']:.3f} s: {n / s_call['s']:.3f} designs/s (card: {card})")
+    print(f"{tag} score_designs() {sc_call['s']:.3f} s: {n / sc_call['s']:.3f} designs scored/s "
+          f"(card: {card})")
+    print(f"{tag} relax_ca {probes['relax'].total_s() * 1e3:.2f} ms (card: {card})")
+    print(f"{tag} {len(probes['write_pdb'].calls)} PDB writes "
+          f"{probes['write_pdb'].total_s() * 1e3:.2f} ms (card: {card})")
+    grid_points = 2 * len(default_t_grid(cfg.diffusion.T))
+    want = {"sample": (cfg.model.n_ipa_layers * cfg.diffusion.T, 0),
+            "score": (cfg.model.n_ipa_layers * grid_points, 0)}
+    got = {"sample": s_call["launches"], "score": sc_call["launches"]}
+    print(f"{tag} launches K1, K2: sample call {got['sample']}, score call {got['score']}, whole "
+          f"CLI {total} (expected {want['sample']}, {want['score']}, the sum)")
+
+    names = sorted(f for f in os.listdir(out_dir) if f.endswith(".pdb"))
+    fasta = open(os.path.join(out_dir, "designs.fasta")).read().splitlines()
+    scores = json.load(open(os.path.join(out_dir, "scores.json")))
+    values = [v for e in scores.values() for k, v in e.items() if k != "rank"]
+    report_path = os.path.join(tmp, "report.json")
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc_eval = evaluate_cli.main(["--native-patch", patch_path, "--designs", out_dir,
+                                     "--cdrs", "H3", "--json", report_path])
+    eval_s = time.perf_counter() - t0
+    agg = json.load(open(report_path))["aggregate"]
+    rows = json.load(open(report_path))["designs"]
+    print(f"{tag} cli.evaluate --json: {eval_s:.3f} s; " + "; ".join(
+        line for line in log.getvalue().splitlines()[-3:-1]))
+    checks = {
+        "rc": rc == 0 and rc_eval == 0,
+        "pdbs": names == [f"design_{i:04d}.pdb" for i in range(n)],
+        "fasta": len(fasta) == 2 * n and all(
+            fasta[2 * i].startswith(f">design_{i:04d} cdrs=H3 score=") for i in range(n)),
+        "scores_finite": len(scores) == n and all(math.isfinite(v) for v in values),
+        "ranks_permutation": sorted(e["rank"] for e in scores.values()) == list(range(n)),
+        "report": agg["n_designs"] == n and 0.0 <= agg["aar_mean"] <= 1.0
+        and all(0.0 <= r["aar"] <= 1.0 for r in rows)
+        and all(math.isfinite(r[k]) for r in rows for k in ("ca_rmsd", "ca_rmsd_aligned")),
+        "launches": got == want and total == tuple(map(sum, zip(*want.values()))),
+    }
+    print(f"{tag} checks {checks}; aggregate " + json.dumps(
+        {k: agg[k] for k in ("aar_mean", "ca_rmsd_mean", "diversity", "valid_rate",
+                             "rank_spearman")}))
+    if not all(checks.values()):
+        raise RuntimeError(f"{tag} the design loop failed a check: {checks}")
+    return ({"design_cli": got["sample"], "score": got["score"]}, sc_call,
+            probes["relax"].calls[0])
+
+
+def design_card_vs_cpu(torch, tmp):
+    """[design] 3: score_designs on the card against the CPU plain path at
+    default_config() width on the fixture patch, 8 designs (the native's H3
+    with random residue types, CAs moved by ~0.5 A and random frames), the
+    same seeded weights and the same injected ScoreDraws (the default grid,
+    16 points), for fuse_ipa_layer None (K1) and False (K2), in float32 and
+    bfloat16; then relax_ca card against CPU on 8 perturbed designs, two
+    of them torn so that its chord pre-pass runs.
+
+    float32: every score within 1e-4 of the largest |CPU score| of its
+    component (the end-to-end checks' float32 rule), both flags against
+    one CPU float32 run.  bfloat16: the card and the CPU (the same flag's
+    plain version) are two bf16 computations of one function, each off the
+    exact (taken as the CPU float32 scores) by about one bf16 error, so by
+    the triangle inequality |card - CPU bf16| <= e_card + e_cpu; with
+    e_cpu the largest |CPU float32 - CPU bf16| over the designs of a
+    component and e_card allowed up to twice that, every |card - CPU bf16|
+    must be at most 3 e_cpu.  Ranks: wherever two designs' CPU scores
+    differ by more than the tolerance, the card orders them the same.
+    relax_ca, after the pre-pass alone, after 10 iterations and after the
+    full 200: within 1e-4 model units (1e-3 A, the written PDB's
+    precision), context rows exactly equal; the pre-pass moves the torn
+    designs and no other.  After 200 iterations a torn loop lies on the
+    gate's thresholds, where a last-digit difference flips a correction
+    and the two devices' chains part (as the CPU against JAX in
+    tests/test_torch_evaluation.py): the torn designs within 1e-2 model
+    units (0.1 A), and the card's pass the gate's CA-CA and clash checks."""
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.data.dataset import COORD_SCALE, assemble_batch
+    from diffab_pytorch_tpu_torch.diffusion.orientation import make_orientation_tables
+    from diffab_pytorch_tpu_torch.diffusion.schedule import cosine_variance_schedule
+    from diffab_pytorch_tpu_torch.evaluation.metrics import backbone_validity
+    from diffab_pytorch_tpu_torch.geometry import so3
+    from diffab_pytorch_tpu_torch.geometry.igso3 import AxisAngleNoise
+    from diffab_pytorch_tpu_torch.models.diffab import DiffAbModel
+    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+    from diffab_pytorch_tpu_torch.sampling.sampler import SampleResult
+    from diffab_pytorch_tpu_torch.sampling.scoring import ScoreDraws, default_t_grid, score_designs
+    from diffab_pytorch_tpu_torch.structure.patch import load_patch
+    from diffab_pytorch_tpu_torch.structure.relax import relax_ca
+    from diffab_pytorch_tpu_torch.weights import init_parameters
+
+    tag, n = "[design]", N_DESIGN_CHECK
+    patch = load_patch(os.path.join(tmp, "target.npz"))
+    batch, _ = assemble_batch([patch], ["H3"], device="cpu")
+    g = torch.Generator().manual_seed(7)
+    rep = lambda a: torch.repeat_interleave(a, n, dim=0)
+    gen = rep(batch.generation_mask & batch.residue_mask)
+    designs = SampleResult(
+        torch.where(gen, torch.randint(0, 20, gen.shape, generator=g), rep(batch.seq_idx)),
+        torch.where(gen[..., None], rep(batch.translations)
+                    + torch.randn(n, L_MAIN, 3, generator=g) * 0.05, rep(batch.translations)),
+        torch.where(gen[..., None, None], so3.uniform((n, L_MAIN), generator=g),
+                    rep(batch.orientations)))
+    cfg = C.default_config()
+    grid = default_t_grid(cfg.diffusion.T)
+    pts = 2 * len(grid)
+    draws = ScoreDraws(-torch.log(-torch.log(torch.rand(pts, n, L_MAIN, 21, generator=g))),
+                       torch.randn(pts, n, L_MAIN, 3, generator=g),
+                       AxisAngleNoise.draw((pts, n, L_MAIN), g))
+    weights = init_parameters(DiffAbModel(cfg.model, device="cpu"),
+                              torch.Generator().manual_seed(0)).state_dict()
+    dcfg = cfg.diffusion
+    sched = cosine_variance_schedule(dcfg.T, s=dcfg.s, beta_max=dcfg.beta_max)
+    tables = make_orientation_tables(sched)
+    fields = ("score", "seq_score", "translations_score", "orientations_score")
+
+    def run(fuse, dtype, dev):
+        model = DiffAbModel(dataclasses.replace(cfg.model, fuse_ipa_layer=fuse,
+                                                compute_dtype=dtype), device=dev)
+        model.load_state_dict(weights)
+        before = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+        out = score_designs(model, sched, tables, batch, designs, device=dev, draws=draws)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        ran = (op.fused_ipa_layer_packed.launches - before[0],
+               k2.ipa_attention_core.launches - before[1])
+        return {k: getattr(out, k).double().cpu() for k in fields}, ran
+
+    # on the CPU both flags run plain versions of one layer function: one
+    # float32 reference serves both; in bf16 the two plain versions round
+    # in different places, so each flag's bound comes from its own
+    t0 = time.perf_counter()
+    cpu32 = run(None, "float32", "cpu")[0]
+    cpu_s = time.perf_counter() - t0
+    worst = {}
+    for fuse in (None, False):
+        t0 = time.perf_counter()
+        cpu = {"float32": cpu32, "bfloat16": run(fuse, "bfloat16", "cpu")[0]}
+        cpu_s += time.perf_counter() - t0
+        for dt in ("float32", "bfloat16"):
+            card, ran = run(fuse, dt, "cuda")
+            want = (6 * pts, 0) if fuse is None else (0, 6 * pts)
+            ok = ran == want
+            ratios = []
+            for k in fields:
+                d = (card[k] - cpu[dt][k]).abs()
+                if dt == "float32":
+                    tol = 1e-4 * max(1.0, float(cpu[dt][k].abs().max()))
+                else:
+                    tol = 3.0 * float((cpu["float32"][k] - cpu[dt][k]).abs().max())
+                order = torch.argsort(cpu[dt][k], stable=True)
+                c_sorted, k_sorted = cpu[dt][k][order], card[k][order]
+                apart = (c_sorted[1:] - c_sorted[:-1]) > tol
+                ranks_ok = bool((k_sorted[1:] > k_sorted[:-1])[apart].all())
+                ok = (ok and float(d.max()) <= tol and ranks_ok
+                      and bool(torch.isfinite(card[k]).all()))
+                ratios.append(float(d.max()) / max(tol, 1e-30))
+                print(f"{tag} score_designs card vs CPU, default_config {dt}, fuse_ipa_layer="
+                      f"{fuse}, {n} designs, {pts} grid points: {k} max|d| {float(d.max()):.3e} "
+                      f"(tol {tol:.3e}), ranks kept where apart {ranks_ok}")
+            worst[(fuse, dt)] = max(ratios)
+            print(f"{tag} launches K1, K2 {ran} (expected {want}); {'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise RuntimeError(f"{tag} score_designs on the card ({dt}, fuse_ipa_layer="
+                                   f"{fuse}) disagrees with the CPU plain path")
+    print(f"{tag} the CPU references took {cpu_s:.2f} s (3 score_designs calls)")
+
+    # relax_ca on 8 designs of the native: H3's CAs moved by ~0.3 A, two
+    # loops squeezed toward their first residue, and two torn (one designed
+    # CA 20 A out, an edge past twice the gate: the chord pre-pass)
+    x = torch.where(gen[..., None], rep(batch.translations)
+                    + torch.randn(n, L_MAIN, 3, generator=g) * 0.03, rep(batch.translations))
+    rows = torch.nonzero(gen[0]).flatten()
+    for i in (2, 5):
+        x[i, rows[-6:]] = x[i, rows[-6:][:1]] + (x[i, rows[-6:]] - x[i, rows[-6:][:1]]) * 0.2
+    torn = [n - 2, n - 1]
+    x[torn, rows[len(rows) // 2]] += 2.0
+    masks = [rep(t) for t in (batch.residue_mask, batch.chain_idx, batch.residue_idx,
+                              batch.generation_mask)]
+
+    def relax_both(iters):
+        return [relax_ca(x.to(dev), *(m.to(dev) for m in masks), coord_scale=COORD_SCALE,
+                         n_iters=iters).cpu() for dev in ("cpu", "cuda")]
+
+    mild = [i for i in range(n) if i not in torn]
+    ok = True
+    for iters in (0, 10, 200):
+        cpu_out, card_out = relax_both(iters)
+        d = (card_out - cpu_out).abs().amax(dim=(1, 2))
+        d_mild, d_torn = float(d[mild].max()), float(d[torn].max())
+        tol_torn = 1e-2 if iters == 200 else 1e-4
+        ctx_same = bool(torch.equal(card_out[~gen], x[~gen]))
+        fired = (cpu_out != x).any(dim=(1, 2))
+        ok_i = d_mild <= 1e-4 and d_torn <= tol_torn and ctx_same
+        if iters == 0:
+            # the pre-pass moves the torn designs, and only them
+            ok_i = ok_i and fired.tolist() == [i in torn for i in range(n)]
+        if iters == 200:
+            val = backbone_validity(card_out, card_out, card_out, *masks, scale=COORD_SCALE)
+            ok_i = (ok_i and int(val["ca_break"][torn].sum() + val["clash_count"][torn].sum()) == 0
+                    and bool(fired[[2, 5]].all()))
+        ok = ok and ok_i
+        print(f"{tag} relax_ca card vs CPU, {n} designs ({len(torn)} torn), {iters} iterations: "
+              f"max|d| {d_mild:.3e} (tol 1e-4), torn {d_torn:.3e} (tol {tol_torn:g}) model "
+              f"units; moved {fired.tolist()}; context rows unchanged {ctx_same}; "
+              f"{'ok' if ok_i else 'FAILED'}")
+    if not ok:
+        raise RuntimeError(f"{tag} relax_ca on the card disagrees with the CPU")
+    return worst
+
+
+def design_phase(torch, card):
+    """[design]: the design loop through the port's entry points on the
+    card, its device profile, and its card-vs-CPU checks (see
+    design_loop and design_card_vs_cpu).  Returns {path: (K1, K2)
+    launches}."""
+    import tempfile
+
+    from diffab_pytorch_tpu_torch.structure.relax import relax_ca
+
+    laps = [time.perf_counter()]
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, score_call, relax_call = design_loop(torch, card, tmp)
+        laps.append(time.perf_counter())
+        profile_device(torch, lambda: score_call["args"][0].score_designs(
+            *score_call["args"][1:], **score_call["kwargs"]), score_call["s"],
+            "[design] one score_designs() call (128 designs, the default 16 grid points, "
+            "float32)")
+        laps.append(time.perf_counter())
+        profile_device(torch, lambda: relax_ca(*relax_call["args"], **relax_call["kwargs"]),
+                       relax_call["s"], "[design] one relax_ca() call (128 designs, 200 "
+                       "iterations)")
+        laps.append(time.perf_counter())
+        design_card_vs_cpu(torch, tmp)
+        laps.append(time.perf_counter())
+    loop_s, prof_score_s, prof_relax_s, check_s = (b - a for a, b in zip(laps, laps[1:]))
+    print(f"[design] phase {laps[-1] - laps[0]:.2f} s: the CLIs {loop_s:.2f} s, the profiles of "
+          f"the score and relax calls {prof_score_s:.2f} and {prof_relax_s:.2f} s, card-vs-CPU "
+          f"checks {check_s:.2f} s")
+    return launches
+
+
 def kernel_times(torch, card, pb):
     """Per-launch times at L = 128, the main paths' shapes (b = 128, bp = 1
     and b = bp = pb): K1 in bf16 (also host-paced, and its two launches
@@ -1161,7 +1505,10 @@ def main() -> int:
         launches[f"sample_{name}"], fast_rates[name] = sampling_main_path(
             torch, card, "bfloat16", 2, f"[fast] {name}", n_designs=n_designs, **opts)
 
-    # ---- 11. records ---------------------------------------------------------------
+    # ---- 11. the design loop: cli.sample --rank and cli.evaluate --------------------------
+    launches.update(design_phase(torch, card))
+
+    # ---- 12. records ---------------------------------------------------------------
     by_path = lambda i: {path: c[i] for path, c in launches.items()}
     kernels = [{
         "name": "ipa_fused_layer",

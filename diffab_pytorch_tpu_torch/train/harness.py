@@ -272,3 +272,30 @@ class DiffAb:
     def eval_step(self, params: Params, batch: ProteinBatch, draws: StepDraws):
         _, metrics = self.loss_fn(params, batch, draws)
         return {f"val/{k}": v for k, v in metrics.items()}
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _load(self, params: Params | None) -> None:
+        if params is not None:
+            self.model.load_state_dict(params)
+
+    def sample(self, params: Params | None, batch: ProteinBatch,
+               generator: torch.Generator | None = None, **kwargs):
+        """Reverse-diffusion design or optimization (`sampling.sampler.sample`)
+        with `params` loaded into the model (None: the model's own)."""
+        from diffab_pytorch_tpu_torch.sampling.sampler import sample as _sample
+
+        self._load(params)
+        return _sample(self.model, self.sched, self.orientation_tables, batch,
+                       generator=generator, device=self.device, **kwargs)
+
+    def score_designs(self, params: Params | None, batch: ProteinBatch, designs,
+                      generator: torch.Generator | None = None, **kwargs):
+        """Likelihood-rank designs without ground truth
+        (`sampling.scoring.score_designs`; lower is better, comparable
+        within one target's designs) with `params` loaded into the model."""
+        from diffab_pytorch_tpu_torch.sampling.scoring import score_designs as _score
+
+        self._load(params)
+        return _score(self.model, self.sched, self.orientation_tables, batch, designs,
+                      generator=generator, device=self.device, **kwargs)

@@ -226,7 +226,15 @@ def test_import_pulls_in_no_jax():
             "diffab_pytorch_tpu_torch.diffusion.orientation, "
             "diffab_pytorch_tpu_torch.geometry.igso3, "
             "diffab_pytorch_tpu_torch.ops.ipa_attention, "
-            "diffab_pytorch_tpu_torch.ops.ipa_fused_layer; "
+            "diffab_pytorch_tpu_torch.ops.ipa_fused_layer, "
+            "diffab_pytorch_tpu_torch.sampling.scoring, "
+            "diffab_pytorch_tpu_torch.evaluation.metrics, "
+            "diffab_pytorch_tpu_torch.structure.relax, "
+            "diffab_pytorch_tpu_torch.structure.antibody, "
+            "diffab_pytorch_tpu_torch.structure.patch, "
+            "diffab_pytorch_tpu_torch.data.dataset, "
+            "diffab_pytorch_tpu_torch.cli.sample, "
+            "diffab_pytorch_tpu_torch.cli.evaluate; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.split('.')[0] in ('flax', 'optax', 'diffab_pytorch_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
