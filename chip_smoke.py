@@ -54,7 +54,19 @@ Phases (any failure raises and the script exits non-zero):
      scored/s, relax and PDB-write times, a profile of one score call and
      one relax call); then score_designs card vs CPU (8 designs, both
      flags, float32 and bf16, injected ScoreDraws) and relax_ca card vs CPU;
-  12. a `kernels` JSON line, the card line, and the final JSON line.
+  12. [data]: the training data path through the entry points: the
+     family corpus (8 families x 32 = 256 complexes) through `cli.preprocess
+     -j <cores> -k 128` (the C++ parser and featurizer, built from
+     native/*.cpp in this run), the C++ routes against Python on 16 PDBs,
+     `cli.train --production --max-steps 14` through the prefetch loader
+     and with --device-pool (K1 launches, losses, the checkpoint and its
+     model_config.json, steps/s, samples/s, peak memory, the pool's bytes,
+     the loader's host ms per batch, a profile of one step), three pool
+     steps through fit() at fuse_ipa_layer=False (K2), `cli.sample -n 16`
+     from the trained checkpoint; then pool_train_step against train_step
+     on its rows on the card, two pool steps card vs CPU, and the loader's
+     card batches against the host batches;
+  13. a `kernels` JSON line, the card line, and the final JSON line.
 
 The L = 128 kernel times (phase 7) run where they ran before the long-patch
 and few-step phases existed, so that two versions of this script read them
@@ -564,10 +576,12 @@ class RecordingLogger:
 
 
 def profile_device(torch, fn, wall_s, label, top=12):
-    """Device time by kernel over one call of fn (torch.profiler).  Only
-    device-side events (kernels, copies) are traced and summed: recording
-    the CPU ops as well gives the same device rows, and reading them back
-    took longer than the profiled call."""
+    """Device time by kernel over one call of fn (torch.profiler), and the
+    idle share of an unprofiled call of wall_s seconds (None: no idle
+    share).  Only device-side events (kernels, copies) are traced and
+    summed: recording the CPU ops as well gives the same device rows, and
+    reading them back took longer than the profiled call.  Returns the
+    device busy ms (None when the profiler reported none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -589,15 +603,18 @@ def profile_device(torch, fn, wall_s, label, top=12):
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
     if busy_us > 0:
-        call_us = wall_s * 1e6
-        print(f"[profile] {label}: device busy {busy_us / 1e3:.1f} ms in "
-              f"{sum(r[2] for r in rows)} device events; median unprofiled call "
-              f"{call_us / 1e3:.1f} ms -> device idle share "
-              f"{max(0.0, 1 - busy_us / call_us):.3f} (profiled wall {prof_wall_us / 1e3:.1f} ms)")
+        idle = ""
+        if wall_s is not None:
+            idle = (f"; median unprofiled call {wall_s * 1e3:.1f} ms -> device idle share "
+                    f"{max(0.0, 1 - busy_us / (wall_s * 1e6)):.3f}")
+        print(f"[profile] {label}: device busy {busy_us / 1e3:.3f} ms in "
+              f"{sum(r[2] for r in rows)} device events{idle} (profiled wall "
+              f"{prof_wall_us / 1e3:.1f} ms)")
         for dev_us, key, count in rows[:top]:
             print(f"[profile]   {dev_us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
-    else:
-        print(f"[profile] {label}: device time not measured (profiler reported none)")
+        return busy_us / 1e3
+    print(f"[profile] {label}: device time not measured (profiler reported none)")
+    return None
 
 
 def denoiser_calls(t_seq, opts):
@@ -1222,6 +1239,418 @@ def design_phase(torch, card):
     return launches
 
 
+DATA_FAMILIES, DATA_PER_FAMILY = 8, 32  # the [data] corpus: 256 complexes
+DATA_STEPS = 14  # about two epochs: 231 training patches at batch 32 give 7 steps an epoch
+DATA_WINDOW = 7  # steps timed after the first epoch's validation pass
+
+
+class StepRecorder:
+    """Wraps DiffAb.train_step inside a training run without waiting for the
+    card: each call's host entry time, its K1 and K2 launches, its loss and
+    a checksum of its batch (tensors, read after the run)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, harness, state, batch, draws):
+        from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
+        from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+
+        t0 = time.perf_counter()
+        before = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+        state, metrics = self.fn(harness, state, batch, draws)
+        self.calls.append(dict(t=t0, loss=metrics["train/loss"], args=(harness, state, batch,
+                                                                         draws),
+                               rows=(batch.xyz.double().sum(), batch.seq_idx.sum()),
+                               launches=(op.fused_ipa_layer_packed.launches - before[0],
+                                         k2.ipa_attention_core.launches - before[1])))
+        return state, metrics
+
+
+def data_corpus(tmp):
+    """[data] 1-3: the family corpus through cli.preprocess (a subprocess,
+    one spawned worker per core, the C++ parser and featurizer), then the
+    C++ routes against the Python ones on 16 of the PDBs.  Returns (the
+    patch directory, complexes/s)."""
+    from diffab_pytorch_tpu_torch.data.synthetic import write_family_corpus
+    from diffab_pytorch_tpu_torch.structure import antibody, geometry, pdb
+
+    tag, n = "[data]", DATA_FAMILIES * DATA_PER_FAMILY
+    t0 = time.perf_counter()
+    meta = write_family_corpus(os.path.join(tmp, "corpus"), n_families=DATA_FAMILIES,
+                               n_per_family=DATA_PER_FAMILY, seed=0)
+    print(f"{tag} family corpus: {n} complexes (H, L, antigen A) and meta.csv written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    patches = os.path.join(tmp, "patches")
+    jobs = os.cpu_count() or 1
+    cmd = [sys.executable, "-m", "diffab_pytorch_tpu_torch.cli.preprocess", "--meta", meta,
+           "--data-dir", os.path.join(tmp, "corpus", "pdb"), "--out-dir", patches, "-j",
+           str(jobs), "-k", str(L_MAIN)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    written = sorted(f for f in os.listdir(patches) if f.endswith(".npz")) \
+        if os.path.isdir(patches) else []
+    summary = proc.stdout.strip().splitlines()[-1:] or ["(no output)"]
+    print(f"{tag} cli.preprocess -j {jobs} -k {L_MAIN}: {summary[0]}; {len(written)} .npz in "
+          f"{wall:.2f} s: {n / wall:.2f} complexes/s (host: {jobs} spawned workers)")
+    if proc.returncode != 0 or len(written) != n or f"skipped 0" not in summary[0]:
+        raise RuntimeError(f"{tag} cli.preprocess failed (rc {proc.returncode}):\n"
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+
+    t0 = time.perf_counter()
+    d_xyz = d_geom = 0.0
+    same = True
+    for i in range(16):
+        path = os.path.join(tmp, "corpus", "pdb", f"fam{i % DATA_FAMILIES}_s{i}.pdb")
+        text = open(path).read()
+        nat, py = pdb.parse_pdb(text), pdb.parse_pdb(text, prefer_native=False)
+        same = same and set(nat) == set(py) and all(
+            len(nat[c]) == len(py[c]) and all(
+                (a.resseq, a.icode, a.resname) == (b.resseq, b.icode, b.resname)
+                and (a.atom_mask == b.atom_mask).all() for a, b in zip(nat[c], py[c]))
+            for c in nat)
+        for c in nat:
+            for a, b in zip(nat[c], py[c]):
+                d_xyz = max(d_xyz, float(abs(a.xyz - b.xyz).max()))
+        cx = antibody.from_chains(nat, "H", "L", ["A"], keep_fv_only=True)
+        g_n = geometry.backbone_geometry(cx.xyz, cx.atom_mask, cx.chain_idx)
+        g_p = geometry.backbone_geometry(cx.xyz, cx.atom_mask, cx.chain_idx, prefer_native=False)
+        same = same and bool((g_n[2] == g_p[2]).all())
+        d_geom = max(d_geom, *(float(abs(a - b).max()) for a, b in zip(g_n[:2], g_p[:2])))
+    ok = same and d_xyz <= 1e-4 and d_geom <= 1e-5
+    print(f"{tag} C++ vs Python on 16 PDBs: parser max|d xyz| {d_xyz:.2e} (tol 1e-4), the "
+          f"rest equal {same}; featurizer max|d| {d_geom:.2e} (tol 1e-5); "
+          f"{time.perf_counter() - t0:.2f} s; {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError(f"{tag} the C++ parser or featurizer disagrees with Python")
+    return patches, n / wall
+
+
+def data_train(torch, card, patches, tmp, pool):
+    """[data] 4: `cli.train --production --max-steps 14` on the card through
+    its main(), through the loader (pool False) or with --device-pool.
+    Returns ((K1, K2) launches of the training steps, steps/s, the
+    checkpoint directory, the recorded calls)."""
+    import contextlib
+    import io
+
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.cli import train as train_cli
+    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+    from diffab_pytorch_tpu_torch.train import checkpoint as ckpt
+    from diffab_pytorch_tpu_torch.train.harness import DiffAb
+
+    path = "device pool" if pool else "loader"
+    tag = f"[data] train ({path})"
+    ck = os.path.join(tmp, "ck_pool" if pool else "ck_loader")
+    argv = ["--data-dir", patches, "--production", "--max-steps", str(DATA_STEPS),
+            "--checkpoint-dir", ck] + (["--device-pool"] if pool else [])
+    rec, pool_rec = StepRecorder(DiffAb.train_step), []
+    real_pool_step = DiffAb.pool_train_step
+
+    def pool_step(self, state, pool_batch, idx, draws):
+        pool_rec.append((pool_batch, idx))
+        return real_pool_step(self, state, pool_batch, idx, draws)
+    log = io.StringIO()
+    try:
+        DiffAb.train_step = lambda self, *a: rec(self, *a)
+        DiffAb.pool_train_step = pool_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = train_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+    finally:
+        DiffAb.train_step, DiffAb.pool_train_step = rec.fn, real_pool_step
+    for line in log.getvalue().splitlines():
+        if line.startswith(("[train]", "[trainer]")):
+            print(f"{tag} {line}")
+    calls = rec.calls
+    # steps/s over the steps after the first epoch's validation pass (entry
+    # times of steps 7..13), as [train] times steps after a warm-up
+    w0 = DATA_STEPS - DATA_WINDOW
+    steps_per_s = (DATA_WINDOW - 1) / (calls[-1]["t"] - calls[w0]["t"])
+    steps = (sum(c["launches"][0] for c in calls), sum(c["launches"][1] for c in calls))
+    pcfg = C.production_config()
+    n_layers, pb = pcfg.model.n_ipa_layers, pcfg.train.batch_size
+    n_val = int(DATA_FAMILIES * DATA_PER_FAMILY * pcfg.train.val_pct)
+    steps_per_epoch = (DATA_FAMILIES * DATA_PER_FAMILY - n_val) // pb
+    n_evals = DATA_STEPS // steps_per_epoch  # one validation batch of n_val each
+    losses = [float(c["loss"]) for c in calls]
+    pool_batch = pool_rec[0][0] if pool_rec else None
+    pool_mb = (sum(v.nbytes for v in pool_batch.to_numpy().values() if v is not None) / 1e6
+               if pool_rec else 0.0)
+    saved = ckpt.load_model_config(ck)
+    checks = {
+        "rc": rc == 0,
+        "steps": len(calls) == DATA_STEPS and ckpt.all_steps(ck) == [DATA_STEPS],
+        "model_config": saved == pcfg.model,
+        "losses_finite": all(map(math.isfinite, losses)),
+        "launches": steps == (n_layers * DATA_STEPS, 0)
+        and total == (n_layers * (DATA_STEPS + n_evals), 0),
+        "pool_rows": not pool or pool_batch.batch_size == DATA_FAMILIES * DATA_PER_FAMILY - n_val,
+    }
+    print(f"{tag}: cli.train {' '.join(argv[2:])}: wall {wall:.2f} s; steps {DATA_STEPS}, "
+          f"{steps_per_s:.3f} steps/s, {steps_per_s * pb:.1f} samples/s over steps "
+          f"{w0}-{DATA_STEPS - 1} (host clock, card: {card}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+          + (f"; pool on the card {pool_mb:.2f} MB ({pool_batch.batch_size} rows, "
+             f"{pool_mb * 1e3 / pool_batch.batch_size:.1f} KB a patch)" if pool_rec else ""))
+    print(f"{tag}: launches K1, K2: training steps {steps}, whole CLI {total} (expected "
+          f"{(n_layers * DATA_STEPS, 0)}, and {n_evals} validation passes: "
+          f"{(n_layers * (DATA_STEPS + n_evals), 0)}); losses {[round(v, 6) for v in losses]}")
+    print(f"{tag}: checks {checks}")
+    if not all(checks.values()):
+        raise RuntimeError(f"{tag} failed a check: {checks}")
+    return steps, steps_per_s, ck, calls, pool_rec[-1] if pool_rec else None
+
+
+def data_fuse_false(torch, patches):
+    """[data] 5: three device-pool steps through fit() at
+    fuse_ipa_layer=False (cli.train has no such flag, as in JAX): K2 at 6
+    launches a step, K1 none."""
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.data.dataset import PatchDataset
+    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+    from diffab_pytorch_tpu_torch.train.harness import DiffAb
+    from diffab_pytorch_tpu_torch.train.trainer import fit
+
+    pcfg = C.production_config()
+    cfg = dataclasses.replace(pcfg, model=dataclasses.replace(pcfg.model, fuse_ipa_layer=False))
+    ds = PatchDataset.from_dir(patches, cache=True)
+    op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
+    state = fit(DiffAb(cfg), ds, max_steps=3, device_pool=True, logger=RecordingLogger("x"))
+    torch.cuda.synchronize()
+    got = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+    want = (0, 3 * cfg.model.n_ipa_layers)
+    ok = got == want and state.step == 3 and all(
+        bool(torch.isfinite(v).all()) for v in state.params.values())
+    print(f"[data] fit(device_pool=True) at fuse_ipa_layer=False: 3 steps, launches K1, K2 "
+          f"{got} (expected {want}); {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError("[data] the attention-core training path failed")
+    return got
+
+
+def data_sample(torch, card, patches, ck, tmp):
+    """[data] 6: `cli.sample -n 16` on the card from the trained checkpoint:
+    the recorded production model restores and the designs are written."""
+    import contextlib
+    import io
+
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.cli import sample as sample_cli
+    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+
+    cfg = C.production_config()
+    patch = os.path.join(patches, sorted(os.listdir(patches))[0])
+    out = os.path.join(tmp, "designs")
+    argv = ["--patch", patch, "--checkpoint-dir", ck, "-n", "16", "-o", out]
+    log = io.StringIO()
+    op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = sample_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+    lines = log.getvalue().splitlines()
+    names = sorted(f for f in os.listdir(out) if f.endswith(".pdb"))
+    checks = {"rc": rc == 0, "recorded_model": any("recorded model config" in s for s in lines),
+              "restored": any(f"restored checkpoint at step {DATA_STEPS}" in s for s in lines),
+              "designs": names == [f"design_{i:04d}.pdb" for i in range(16)],
+              "launches": got == (cfg.model.n_ipa_layers * cfg.diffusion.T, 0)}
+    print(f"[data] cli.sample --patch {os.path.basename(patch)} -n 16 from the trained "
+          f"checkpoint: wall {wall:.2f} s (card: {card}); launches K1, K2 {got}; checks {checks}")
+    if not all(checks.values()):
+        raise RuntimeError(f"[data] sampling from the trained checkpoint failed: {checks}")
+    return got
+
+
+def data_card_vs_cpu(torch, patches):
+    """[data] 7: (a) pool_train_step against train_step on the gathered rows
+    on the card (production_config(), 32 rows): the gathered batch equals
+    the host rows; the loss and metrics are equal (the forward, kernels
+    included, is deterministic on the card); the gradients agree within
+    1e-6 of each leaf's scale (max |g|, at least 1): on the card they vary
+    run to run in their last bits (train_step against itself, printed), so
+    they are held to a bound a thousand times tighter than the card-vs-CPU
+    rule, not to equality;
+    (b) two device-pool steps on the card against the CPU plain path, each
+    step's loss and gradients with the same injected draws (tiny_config()
+    float32 with mode dropout, 4 rows of the corpus), within
+    e2e_train_check's tolerances: 1e-4 of the loss, 1e-3 of each gradient
+    leaf's largest entry; (c) the loader's card batches equal the host
+    batches, checked as they arrive and again after the last one."""
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.data.dataset import PatchDataset
+    from diffab_pytorch_tpu_torch.data.loader import PrefetchLoader
+    from diffab_pytorch_tpu_torch.train.harness import DiffAb
+
+    tag = "[data]"
+    ds = PatchDataset.from_dir(patches, cache=True)
+    host_pool, _ = ds.device_pool()
+    pool = host_pool.to("cuda")
+    fields = [f.name for f in dataclasses.fields(host_pool) if getattr(host_pool, f.name)
+              is not None]
+
+    # (a) the pool step is the plain step on its rows
+    harness = DiffAb(C.production_config())
+    idx = torch.randperm(host_pool.batch_size, generator=torch.Generator().manual_seed(0))[:32]
+    idx = idx.cuda()
+    rows = pool.gather_rows(idx)
+    rows_equal = all(torch.equal(getattr(rows, f).cpu(), getattr(host_pool, f)[idx.cpu()])
+                     for f in fields)
+    draws = harness.draw(rows, torch.Generator(device="cuda").manual_seed(3))
+
+    def after(step):
+        state, metrics = step(harness.init(0))
+        return ({k: v.clone() for k, v in state.opt_state.mu.items()},
+                {k: float(v) for k, v in metrics.items()})
+    # the first step of the production warmup has lr 0, so the first moment
+    # (1 - beta1) x gradient carries what the step computed
+    rel = lambda a, b: max(float((a[0][k] - b[0][k]).abs().max()
+                                 / b[0][k].abs().max().clamp(min=1.0)) for k in b[0])
+    pooled = after(lambda s: harness.pool_train_step(s, pool, idx, draws))
+    plains = [after(lambda s: harness.train_step(s, rows, draws)) for _ in range(3)]
+    d_pool = rel(pooled, plains[0])
+    d_rerun = max(rel(p, plains[0]) for p in plains[1:])
+    ok_a = (rows_equal and pooled[1] == plains[0][1] and all(p[1] == plains[0][1] for p in plains)
+            and d_pool <= 1e-6)
+    print(f"{tag} pool_train_step vs train_step on its rows, card, production_config (b=32): "
+          f"gathered rows equal the host rows {rows_equal}; loss and metrics equal "
+          f"{pooled[1] == plains[0][1]} (loss {pooled[1]['train/loss']:.6f}); gradients "
+          f"max|d| / scale {d_pool:.2e} (tol 1e-6); train_step against itself, 2 reruns: "
+          f"metrics equal {all(p[1] == plains[0][1] for p in plains)}, gradients {d_rerun:.2e} "
+          f"(the step's own run-to-run variation); {'ok' if ok_a else 'FAILED'}")
+
+    # (b) two pool steps, card vs CPU
+    tiny = C.tiny_config()
+    tcfg = dataclasses.replace(tiny, train=dataclasses.replace(tiny.train, mode_dropout=0.3))
+    h_cpu, h_card = DiffAb(tcfg, device="cpu"), DiffAb(tcfg, device="cuda")
+    s_cpu, s_card = h_cpu.init(0), h_card.init(0)
+    g = torch.Generator().manual_seed(4)
+    ok_b = True
+    for step in range(2):
+        sel = torch.arange(4 * step, 4 * step + 4)
+        d = h_cpu.draw(host_pool.gather_rows(sel), g)
+        l_cpu, _, g_cpu = h_cpu.loss_and_grads(s_cpu.params, host_pool.gather_rows(sel), d)
+        l_card, _, g_card = h_card.loss_and_grads(s_card.params, pool.gather_rows(sel.cuda()),
+                                                  d.to("cuda"))
+        rel = max(((g_card[k].cpu() - v).abs().max() / v.abs().max().clamp(min=1.0)).item()
+                  for k, v in g_cpu.items())
+        d_loss = abs(l_card.item() - l_cpu.item())
+        ok_s = d_loss <= 1e-4 * max(1.0, abs(l_cpu.item())) and rel <= 1e-3
+        ok_b = ok_b and ok_s
+        print(f"{tag} pool step {step + 1} card vs CPU, tiny_config f32, rows {sel.tolist()}: "
+              f"loss {l_card.item():.6f} vs {l_cpu.item():.6f}, max gradient |d| / scale "
+              f"{rel:.2e} (tol 1e-3); {'ok' if ok_s else 'FAILED'}")
+        s_cpu, s_card = h_cpu.apply_gradients(s_cpu, g_cpu), h_card.apply_gradients(s_card,
+                                                                                       g_card)
+
+    # (c) the loader's card batches
+    host = list(ds.batches(32, seed=1, epochs=1))
+    loader = PrefetchLoader(ds.batches(32, seed=1, epochs=1), "cuda", prefetch=2)
+    got = []
+    for (b, _), (h, _) in zip(loader, host):
+        torch.matmul(b.xyz.flatten(1), b.xyz.flatten(1).T)  # a step's work on the batch
+        got.append(b)
+    loader.close()
+    same_now = len(got) == len(host) and all(
+        torch.equal(getattr(b, f).cpu(), getattr(h, f)) for b, (h, _) in zip(got, host)
+        for f in fields)
+    torch.cuda.synchronize()
+    same_later = all(torch.equal(getattr(b, f).cpu(), getattr(h, f))
+                     for b, (h, _) in zip(got, host) for f in fields)
+    ok_c = same_now and same_later
+    print(f"{tag} PrefetchLoader card batches vs host batches: {len(got)} batches of 32, "
+          f"equal {same_now}, still equal after the last {same_later}; "
+          f"{'ok' if ok_c else 'FAILED'}")
+    if not (ok_a and ok_b and ok_c):
+        raise RuntimeError(f"{tag} a card-vs-CPU check failed")
+
+
+def data_phase(torch, card):
+    """[data]: the training data path on the card, from PDBs to designs (see
+    data_corpus, data_train, data_fuse_false, data_sample and
+    data_card_vs_cpu).  Returns {path: (K1, K2) launches}."""
+    import tempfile
+
+    from diffab_pytorch_tpu_torch.config import production_config
+    from diffab_pytorch_tpu_torch.data.dataset import PatchDataset
+
+    laps = [time.perf_counter()]
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        patches, _ = data_corpus(tmp)
+        laps.append(time.perf_counter())
+        rates, calls, busy = {}, {}, {}
+        for pool in (False, True):
+            key = "data_pool" if pool else "data_loader"
+            launches[key], rates[pool], ck, calls[pool], pool_call = data_train(
+                torch, card, patches, tmp, pool)
+            harness, state, batch, draws = calls[pool][-1]["args"]
+            if pool:
+                pool_batch, idx = pool_call
+                step = lambda: harness.pool_train_step(state, pool_batch, idx, draws)
+            else:
+                ck_loader = ck
+                step = lambda: harness.train_step(state, batch, draws)
+            busy[pool] = profile_device(
+                torch, step, 1.0 / rates[pool], f"[data] one production training step "
+                f"({'pool_train_step' if pool else 'train_step on a loader batch'}; wall from "
+                f"the loop's rate)")
+        # the data path's own device work (CUDA events, calls queued
+        # behind a sleep): a pinned batch's copy (loader), the row gather
+        # (pool)
+        host_batch, _ = next(PatchDataset.from_dir(patches).batches(
+            production_config().train.batch_size, seed=0))
+        pinned = host_batch.pin_memory()
+        batch_mb = sum(v.nbytes for v in host_batch.to_numpy().values() if v is not None) / 1e6
+        copy_ms = cuda_time_ms(lambda: pinned.to("cuda", non_blocking=True), 20)
+        gather_ms = cuda_time_ms(lambda: pool_batch.gather_rows(idx), 20)
+        print(f"[data] the data path's device time: one batch's pinned host-to-card copy "
+              f"{copy_ms:.4f} ms ({batch_mb:.2f} MB), one step's row gather {gather_ms:.4f} ms"
+              + ("" if None in busy.values() else
+                 f"; against a step's {busy[False]:.1f} / {busy[True]:.1f} ms: "
+                 f"{copy_ms / busy[False]:.2%} (the loader issues it on its own stream) / "
+                 f"{gather_ms / busy[True]:.2%}"))
+        # both paths run the same seeded shuffle over the same usable rows,
+        # so step by step they must train on the same batch
+        same_rows = all(all(bool(x == y) for x, y in zip(a["rows"], b["rows"]))
+                        for a, b in zip(calls[False], calls[True]))
+        d_loss = max(abs(float(a["loss"]) - float(b["loss"]))
+                     for a, b in zip(calls[False], calls[True]))
+        print(f"[data] loader and device-pool runs: the same rows at every step {same_rows} "
+              f"(checksums of each step's batch on the card); losses max|d| {d_loss:.3e} (the "
+              f"same draws; a difference is the step's own run-to-run variation)")
+        if not same_rows:
+            raise RuntimeError("[data] the loader and the device pool fed different rows")
+        laps.append(time.perf_counter())
+        launches["data_fuse_false"] = data_fuse_false(torch, patches)
+        launches["data_sample"] = data_sample(torch, card, patches, ck_loader, tmp)
+        laps.append(time.perf_counter())
+        data_card_vs_cpu(torch, patches)
+        laps.append(time.perf_counter())
+    pb = production_config().train.batch_size
+    print(f"[data] training steps/s: loader {rates[False]:.3f} ({rates[False] * pb:.1f} "
+          f"samples/s), device pool {rates[True]:.3f} ({rates[True] * pb:.1f} samples/s) "
+          f"(card: {card})")
+    corpus_s, train_s, rest_s, check_s = (b - a for a, b in zip(laps, laps[1:]))
+    print(f"[data] phase {laps[-1] - laps[0]:.2f} s: corpus and preprocessing {corpus_s:.2f} s, "
+          f"the two cli.train runs and profiles {train_s:.2f} s, fuse False and cli.sample "
+          f"{rest_s:.2f} s, card-vs-CPU checks {check_s:.2f} s")
+    return launches, rates
+
+
 def kernel_times(torch, card, pb):
     """Per-launch times at L = 128, the main paths' shapes (b = 128, bp = 1
     and b = bp = pb): K1 in bf16 (also host-paced, and its two launches
@@ -1334,6 +1763,7 @@ def main() -> int:
     from diffab_pytorch_tpu_torch.ops import _build
     from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
     from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+    from diffab_pytorch_tpu_torch.structure import native
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1342,8 +1772,12 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     # ---- 2. build -----------------------------------------------------------
+    t0 = time.perf_counter()
+    native_lib = native.build()
+    native_s = time.perf_counter() - t0
     build_s = _build.build_all()
-    print(f"[build] kernels built in {build_s:.2f} s")
+    print(f"[build] kernels built in {build_s:.2f} s; the C++ parser and featurizer "
+          f"({os.path.relpath(native_lib, HERE)}, from native/*.cpp) in {native_s:.2f} s")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
@@ -1508,7 +1942,11 @@ def main() -> int:
     # ---- 11. the design loop: cli.sample --rank and cli.evaluate --------------------------
     launches.update(design_phase(torch, card))
 
-    # ---- 12. records ---------------------------------------------------------------
+    # ---- 12. the training data path: PDBs -> patches -> cli.train -> cli.sample -------------
+    data_launches, data_rates = data_phase(torch, card)
+    launches.update(data_launches)
+
+    # ---- 13. records ---------------------------------------------------------------
     by_path = lambda i: {path: c[i] for path, c in launches.items()}
     kernels = [{
         "name": "ipa_fused_layer",
@@ -1555,7 +1993,8 @@ def main() -> int:
           + f" (card: {card})")
     print(f"[main] designs/s {designs_per_s:.3f} (bf16) / {designs_per_s_f32:.3f} (float32); "
           f"training steps/s {train_rates[None]:.3f} (fused layer) / {train_rates[False]:.3f} "
-          f"(attention core) (card: {card})")
+          f"(attention core), from patches {data_rates[False]:.3f} (loader) / "
+          f"{data_rates[True]:.3f} (device pool) (card: {card})")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,2 +1,2 @@
-"""Command-line entry points: `python -m diffab_pytorch_tpu_torch.cli.sample`
-and `python -m diffab_pytorch_tpu_torch.cli.evaluate`."""
+"""Command-line entry points: `python -m diffab_pytorch_tpu_torch.cli.<name>`
+for preprocess, train, sample and evaluate."""

@@ -1,1 +1,2 @@
-"""Batch schema and synthetic batches."""
+"""Batch schema and synthetic batches, the patch dataset, the prefetch
+loader and the synthetic family corpus."""

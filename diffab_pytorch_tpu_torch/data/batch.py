@@ -41,12 +41,24 @@ class ProteinBatch:
         """C-alpha coordinates (b, L, 3), the diffused translation variable."""
         return self.xyz[:, :, ATOM.CA, :]
 
-    def to(self, device) -> "ProteinBatch":
+    def _map(self, fn) -> "ProteinBatch":
         return ProteinBatch(**{
-            f.name: (None if v is None else v.to(device))
+            f.name: (None if v is None else fn(v))
             for f in dataclasses.fields(self)
             for v in [getattr(self, f.name)]
         })
+
+    def to(self, device, non_blocking: bool = False) -> "ProteinBatch":
+        return self._map(lambda v: v.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "ProteinBatch":
+        """A copy in page-locked host memory, for asynchronous copies."""
+        return self._map(lambda v: v.pin_memory())
+
+    def gather_rows(self, idx: torch.Tensor) -> "ProteinBatch":
+        """Rows `idx` ((b,) int64 on this batch's device) of every field:
+        a step's batch out of a device-resident pool."""
+        return self._map(lambda v: v.index_select(0, idx))
 
     @classmethod
     def from_numpy(cls, arrays, device="cpu") -> "ProteinBatch":

@@ -1,6 +1,7 @@
-"""Batch assembly from patches (`diffab_pytorch_tpu/data/dataset.py`, the
-batch half): normalization into diffusion space and stacking into the
-port's `ProteinBatch` on a device.
+"""Patches to batches (`diffab_pytorch_tpu/data/dataset.py`): the
+normalization into diffusion space, stacking into the port's
+`ProteinBatch`, and `PatchDataset`, the index over a directory of
+preprocessed .npz patches with its batch iterator and device pool.
 
   * generation_mask comes from the stored per-CDR labels, for any subset
     of CDRs to generate;
@@ -11,19 +12,23 @@ port's `ProteinBatch` on a device.
     time; `NormalizationInfo` inverts the transform after sampling;
   * the pairwise dihedrals are left to the model (PairEmbedding).
 
-The normalization is host-side numpy in float32, as in the JAX package.
+The normalization is host-side numpy in float32, as in the JAX package,
+and a `PatchDataset` batch is assembled on the host (CPU tensors); moving
+it to the card is the loader's job (`data/loader.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence
+import os
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from diffab_pytorch_tpu_torch.config import resolve_device
 from diffab_pytorch_tpu_torch.constants import CDR, CDR_NAMES
 from diffab_pytorch_tpu_torch.data.batch import ProteinBatch
+from diffab_pytorch_tpu_torch.structure.patch import load_patch
 
 # angstrom -> diffusion units: CA coordinates of a centred 128-residue
 # patch have a std of ~10 A
@@ -120,21 +125,37 @@ def assemble_batch(
     samples: List[Dict[str, np.ndarray]],
     cdrs_to_generate: Sequence[str] = ("H3",),
     device=None,
+    normalize: bool = True,
 ) -> tuple[ProteinBatch, NormalizationInfo]:
-    """Normalize patch dicts (those not normalized yet) and stack them into
-    a ProteinBatch on `device` (the card unless named); return it with the
-    coordinate transform."""
+    """Stack patch dicts into a ProteinBatch on `device` (the card unless
+    named) and return it with the coordinate transform.  normalize: the
+    samples not normalized yet are normalized first; False keeps the
+    patches' angstroms and frames (identity transform, scale 1)."""
     device = resolve_device(device)
-    samples = [
-        s if "norm_center" in s else normalize_sample(s, cdrs_to_generate)
-        for s in samples
-    ]
+    if normalize:
+        samples = [
+            s if "norm_center" in s else normalize_sample(s, cdrs_to_generate)
+            for s in samples
+        ]
     stack = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
-    info = NormalizationInfo(center=stack["norm_center"], scale=COORD_SCALE,
-                             rot=stack["norm_rot"])
+    if normalize:
+        gen_mask = stack["generation_mask"].astype(bool)
+        xyz, orientations = stack["xyz"], stack["orientations"]
+        info = NormalizationInfo(center=stack["norm_center"], scale=COORD_SCALE,
+                                 rot=stack["norm_rot"])
+    else:
+        b = stack["seq_idx"].shape[0]
+        gen_mask = generation_mask_from_cdr(stack["cdr_idx"], cdrs_to_generate)
+        gen_mask &= stack["residue_mask"].astype(bool)
+        # masked atom slots carry zeros, whatever the file held
+        xyz = np.where(stack["atom_mask"][..., None].astype(bool),
+                       stack["xyz"].astype(np.float32), 0.0)
+        orientations = stack["orientations"].astype(np.float32)
+        info = NormalizationInfo(center=np.zeros((b, 3), np.float32), scale=1.0,
+                                 rot=np.tile(np.eye(3, dtype=np.float32), (b, 1, 1)))
     batch = ProteinBatch.from_numpy(dict(
-        xyz=stack["xyz"],
-        orientations=stack["orientations"],
+        xyz=xyz,
+        orientations=orientations,
         backbone_dihedrals=stack["backbone_dihedrals"].astype(np.float32),
         backbone_dihedrals_mask=stack["backbone_dihedrals_mask"].astype(bool),
         pairwise_dihedrals=None,
@@ -143,6 +164,125 @@ def assemble_batch(
         chain_idx=stack["chain_idx"],
         residue_idx=stack["residue_idx"],
         residue_mask=stack["residue_mask"].astype(bool),
-        generation_mask=stack["generation_mask"].astype(bool),
+        generation_mask=gen_mask,
     ), device=device)
     return batch, info
+
+
+class PatchDataset:
+    """Index over preprocessed .npz patches (`cli/preprocess.py` writes
+    them).  require_generated: samples whose generation mask would be
+    empty are skipped.  cache: each sample's NORMALIZED arrays are kept in
+    RAM after first use (~35 KB a 128-residue patch), so later epochs skip
+    the compressed-npz decode and the pose normalization; it is valid
+    because `normalize_sample` depends only on the sample and the CDR
+    subset."""
+
+    def __init__(
+        self,
+        paths: Sequence[str],
+        cdrs_to_generate: Sequence[str] = ("H3",),
+        require_generated: bool = True,
+        cache: bool = False,
+    ):
+        bad = set(cdrs_to_generate) - set(CDR_NAMES)
+        if bad:
+            raise ValueError(f"unknown CDRs {sorted(bad)}; must be in {CDR_NAMES}")
+        self.paths = list(paths)
+        self.cdrs_to_generate = tuple(cdrs_to_generate)
+        self.require_generated = require_generated
+        self.cache = cache
+        self._norm_cache: Dict[int, Dict[str, np.ndarray]] = {}
+
+    @classmethod
+    def from_dir(cls, data_dir: str, **kwargs) -> "PatchDataset":
+        paths = sorted(os.path.join(data_dir, f) for f in os.listdir(data_dir)
+                       if f.endswith(".npz"))
+        return cls(paths, **kwargs)
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        return load_patch(self.paths[i])
+
+    def _sample(self, i: int, normalize: bool) -> Dict[str, np.ndarray]:
+        if not normalize:
+            return self[i]
+        s = self._norm_cache.get(i)
+        if s is None:
+            s = normalize_sample(self[i], self.cdrs_to_generate)
+            if self.cache:
+                self._norm_cache[i] = s
+        return s
+
+    def _usable(self, s: Dict[str, np.ndarray]) -> bool:
+        if not self.require_generated:
+            return True
+        gm = s.get("generation_mask")
+        if gm is None:
+            gm = generation_mask_from_cdr(s["cdr_idx"], self.cdrs_to_generate) \
+                & s["residue_mask"].astype(bool)
+        return bool(gm.any())
+
+    def device_pool(self, normalize: bool = True) -> tuple[ProteinBatch, NormalizationInfo]:
+        """The whole dataset as ONE host ProteinBatch (row i = the i-th
+        usable sample) and its NormalizationInfo: the input of
+        `DiffAb.pool_train_step`, which gathers each step's rows on the
+        card, so a step moves b indices to the card instead of its
+        features.  Skips what `batches` skips."""
+        samples = [s for s in (self._sample(i, normalize) for i in range(len(self.paths)))
+                   if self._usable(s)]
+        return assemble_batch(samples, self.cdrs_to_generate, device="cpu",
+                              normalize=normalize)
+
+    def epoch_indices(
+        self, batch_size: int, *, n_rows: int, shuffle: bool = True,
+        seed: int = 0, drop_last: bool = True,
+    ) -> Iterator[np.ndarray]:
+        """Endless per-epoch (batch_size,) int32 row selections over a
+        device pool of n_rows rows: the host side of the pool loop."""
+        rng = np.random.default_rng(seed)
+        while True:
+            order = np.arange(n_rows)
+            if shuffle:
+                rng.shuffle(order)
+            for i in range(0, n_rows - batch_size + 1, batch_size):
+                yield order[i:i + batch_size].astype(np.int32)
+            rem = n_rows % batch_size
+            if rem and not drop_last:
+                yield order[n_rows - rem:].astype(np.int32)
+
+    def batches(
+        self,
+        batch_size: int,
+        *,
+        shuffle: bool = True,
+        seed: int = 0,
+        drop_last: bool = True,
+        epochs: Optional[int] = None,
+        normalize: bool = True,
+    ) -> Iterator[tuple[ProteinBatch, NormalizationInfo]]:
+        """Host batches (CPU tensors) of `batch_size` usable samples, each
+        epoch in a fresh order from np.random.default_rng(seed); endless
+        when epochs is None."""
+        rng = np.random.default_rng(seed)
+        epoch = 0
+        while epochs is None or epoch < epochs:
+            order = np.arange(len(self.paths))
+            if shuffle:
+                rng.shuffle(order)
+            buf: List[Dict[str, np.ndarray]] = []
+            for i in order:
+                s = self._sample(int(i), normalize)
+                if not self._usable(s):
+                    continue
+                buf.append(s)
+                if len(buf) == batch_size:
+                    yield assemble_batch(buf, self.cdrs_to_generate, device="cpu",
+                                         normalize=normalize)
+                    buf = []
+            if buf and not drop_last:
+                yield assemble_batch(buf, self.cdrs_to_generate, device="cpu",
+                                     normalize=normalize)
+            epoch += 1

@@ -1,3 +1,4 @@
-"""The structure layer on the host (numpy): PDB parsing and writing,
-geometry, complex assembly, patches, backbone reconstruction; and the
+"""The structure layer on the host (numpy): PDB parsing (in Python or
+through the C++ library) and writing, geometry, complex assembly,
+patches, backbone reconstruction, synthetic PDB text; and the
 designed-loop relaxation on the device (torch)."""

@@ -1,6 +1,8 @@
 """Structural geometry on the host (numpy;
-`diffab_pytorch_tpu/structure/geometry.py` without its C++ branch):
-backbone frames and backbone dihedrals.
+`diffab_pytorch_tpu/structure/geometry.py`): backbone frames and backbone
+dihedrals.  `backbone_geometry`, the featurizer's entry, runs the C++
+featurizer (`structure/native.py`) unless told `prefer_native=False`; the
+numpy functions here are the reference it is held to.
 
 Frame convention (the models' `frames_apply`): orientation ROWS are the
 frame axes in global coordinates, by Gram-Schmidt on the backbone:
@@ -98,10 +100,16 @@ def backbone_dihedrals(
 
 
 def backbone_geometry(
-    xyz: np.ndarray, atom_mask: np.ndarray, chain_idx: np.ndarray
+    xyz: np.ndarray, atom_mask: np.ndarray, chain_idx: np.ndarray,
+    prefer_native: bool = True,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Frames and backbone dihedrals in one call: (orientations (L, 3, 3),
-    dihedrals (L, 3), dihedrals_mask (L, 3))."""
+    dihedrals (L, 3), dihedrals_mask (L, 3)); the C++ featurizer (raising
+    if it cannot be built) or, with prefer_native=False, numpy."""
+    if prefer_native:
+        from diffab_pytorch_tpu_torch.structure import native
+
+        return native.backbone_geometry_native(xyz, atom_mask, chain_idx)
     rot, _ = backbone_orientations(xyz, atom_mask)
     vals, mask = backbone_dihedrals(xyz, atom_mask, chain_idx)
     return rot, vals, mask

@@ -11,8 +11,9 @@ Parsing rules:
     file order.
   * Residues without a CA are dropped.
 
-There is one parser here; the C++ parser that speeds up bulk preprocessing
-is not part of the port.
+`parse_pdb` runs the C++ parser (`structure/native.py`) unless told
+`prefer_native=False`; the Python parser below is the semantic reference
+the C++ one is held to.
 """
 
 from __future__ import annotations
@@ -51,8 +52,14 @@ class Residue:
         return AA_INDEX.get(self.resname, int(AA.UNK))
 
 
-def parse_pdb(text: str) -> Dict[str, List[Residue]]:
-    """Parse PDB text into {chain_id: [Residue, ...]} in file order."""
+def parse_pdb(text: str, prefer_native: bool = True) -> Dict[str, List[Residue]]:
+    """Parse PDB text into {chain_id: [Residue, ...]} in file order, with
+    the C++ parser (raising if it cannot be built) or, with
+    prefer_native=False, in Python."""
+    if prefer_native:
+        from diffab_pytorch_tpu_torch.structure import native
+
+        return native.parse_pdb_native(text)
     chains: Dict[str, List[Residue]] = {}
     current: Dict[str, tuple] = {}  # chain -> (resseq, icode)
     buffers: Dict[str, Residue] = {}
@@ -113,9 +120,9 @@ def parse_pdb(text: str) -> Dict[str, List[Residue]]:
     return chains
 
 
-def parse_pdb_file(path: str) -> Dict[str, List[Residue]]:
+def parse_pdb_file(path: str, prefer_native: bool = True) -> Dict[str, List[Residue]]:
     with open(path) as f:
-        return parse_pdb(f.read())
+        return parse_pdb(f.read(), prefer_native)
 
 
 def _coord(v: float) -> str:

@@ -126,8 +126,12 @@ class DiffAb:
 
     def draw(self, batch: ProteinBatch, generator: torch.Generator) -> StepDraws:
         """One loss evaluation's random numbers, on the batch's device."""
-        b, L = batch.seq_idx.shape
-        kw = dict(generator=generator, device=batch.seq_idx.device)
+        return self.draw_for(*batch.seq_idx.shape, generator, batch.seq_idx.device)
+
+    def draw_for(self, b: int, L: int, generator: torch.Generator, device) -> StepDraws:
+        """The random numbers of one loss evaluation on a (b, L) batch on
+        `device` (the generator's device)."""
+        kw = dict(generator=generator, device=device)
         u = torch.rand((b, L, self.config.model.aa_vocab_size), **kw)
         tiny = torch.finfo(u.dtype).tiny
         return StepDraws(
@@ -135,8 +139,7 @@ class DiffAb:
             mode_u=torch.rand((b,), **kw),
             gumbel=-torch.log(-torch.log(torch.clamp(u, min=tiny))),
             coord=torch.randn((b, L, 3), **kw),
-            orientation=AxisAngleNoise.draw((b, L), generator, torch.float32,
-                                            batch.seq_idx.device),
+            orientation=AxisAngleNoise.draw((b, L), generator, torch.float32, device),
         )
 
     # ------------------------------------------------------------------
@@ -267,6 +270,15 @@ class DiffAb:
         _, metrics, grads = self.loss_and_grads(state.params, batch, draws)
         state = self.apply_gradients(state, grads)
         return state, {f"train/{k}": v.detach() for k, v in metrics.items()}
+
+    def pool_train_step(self, state: TrainState, pool: ProteinBatch, idx: torch.Tensor,
+                        draws: StepDraws):
+        """`train_step` on rows `idx` ((b,) int64 on the pool's device) of a
+        device-resident pool (`PatchDataset.device_pool` moved to the
+        card): the rows are gathered on the card, so a step moves b
+        indices to it instead of the batch's features.  On the same rows
+        with the same draws it is `train_step` exactly."""
+        return self.train_step(state, pool.gather_rows(idx), draws)
 
     @torch.no_grad()
     def eval_step(self, params: Params, batch: ProteinBatch, draws: StepDraws):

@@ -1,25 +1,35 @@
-"""The training loop (`diffab_pytorch_tpu/train/trainer.py`): batches ->
-train steps -> metrics -> checkpoints, with periodic validation and the
-divergence guard.
+"""The training loop (`diffab_pytorch_tpu/train/trainer.py`): data ->
+train steps -> metrics -> checkpoints, with validation at epoch ends and
+the divergence guard.
 
-`fit` takes any iterable of ProteinBatch: a list is replayed for `epochs`
-epochs, a one-shot iterator runs once.  Each step's random numbers come
-from a generator on the harness's device seeded with (seed, step), so a
-resumed run draws what the uninterrupted one would have.
+`fit` takes a `PatchDataset`, as the JAX `fit` does: its shuffled host
+batches go through `PrefetchLoader` to the card, or, with
+device_pool=True, the whole dataset is put on the card once and each step
+gathers its rows there (`DiffAb.pool_train_step`).  It also takes any
+iterable of ProteinBatch: a list is replayed for `epochs` epochs, a
+one-shot iterator runs once.  Every input goes through one loop body.
+Each step's random numbers come from a generator on the harness's device
+seeded with (seed, step), so the loader path, the pool path and a resumed
+run draw the same numbers at the same step.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
-from typing import Iterable, Optional
+from typing import Iterable, Optional, Union
 
 import numpy as np
 import torch
 
 from diffab_pytorch_tpu_torch.data.batch import ProteinBatch
+from diffab_pytorch_tpu_torch.data.dataset import PatchDataset
+from diffab_pytorch_tpu_torch.data.loader import PrefetchLoader
 from diffab_pytorch_tpu_torch.train import checkpoint as ckpt_lib
 from diffab_pytorch_tpu_torch.train.harness import DiffAb, OptState, TrainState
 from diffab_pytorch_tpu_torch.utils.logging import MetricLogger
+
+Data = Union[PatchDataset, Iterable[ProteinBatch]]
 
 
 def _copy_state(state: TrainState) -> TrainState:
@@ -37,8 +47,8 @@ def _step_generator(generator: torch.Generator, seed: int, step: int) -> torch.G
 
 def fit(
     harness: DiffAb,
-    train_batches: Iterable[ProteinBatch],
-    val_batches: Optional[Iterable[ProteinBatch]] = None,
+    train_data: Data,
+    val_data: Optional[Data] = None,
     *,
     epochs: Optional[int] = None,
     max_steps: Optional[int] = None,
@@ -47,12 +57,18 @@ def fit(
     checkpoint_dir: Optional[str] = None,
     resume: bool = True,
     state: Optional[TrainState] = None,
+    train_step=None,
+    device_pool: bool = False,
 ) -> TrainState:
     """Train and return the final TrainState.  `state` continues a run in
     memory; otherwise the state is initialized from `seed` (default
     TrainConfig.seed) or, with `resume`, restored from `checkpoint_dir`.
-    Validation over `val_batches` runs at every epoch boundary (when the
-    training iterable has a length)."""
+    Validation over `val_data` (a PatchDataset in order, or batches) runs
+    at every epoch boundary: every len(train_data) // batch_size steps for
+    a dataset, every len(train_data) for a list of batches.
+    `train_step(state, batch, draws) -> (state, metrics)` replaces
+    `harness.train_step`; it cannot be combined with device_pool, whose
+    step gathers the rows itself."""
     cfg = harness.config.train
     dev = harness.device
     seed = cfg.seed if seed is None else seed
@@ -67,7 +83,45 @@ def fit(
             print(f"[trainer] resumed from step {state.step}")
     if checkpoint_dir:
         ckpt_lib.save_model_config(checkpoint_dir, harness.config.model)
-    steps_per_epoch = max(1, len(train_batches)) if hasattr(train_batches, "__len__") else None
+
+    step_fn = train_step or harness.train_step
+    loader = None
+    if device_pool:
+        if train_step is not None or not isinstance(train_data, PatchDataset):
+            raise ValueError("device_pool runs DiffAb.pool_train_step on a PatchDataset; it "
+                             "cannot take an injected train_step or a list of batches")
+        host_pool, _ = train_data.device_pool()
+        n_rows = host_pool.batch_size
+        if n_rows < cfg.batch_size:
+            raise ValueError(f"dataset ({n_rows} usable samples) smaller than "
+                             f"batch_size={cfg.batch_size}")
+        pool = host_pool.to(dev)
+        n_res = pool.seq_idx.shape[1]
+        total = epochs * max(1, n_rows // cfg.batch_size) - state.step
+        source = itertools.islice(train_data.epoch_indices(
+            cfg.batch_size, n_rows=n_rows, shuffle=True, seed=seed), max(total, 0))
+
+        def run_step(state, rows, generator):
+            idx = torch.from_numpy(rows.astype(np.int64))
+            if dev.type == "cuda":  # from pageable memory the copy would wait for the card
+                idx = idx.pin_memory().to(dev, non_blocking=True)
+            draws = harness.draw_for(len(rows), n_res, generator, dev)
+            return harness.pool_train_step(state, pool, idx, draws)
+    else:
+        if isinstance(train_data, PatchDataset):
+            loader = PrefetchLoader(train_data.batches(
+                cfg.batch_size, shuffle=True, seed=seed, epochs=epochs), dev)
+            source = (batch for batch, _ in loader)
+        else:
+            source = itertools.chain.from_iterable(itertools.repeat(train_data, epochs))
+
+        def run_step(state, batch, generator):
+            batch = batch.to(dev)
+            return step_fn(state, batch, harness.draw(batch, generator))
+    if isinstance(train_data, PatchDataset):
+        steps_per_epoch = max(1, len(train_data) // cfg.batch_size)
+    else:
+        steps_per_epoch = max(1, len(train_data)) if hasattr(train_data, "__len__") else None
 
     # Divergence guard, read at logging points only (each read waits for
     # the card).  A loss is "good" while within 3x of the best seen (+1).
@@ -81,10 +135,14 @@ def fit(
     t_last = time.time()
 
     def run_eval(params):
-        if val_batches is None:
+        if val_data is None:
             return
+        batches = val_data
+        if isinstance(val_data, PatchDataset):
+            batches = (b for b, _ in val_data.batches(cfg.batch_size, shuffle=False, epochs=1,
+                                                       drop_last=False))
         ms = []
-        for i, vb in enumerate(val_batches):
+        for i, vb in enumerate(batches):
             vb = vb.to(dev)
             ms.append(harness.eval_step(
                 params, vb, harness.draw(vb, _step_generator(gen, seed + 1 + i, state.step))))
@@ -92,15 +150,11 @@ def fit(
             logger.log(state.step, {k: float(np.mean([float(m[k]) for m in ms]))
                                     for k in ms[0]})
 
-    done = False
-    for _ in range(epochs):
-        for batch in train_batches:
+    try:
+        for item in source:
             if max_steps is not None and state.step >= max_steps:
-                done = True
                 break
-            batch = batch.to(dev)
-            draws = harness.draw(batch, _step_generator(gen, seed, state.step))
-            state, metrics = harness.train_step(state, batch, draws)
+            state, metrics = run_step(state, item, _step_generator(gen, seed, state.step))
             step = state.step
             if step % cfg.log_every == 0:
                 now = time.time()
@@ -124,8 +178,13 @@ def fit(
                           f"{best_loss:.4g}; not overwriting the checkpoint")
             if steps_per_epoch and step % steps_per_epoch == 0:
                 run_eval(state.params)
-        if done:
-            break
+    finally:
+        if loader is not None:
+            loader.close()
+            if loader.batch_seconds:
+                ms = np.array(loader.batch_seconds) * 1e3
+                print(f"[trainer] loader: {len(ms)} batches, host ms per batch: mean "
+                      f"{ms.mean():.2f}, median {np.median(ms):.2f}")
 
     if state.step > last_ok_step + cfg.log_every:
         print(f"[trainer] final state diverged (best {best_loss:.4g}, validated "

@@ -234,7 +234,13 @@ def test_import_pulls_in_no_jax():
             "diffab_pytorch_tpu_torch.structure.patch, "
             "diffab_pytorch_tpu_torch.data.dataset, "
             "diffab_pytorch_tpu_torch.cli.sample, "
-            "diffab_pytorch_tpu_torch.cli.evaluate; "
+            "diffab_pytorch_tpu_torch.cli.evaluate, "
+            "diffab_pytorch_tpu_torch.cli.preprocess, "
+            "diffab_pytorch_tpu_torch.cli.train, "
+            "diffab_pytorch_tpu_torch.data.loader, "
+            "diffab_pytorch_tpu_torch.data.synthetic, "
+            "diffab_pytorch_tpu_torch.structure.native, "
+            "diffab_pytorch_tpu_torch.structure.testing; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.split('.')[0] in ('flax', 'optax', 'diffab_pytorch_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -3,9 +3,9 @@ on the CPU: the PDB parser, complex assembly, patch featurization,
 patches on disk, PDB writing, backbone reconstruction, and
 `assemble_batch` with its pose normalization.
 
-The JAX side runs its Python parser and its numpy geometry (the C++
-library is told apart: `tests/test_native.py` holds the two JAX paths
-equal).  Tolerances: parsing, assembly, featurization and the written
+Both sides run their numpy geometry, the JAX side also its Python parser
+(the C++ library is told apart: `tests/test_native.py` holds the two JAX
+paths equal, `tests/test_torch_data.py` the port's).  Tolerances: parsing, assembly, featurization and the written
 bytes exactly equal; backbone reconstruction and idealization 1e-6 A;
 float fields of the batch 1e-6 (the same float32 numpy operations); the
 inverse pose transform 1e-5 A plus 1e-6 of the coordinate (the patch's
@@ -14,6 +14,7 @@ A, and the normalized coordinates are stored in float32).
 """
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -41,9 +42,12 @@ CHAINS = {"ab1_chothia.pdb": ("H", "L", ["A"]), "ab2_hostile.pdb": ("H", "L", ["
 
 
 @pytest.fixture(autouse=True)
-def numpy_geometry_on_the_jax_side(monkeypatch):
-    """The JAX featurizer's numpy geometry, not its C++ library."""
+def numpy_geometry_on_both_sides(monkeypatch):
+    """Both featurizers on their numpy geometry, not the C++ library (held
+    to it in tests/test_torch_data.py)."""
     monkeypatch.setattr(jnative, "backbone_geometry_native", lambda *a, **k: None)
+    monkeypatch.setattr(tgeometry, "backbone_geometry",
+                        functools.partial(tgeometry.backbone_geometry, prefer_native=False))
 
 
 def path_of(name):
