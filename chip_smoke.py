@@ -66,7 +66,21 @@ Phases (any failure raises and the script exits non-zero):
      from the trained checkpoint; then pool_train_step against train_step
      on its rows on the card, two pool steps card vs CPU, and the loader's
      card batches against the host batches;
-  13. a `kernels` JSON line, the card line, and the final JSON line.
+  13. [selfcond]: self-conditioning.  Every variant (early fusion,
+     geometry-only, late fusion, split trunk) card vs CPU at tiny widths
+     for both kernel flags in float32 and bf16: a forward with an estimate
+     (and one with |x0| ~ 1e4), the two-pass loss with its gradients per
+     sample and per residue under mode dropout, a heun chain with sc_t_max;
+     production_config() training, plain then with early fusion and with
+     the split trunk (3 + 20 fit() steps, K1 6 / 12 / 24 a step, steps/s
+     beside the plain run's and [train]'s, a profile of one step, peak
+     memory; then 1 + 4 split-trunk steps at fuse_ipa_layer=False, K2 24 a
+     step); the [main] sampling path, plain then self-conditioned (K1 600 /
+     600 / 1,200 a call, designs/s beside the plain run's and [main]'s);
+     `cli.train --production --self-conditioning
+     --sc-split-trunk --sc-onset 2 --sc-rate-warmup 4 --max-steps 8` on
+     [data]'s patches and `cli.sample -n 16` from its checkpoint;
+  14. a `kernels` JSON line, the card line, and the final JSON line.
 
 The L = 128 kernel times (phase 7) run where they ran before the long-patch
 and few-step phases existed, so that two versions of this script read them
@@ -86,6 +100,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -575,12 +590,13 @@ class RecordingLogger:
               f"orient {row['train/orientations_loss']:.4f})")
 
 
-def profile_device(torch, fn, wall_s, label, top=12):
+def profile_device(torch, fn, wall_s, label, top=12, sum_of=()):
     """Device time by kernel over one call of fn (torch.profiler), and the
     idle share of an unprofiled call of wall_s seconds (None: no idle
     share).  Only device-side events (kernels, copies) are traced and
     summed: recording the CPU ops as well gives the same device rows, and
-    reading them back took longer than the profiled call.  Returns the
+    reading them back took longer than the profiled call.  sum_of: kernel
+    names whose events and ms are also printed as one sum.  Returns the
     device busy ms (None when the profiler reported none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -612,6 +628,10 @@ def profile_device(torch, fn, wall_s, label, top=12):
               f"{prof_wall_us / 1e3:.1f} ms)")
         for dev_us, key, count in rows[:top]:
             print(f"[profile]   {dev_us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+        if sum_of:
+            mine = [r for r in rows if any(name in r[1] for name in sum_of)]
+            print(f"[profile]   {' + '.join(sum_of)}: {sum(r[0] for r in mine) / 1e3:.3f} ms in "
+                  f"{sum(r[2] for r in mine)} launches")
         return busy_us / 1e3
     print(f"[profile] {label}: device time not measured (profiler reported none)")
     return None
@@ -745,14 +765,21 @@ def e2e_train_check(torch, tag, L):
                                f"plain path")
 
 
+def layer_calls(mcfg, passes=1):
+    """IPA layer calls (K1 or K2 launches) of `passes` denoiser calls: each
+    runs n_ipa_layers layers, twice that with the split trunk's geo_ipa."""
+    return passes * mcfg.n_ipa_layers * (2 if mcfg.sc_split_trunk else 1)
+
+
 def training_main_path(torch, card, tag, fuse, L, n_warm, n_timed, batch_size=None,
-                       profile=True):
+                       profile=True, model=None):
     """production_config() training through fit() on one synthetic batch of
     L-residue patches (batch_size, default the config's 32), from a seeded
-    init: n_warm warm-up steps, then n_timed timed steps with the launch
-    counts set to 0 just before and read just after; loss trajectory and
-    state checks; a profile of one more step.  Returns ((K1, K2) launches,
-    steps/s)."""
+    init, its model changed by `model` (ModelConfig fields): n_warm warm-up
+    steps, then n_timed timed steps with the launch counts set to 0 just
+    before and read just after (a self-conditioned step runs the denoiser
+    twice); loss trajectory, peak memory and state checks; a profile of one
+    more step.  Returns ((K1, K2) launches, steps/s)."""
     from diffab_pytorch_tpu_torch import config as C
     from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
     from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
@@ -766,7 +793,8 @@ def training_main_path(torch, card, tag, fuse, L, n_warm, n_timed, batch_size=No
     pb = pcfg.train.batch_size
     pool = [synthetic_batch(100, pb, L, pcfg.model.n_atoms, device="cuda")]
     kname = "fused layer (K1)" if fuse is None else "attention core (K2)"
-    hcfg = dataclasses.replace(pcfg, model=dataclasses.replace(pcfg.model, fuse_ipa_layer=fuse))
+    hcfg = dataclasses.replace(pcfg, model=dataclasses.replace(pcfg.model, fuse_ipa_layer=fuse,
+                                                               **(model or {})))
     harness = DiffAb(hcfg)
     init_params = {k: v.detach().clone() for k, v in harness.init(hcfg.train.seed).params.items()}
     logger = RecordingLogger(f"{tag} {kname}")
@@ -787,8 +815,8 @@ def training_main_path(torch, card, tag, fuse, L, n_warm, n_timed, batch_size=No
     print(f"{tag} {kname}: {n_timed} steps of production_config() (bf16, batch {pb}, "
           f"L={L}) in {wall_s:.4f} s: {steps_per_s:.3f} steps/s, "
           f"{steps_per_s * pb:.1f} samples/s on {card}; peak memory {peak_gb:.2f} GB")
-    n_layers = hcfg.model.n_ipa_layers
-    want = (n_layers * n_timed, 0) if fuse is None else (0, n_layers * n_timed)
+    per_step = layer_calls(hcfg.model, 2 if hcfg.model.self_conditioning else 1)
+    want = (per_step * n_timed, 0) if fuse is None else (0, per_step * n_timed)
     print(f"{tag} {kname}: launches ipa_fused_layer {counts[0]}, ipa_attention "
           f"{counts[1]} (expected {want[0]}, {want[1]})")
     losses = [row["train/loss"] for _, row in logger.rows]
@@ -813,18 +841,19 @@ def training_main_path(torch, card, tag, fuse, L, n_warm, n_timed, batch_size=No
         def one_step():
             nonlocal step_state
             step_state, _ = harness.train_step(step_state, pool[0], harness.draw(pool[0], gen))
-        profile_device(torch, one_step, wall_s / n_timed, f"one training step, {kname}, L={L}")
+        profile_device(torch, one_step, wall_s / n_timed, f"{tag} one training step, {kname}, "
+                       f"L={L}", sum_of=K1_LAUNCHES if fuse is None else ())
     return counts, steps_per_s
 
 
 def sampling_main_path(torch, card, compute_dtype, n_calls, tag, L=L_MAIN,
-                       n_designs=N_DESIGNS, **opts):
+                       n_designs=N_DESIGNS, model=None, **opts):
     """The sampling main path: CDR-H3 codesign sample() with
-    default_config() (its model in `compute_dtype`; float32 is
-    default_config() exactly as it stands), one synthetic L-residue target
-    (default 128), n_designs designs sharing the context (default 128),
-    T=100 and the sampler options `opts` (none: the full chain from the
-    prior), seeded random weights.  One warm-up call, then n_calls timed
+    default_config() (its model in `compute_dtype`, changed by `model`;
+    float32 is default_config() exactly as it stands), one synthetic
+    L-residue target (default 128), n_designs designs sharing the context
+    (default 128), T=100 and the sampler options `opts` (none: the full
+    chain from the prior), seeded random weights.  One warm-up call, then n_calls timed
     calls with the launch counts set to 0 just before them and read just
     after; output checks on the last; a profile of one more call.  Returns
     ((K1, K2) launches over the timed calls, designs/s of the median
@@ -840,7 +869,7 @@ def sampling_main_path(torch, card, compute_dtype, n_calls, tag, L=L_MAIN,
     from diffab_pytorch_tpu_torch.weights import init_parameters
 
     cfg = C.default_config()
-    mcfg = dataclasses.replace(cfg.model, compute_dtype=compute_dtype)
+    mcfg = dataclasses.replace(cfg.model, compute_dtype=compute_dtype, **(model or {}))
     dcfg = cfg.diffusion
     t0 = time.perf_counter()
     model = init_parameters(DiffAbModel(mcfg), torch.Generator().manual_seed(0))
@@ -870,7 +899,7 @@ def sampling_main_path(torch, card, compute_dtype, n_calls, tag, L=L_MAIN,
     t_seq = timestep_schedule(opts.get("t_start", dcfg.T), opts.get("n_steps"),
                               opts.get("step_schedule", "uniform"),
                               opts.get("step_schedule_p", 0.5), opts.get("n_fine_tail"))
-    per_call = mcfg.n_ipa_layers * denoiser_calls(t_seq.tolist(), opts)
+    per_call = layer_calls(mcfg, denoiser_calls(t_seq.tolist(), opts))
     expected = (n_calls * per_call, 0)
     wall = sorted(call_s)[n_calls // 2]  # median call
     print(f"{tag} {n_calls} x sample(n_designs={n_designs}, T={dcfg.T}, L={L}, "
@@ -899,7 +928,8 @@ def sampling_main_path(torch, card, compute_dtype, n_calls, tag, L=L_MAIN,
     print(f"{tag} output checks {checks}")
     if not all(checks.values()):
         raise RuntimeError(f"main path output check failed: {checks}")
-    profile_device(torch, lambda: run(20), wall, f"{tag} one {mcfg.compute_dtype} sample() call")
+    profile_device(torch, lambda: run(20), wall, f"{tag} one {mcfg.compute_dtype} sample() call",
+                   sum_of=K1_LAUNCHES)
     return launches, n_designs / wall
 
 
@@ -1578,10 +1608,13 @@ def data_card_vs_cpu(torch, patches):
         raise RuntimeError(f"{tag} a card-vs-CPU check failed")
 
 
-def data_phase(torch, card):
+def data_phase(torch, card, tmp=None):
     """[data]: the training data path on the card, from PDBs to designs (see
     data_corpus, data_train, data_fuse_false, data_sample and
-    data_card_vs_cpu).  Returns {path: (K1, K2) launches}."""
+    data_card_vs_cpu), in the directory `tmp` (default a temporary one;
+    the patches stay in <tmp>/patches).  Returns ({path: (K1, K2)
+    launches}, {pool: steps/s})."""
+    import contextlib
     import tempfile
 
     from diffab_pytorch_tpu_torch.config import production_config
@@ -1589,7 +1622,7 @@ def data_phase(torch, card):
 
     laps = [time.perf_counter()]
     launches = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with (tempfile.TemporaryDirectory() if tmp is None else contextlib.nullcontext(tmp)) as tmp:
         patches, _ = data_corpus(tmp)
         laps.append(time.perf_counter())
         rates, calls, busy = {}, {}, {}
@@ -1649,6 +1682,335 @@ def data_phase(torch, card):
           f"the two cli.train runs and profiles {train_s:.2f} s, fuse False and cli.sample "
           f"{rest_s:.2f} s, card-vs-CPU checks {check_s:.2f} s")
     return launches, rates
+
+
+SC_VARIANTS = {"early": {}, "geometry-only": dict(self_conditioning_sequence=False),
+               "late": dict(sc_late_fusion=True), "split": dict(sc_split_trunk=True)}
+SC_CLI_STEPS = 8  # cli.train steps of [selfcond] 4 (onset 2, warm-up 4: the ramp ends at 6)
+
+
+def sc_model_fields(variant):
+    """The ModelConfig fields of a self-conditioning variant."""
+    return dict(self_conditioning=True, **SC_VARIANTS[variant])
+
+
+def sc_agree(torch, card, ref, other, factor):
+    """The e2e rule on lists of tensors: the largest and the mean of
+    |card - ref| must be at most `factor` times those of |other - ref|,
+    each tensor's deviations divided by its largest |ref| (at least 1).
+    Returns (passed, max and mean of the card's, of the other's)."""
+    def dev(xs):
+        return torch.cat([((x.float().cpu() - r.float().cpu()).abs()
+                           / r.float().abs().max().clamp(min=1.0)).flatten()
+                          for x, r in zip(xs, ref)])
+    d_card, d_other = dev(card), dev(other)
+    ok = bool(torch.isfinite(d_card).all() and d_card.max() <= factor * d_other.max()
+              and d_card.mean() <= factor * d_other.mean())
+    return ok, (d_card.max().item(), d_card.mean().item(), d_other.max().item(),
+                d_other.mean().item())
+
+
+def selfcond_card_vs_cpu(torch, L=32, T=12):
+    """[selfcond] 1: each self-conditioning variant (early, geometry-only,
+    late, split) at tiny_config() widths, card against the CPU plain path
+    of the same flag, for both kernel flags (None: K1, False: K2) in
+    float32 and bf16, each card run's
+    launches asserted first: a forward with an estimate and a mixed
+    per-residue flag (b = 4, L = 32), the same with an estimate |x0| ~ 1e4
+    (finite); the two-pass loss with all gradients under mode dropout,
+    per sample and per residue, the same injected StepDraws; a 5-step
+    heun chain (2 designs of one target, sc_t_max = 8 of T = 12) with the
+    same injected draws.  Tolerances, as the e2e checks: float32 losses
+    1e-4 of the loss and 1e-3 of each gradient's scale, float32 chains
+    sequences equal and 1e-3 on coordinates and frames, float32 forwards
+    within 1/64 of the CPU bf16-float32 distance; in bf16 every output
+    within 2x that distance (largest and mean).  bf16 chains generate the
+    structure only (fix-sequence): one categorical draw that flips on a
+    last-bit difference parts two codesign chains."""
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
+    from diffab_pytorch_tpu_torch.geometry.igso3 import AxisAngleNoise
+    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+    from diffab_pytorch_tpu_torch.sampling.sampler import (InitNoise, StepNoise, sample,
+                                                          timestep_schedule)
+    from diffab_pytorch_tpu_torch.train.harness import DiffAb
+
+    tag = "[selfcond]"
+    t0 = time.perf_counter()
+    tiny = C.tiny_config()
+    b, bn = 4, 2
+    batch = synthetic_batch(5, b, L, n_generate=8)
+    target = synthetic_batch(6, 1, L, n_generate=8)
+    g = torch.Generator().manual_seed(7)
+    x_t = batch.translations + 0.3 * torch.randn(b, L, 3, generator=g)
+    beta = torch.linspace(0.05, 0.9, b)
+    est = dict(sc_translations_x0=batch.translations + torch.randn(b, L, 3, generator=g),
+               sc_seq_probs=torch.softmax(torch.randn(b, L, 21, generator=g), dim=-1),
+               sc_mask=(torch.rand(b, L, generator=g) < 0.6).float())
+    huge = dict(est, sc_translations_x0=batch.translations + 1e4)
+    # mode draws: fix-structure, fix-sequence, codesign, codesign (p = 0.3)
+    mode_u = torch.tensor([0.1, 0.45, 0.8, 0.9])
+    sc_u = {"per sample": torch.tensor([0.2, 0.7, 0.1, 0.6]),
+            "per residue": torch.rand(b, L, generator=g)}
+    opts = dict(n_steps=5, coord_solver="heun", coord_solver_t_min=2, sc_t_max=8)
+    t_seq = timestep_schedule(T, opts["n_steps"]).tolist()
+    init = InitNoise(seq=torch.randint(0, 21, (bn, L), generator=g),
+                     coord=torch.randn(bn, L, 3, generator=g),
+                     rot_prior=torch.randn(bn, L, 4, generator=g))
+    noise = {t: StepNoise(gumbel=-torch.log(-torch.log(torch.rand(bn, L, 21, generator=g))),
+                          coord=torch.randn(bn, L, 3, generator=g),
+                          orientation=AxisAngleNoise.draw((bn, L), g)) for t in t_seq}
+
+    def to(x, dev):
+        if x is None or isinstance(x, (int, float)):
+            return x
+        if isinstance(x, tuple):
+            return type(x)(*(to(a, dev) for a in x))
+        if isinstance(x, dict):
+            return {k: to(v, dev) for k, v in x.items()}
+        return x.to(dev)
+
+    def run(h, chains):
+        """Every output of harness h, and the (K1, K2) launches of each."""
+        dev = h.device.type
+        params = h.init(0).params
+        m, bd = h.model, batch.to(dev)
+        outs, counts = {}, {}
+
+        def counted(name, fn):
+            before = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+            outs[name] = [x.detach() for x in fn()]
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            counts[name] = (op.fused_ipa_layer_packed.launches - before[0],
+                            k2.ipa_attention_core.launches - before[1])
+
+        for name, sc in (("forward", est), ("huge", huge)):
+            with torch.no_grad():
+                counted(name, lambda: m(bd, bd.seq_idx, x_t.to(dev), bd.orientations,
+                                        beta.to(dev), **to(sc, dev)).values())
+        for how, u in sc_u.items():
+            draws = h.draw(batch, torch.Generator().manual_seed(8))._replace(mode_u=mode_u,
+                                                                              sc_u=u)
+
+            def loss():
+                l_, _, grads = h.loss_and_grads(params, bd, to(draws, dev))
+                return [l_] + [grads[k] for k in sorted(grads)]
+            counted(f"loss {how}", loss)
+        for gen_seq in chains:
+            counted(f"chain {'codesign' if gen_seq else 'fix-sequence'}", lambda: sample(
+                m, h.sched, h.orientation_tables, target, device=dev, n_designs=bn,
+                init_noise=to(init, dev), step_noise=lambda t: to(noise[t], dev),
+                generate_sequence=gen_seq, **opts)[:3])
+        return outs, counts
+
+    n_checks = 0
+    for variant in SC_VARIANTS:
+        cfgs = {}
+        for dt in ("float32", "bfloat16"):
+            for fuse in (None, False):
+                mcfg = dataclasses.replace(tiny.model, compute_dtype=dt, fuse_ipa_layer=fuse,
+                                           **sc_model_fields(variant))
+                cfgs[dt, fuse] = dataclasses.replace(
+                    tiny, model=mcfg, diffusion=C.DiffusionConfig(T=T, igso3_n_bins=256,
+                                                                  igso3_n_terms=128),
+                    train=dataclasses.replace(tiny.train, mode_dropout=0.3))
+        cpu = {key: run(DiffAb(cfg, device="cpu"),
+                        (True, False) if key[0] == "float32" else (False,))[0]
+               for key, cfg in cfgs.items()}
+        for (dt, fuse), cfg in cfgs.items():
+            mcfg = cfg.model
+            want_n = {"forward": layer_calls(mcfg), "huge": layer_calls(mcfg),
+                      "loss per sample": layer_calls(mcfg, 2),
+                      "loss per residue": layer_calls(mcfg, 2),
+                      "chain": layer_calls(mcfg, denoiser_calls(t_seq, opts))}
+            bf16 = dt == "bfloat16"
+            outs, counts = run(DiffAb(cfg, device="cuda"), (not bf16,))
+            for name, got in counts.items():
+                n = want_n[name.split(" ")[0] if name.startswith("chain") else name]
+                want = (n, 0) if fuse is None else (0, n)
+                if got != want:
+                    raise RuntimeError(f"{tag} {variant} {dt} fuse_ipa_layer={fuse} {name}: "
+                                       f"launches K1, K2 {got}, expected {want}")
+            ref, other = ((cpu["bfloat16", fuse], cpu["float32", fuse]) if bf16
+                          else (cpu["float32", fuse], cpu["bfloat16", fuse]))
+            results = {}
+            for name, card in outs.items():
+                if bf16:
+                    results[name] = sc_agree(torch, card, ref[name], other[name], 2.0)
+                elif name.startswith("chain"):
+                    seq, x, r = (a.cpu() for a in card)
+                    d = max((x - ref[name][1]).abs().max().item(),
+                            (r - ref[name][2]).abs().max().item())
+                    results[name] = (torch.equal(seq, ref[name][0]) and d <= 1e-3, (d,))
+                elif name.startswith("loss"):
+                    l_c, l_r = card[0].item(), ref[name][0].item()
+                    rel = max(((c.cpu() - r).abs().max() / r.abs().max().clamp(min=1.0)).item()
+                              for c, r in zip(card[1:], ref[name][1:]))
+                    d = abs(l_c - l_r)
+                    results[name] = (d <= 1e-4 * max(1.0, abs(l_r)) and rel <= 1e-3, (d, rel))
+                else:
+                    results[name] = sc_agree(torch, card, ref[name], other[name], 1 / 64)
+                n_checks += 1
+            ok = all(r[0] for r in results.values())
+            print(f"{tag} {variant} {dt} fuse_ipa_layer={fuse}: launches K1, K2 "
+                  + ", ".join(f"{k} {v}" for k, v in counts.items()) + "; "
+                  + "; ".join(f"{k} {'ok' if r[0] else 'FAILED'} "
+                              + "/".join(f"{v:.2e}" for v in r[1]) for k, r in results.items()))
+            if not ok:
+                raise RuntimeError(f"{tag} {variant} {dt} fuse_ipa_layer={fuse}: the card "
+                                   f"disagrees with the CPU plain path")
+    print(f"{tag} card vs CPU: {n_checks} checks of 4 variants x 2 flags x 2 dtypes passed in "
+          f"{time.perf_counter() - t0:.2f} s (float32 numbers: max|d| or loss |d| / gradient "
+          f"|d| / scale; bf16 and float32 forwards: card max/mean, CPU bf16-float32 max/mean, "
+          f"relative to scale)")
+
+
+def selfcond_cli(torch, card, patches, tmp):
+    """[selfcond] 4: `cli.train --production --self-conditioning
+    --sc-split-trunk --sc-onset 2 --sc-rate-warmup 4 --max-steps 8` on
+    [data]'s patches through its main() (a StepRecorder counts K1 per
+    step: 24, and 24 for the validation batch), then `cli.sample -n 16`
+    from that checkpoint (K1 1,200).  Returns {path: (K1, K2)}."""
+    import contextlib
+    import io
+
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.cli import sample as sample_cli
+    from diffab_pytorch_tpu_torch.cli import train as train_cli
+    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+    from diffab_pytorch_tpu_torch.train import checkpoint as ckpt
+    from diffab_pytorch_tpu_torch.train.harness import DiffAb
+
+    tag = "[selfcond] cli"
+    ck = os.path.join(tmp, "ck_selfcond")
+    argv = ["--data-dir", patches, "--production", "--self-conditioning", "--sc-split-trunk",
+            "--sc-onset", "2", "--sc-rate-warmup", "4", "--max-steps", str(SC_CLI_STEPS),
+            "--checkpoint-dir", ck]
+    rec = StepRecorder(DiffAb.train_step)
+    log = io.StringIO()
+    try:
+        DiffAb.train_step = lambda self, *a: rec(self, *a)
+        torch.cuda.synchronize()
+        op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = train_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+    finally:
+        DiffAb.train_step = rec.fn
+    for line in log.getvalue().splitlines():
+        if line.startswith(("[train]", "[trainer]")):
+            print(f"{tag} {line}")
+    pcfg = C.production_config()
+    want_model = dataclasses.replace(pcfg.model, **sc_model_fields("split"))
+    per_step = layer_calls(want_model, 2)
+    n_val = int(DATA_FAMILIES * DATA_PER_FAMILY * pcfg.train.val_pct)
+    n_evals = SC_CLI_STEPS // ((DATA_FAMILIES * DATA_PER_FAMILY - n_val) // pcfg.train.batch_size)
+    steps = tuple(sum(c["launches"][i] for c in rec.calls) for i in range(2))
+    losses = [float(c["loss"]) for c in rec.calls]
+    harness = rec.calls[0]["args"][0] if rec.calls else None
+    rates = [harness.sc_rate_at(s) for s in range(SC_CLI_STEPS)] if harness else []
+    saved = ckpt.load_model_config(ck)
+    checks = {
+        "rc": rc == 0,
+        "steps": len(rec.calls) == SC_CLI_STEPS and ckpt.all_steps(ck) == [SC_CLI_STEPS],
+        "model_config": saved == want_model,
+        "losses_finite": all(map(math.isfinite, losses)),
+        "launches": all(c["launches"] == (per_step, 0) for c in rec.calls)
+        and total == (per_step * (SC_CLI_STEPS + n_evals), 0),
+        "schedule": rates == [0.0, 0.0, 0.0, 0.125, 0.25, 0.375, 0.5, 0.5],
+    }
+    print(f"{tag} train {' '.join(argv[2:])}: wall {wall:.2f} s (card: {card}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches K1, K2: steps {steps} "
+          f"({per_step} a step), whole CLI {total} (with {n_evals} validation batch); sc rate by "
+          f"step {rates}; losses {[round(v, 4) for v in losses]}; model_config.json "
+          f"self_conditioning={saved.self_conditioning} sc_split_trunk={saved.sc_split_trunk}; "
+          f"checks {checks}")
+    if not all(checks.values()):
+        raise RuntimeError(f"{tag} cli.train --self-conditioning failed a check: {checks}")
+
+    patch = os.path.join(patches, sorted(os.listdir(patches))[0])
+    out = os.path.join(tmp, "designs_selfcond")
+    sargv = ["--patch", patch, "--checkpoint-dir", ck, "-n", "16", "-o", out]
+    log = io.StringIO()
+    op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = sample_cli.main(sargv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+    lines = log.getvalue().splitlines()
+    names = sorted(f for f in os.listdir(out) if f.endswith(".pdb"))
+    checks = {"rc": rc == 0,
+              "self_conditioning": any("recorded model config (self-conditioning)" in x
+                                       for x in lines),
+              "designs": names == [f"design_{i:04d}.pdb" for i in range(16)],
+              "launches": got == (layer_calls(want_model, pcfg.diffusion.T), 0)}
+    print(f"{tag} sample -n 16 from that checkpoint: wall {wall:.2f} s (card: {card}); "
+          f"launches K1, K2 {got}; checks {checks}")
+    if not all(checks.values()):
+        raise RuntimeError(f"{tag} cli.sample from the self-conditioned checkpoint failed: "
+                           f"{checks}")
+    return {"selfcond_cli_train": steps, "selfcond_cli_sample": got}
+
+
+def selfcond_phase(torch, card, patches, tmp, train_rate, designs_rate):
+    """[selfcond]: self-conditioning on the card.  1: every variant card vs
+    CPU at tiny widths (selfcond_card_vs_cpu); 2: production_config()
+    training with early fusion and with the split trunk (3 + 20 fit()
+    steps on [train]'s batch; K1 12 and 24 a step), and 1 + 4 split-trunk
+    steps at fuse_ipa_layer=False (K2 24 a step); 3: the [main] sampling
+    path with a self-conditioned default_config() in bf16, early and split
+    (K1 600 and 1,200 a call); 4: cli.train and cli.sample (selfcond_cli).
+    Steps/s and designs/s are printed against the plain path run just
+    before them, and against this run's earlier [train] (K1) steps/s and
+    [main] designs/s (train_rate, designs_rate).  Returns {path: (K1, K2)}."""
+    laps = [time.perf_counter()]
+    selfcond_card_vs_cpu(torch)
+    laps.append(time.perf_counter())
+    # each path beside its plain counterpart run just before it: the host's
+    # speed drifts over a run, so [train] and [main] from minutes earlier
+    # are no reference for a ratio
+    launches, train_rates, sample_rates = {}, {}, {}
+    launches["selfcond_plain_train"], train_rates["plain"] = training_main_path(
+        torch, card, "[selfcond] train plain", None, L_MAIN, 3, 20, profile=False)
+    for variant in ("early", "split"):
+        launches[f"selfcond_train_{variant}"], train_rates[variant] = training_main_path(
+            torch, card, f"[selfcond] train {variant}", None, L_MAIN, 3, 20,
+            model=sc_model_fields(variant))
+    # the attention-core kernel at the split trunk's call pattern (K2 24 a step)
+    launches["selfcond_train_split_fuse_False"], _ = training_main_path(
+        torch, card, "[selfcond] train split", False, L_MAIN, 1, 4, profile=False,
+        model=sc_model_fields("split"))
+    laps.append(time.perf_counter())
+    launches["selfcond_plain_sample"], sample_rates["plain"] = sampling_main_path(
+        torch, card, "bfloat16", 2, "[selfcond] sample plain")
+    for variant in ("early", "split"):
+        launches[f"selfcond_sample_{variant}"], sample_rates[variant] = sampling_main_path(
+            torch, card, "bfloat16", 2, f"[selfcond] sample {variant}",
+            model=sc_model_fields(variant))
+    laps.append(time.perf_counter())
+    launches.update(selfcond_cli(torch, card, patches, tmp))
+    laps.append(time.perf_counter())
+    def ratios(rates, earlier):
+        return ", ".join(
+            f"{v} {rates[v]:.3f} ({rates[v] / rates['plain']:.3f}x the plain run before it, "
+            f"{rates[v] / earlier:.3f}x the earlier phase's)" for v in ("early", "split"))
+    print(f"[selfcond] training steps/s (production_config(), batch 32, L=128): plain "
+          f"{train_rates['plain']:.3f} ([train] earlier {train_rate:.3f}), "
+          f"{ratios(train_rates, train_rate)}; designs/s (128 designs, T=100, bf16): plain "
+          f"{sample_rates['plain']:.3f} ([main] earlier {designs_rate:.3f}), "
+          f"{ratios(sample_rates, designs_rate)} (card: {card})")
+    parts = ("card vs CPU", "training", "sampling", "the CLIs")
+    print(f"[selfcond] phase {laps[-1] - laps[0]:.2f} s: " + ", ".join(
+        f"{p} {b_ - a:.2f} s" for p, a, b_ in zip(parts, laps, laps[1:])))
+    return launches
 
 
 def kernel_times(torch, card, pb):
@@ -1943,10 +2305,15 @@ def main() -> int:
     launches.update(design_phase(torch, card))
 
     # ---- 12. the training data path: PDBs -> patches -> cli.train -> cli.sample -------------
-    data_launches, data_rates = data_phase(torch, card)
-    launches.update(data_launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        data_launches, data_rates = data_phase(torch, card, tmp)
+        launches.update(data_launches)
 
-    # ---- 13. records ---------------------------------------------------------------
+        # ---- 13. self-conditioning ----------------------------------------------------------
+        launches.update(selfcond_phase(torch, card, os.path.join(tmp, "patches"), tmp,
+                                       train_rates[None], designs_per_s))
+
+    # ---- 14. records ---------------------------------------------------------------
     by_path = lambda i: {path: c[i] for path, c in launches.items()}
     kernels = [{
         "name": "ipa_fused_layer",

@@ -216,12 +216,11 @@ def main(argv=None) -> int:
     cfg = tiny_config() if args.tiny else default_config()
     saved_model = ckpt_lib.load_model_config(args.checkpoint_dir)
     if saved_model is not None:
-        if saved_model.self_conditioning:
-            raise NotImplementedError(
-                "this checkpoint uses self-conditioning, which is not ported yet "
-                "(ROADMAP A11)")
+        # the recorded architecture: a self-conditioned checkpoint has a
+        # wider fuse layer or a second trunk
         cfg = dataclasses.replace(cfg, model=saved_model)
-        print("[sample] using the checkpoint's recorded model config")
+        print("[sample] using the checkpoint's recorded model config"
+              + (" (self-conditioning)" if saved_model.self_conditioning else ""))
     harness = DiffAb(cfg, device=device)
     params, step = ckpt_lib.restore_params(args.checkpoint_dir)
     print(f"[sample] restored checkpoint at step {step}")

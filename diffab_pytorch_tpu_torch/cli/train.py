@@ -12,9 +12,12 @@ every epoch end.  --production starts from `production_config()` with its
 cosine horizon set to the run's planned steps (--max-steps, else epochs x
 steps per epoch); explicit recipe flags still win.  The checkpoint is the
 port's format (`train/checkpoint.py`) with model_config.json beside it,
-which `cli.sample` reads.  Training runs on the card unless --device
-names another; the self-conditioning flags and --data-parallel /
---multihost are not ported yet and raise.
+which `cli.sample` reads.  --self-conditioning trains a self-conditioned
+model (--sc-geometry-only, --sc-late-fusion, --sc-split-trunk choose the
+variant; the --sc-rate, --sc-onset, --sc-rate-warmup,
+--sc-seq-loss-weight and --sc-per-residue schedule is read with it).
+Training runs on the card unless --device names another; --data-parallel
+and --multihost are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -37,11 +40,6 @@ from diffab_pytorch_tpu_torch.train import checkpoint as ckpt_lib
 from diffab_pytorch_tpu_torch.train.harness import DiffAb
 from diffab_pytorch_tpu_torch.train.trainer import fit
 from diffab_pytorch_tpu_torch.utils.logging import MetricLogger
-
-# flag -> default: the self-conditioning flags, not ported yet (ROADMAP A11)
-SC_FLAGS = {"self_conditioning": False, "sc_geometry_only": False, "sc_late_fusion": False,
-            "sc_split_trunk": False, "sc_rate": None, "sc_onset": None,
-            "sc_rate_warmup": None, "sc_seq_loss_weight": None, "sc_per_residue": False}
 
 
 def parse_args(argv=None):
@@ -85,16 +83,27 @@ def parse_args(argv=None):
     p.add_argument("--mode-dropout", type=float, default=None,
                    help="Probability each that a sample is presented as fix-structure / "
                         "fix-sequence (default 0; 0.15 under --production)")
-    sc = p.add_argument_group("self-conditioning (not ported yet; ROADMAP A11)")
-    sc.add_argument("--self-conditioning", action="store_true")
-    sc.add_argument("--sc-geometry-only", action="store_true")
-    sc.add_argument("--sc-late-fusion", action="store_true")
-    sc.add_argument("--sc-split-trunk", action="store_true")
-    sc.add_argument("--sc-rate", type=float, default=None)
-    sc.add_argument("--sc-onset", type=int, default=None)
-    sc.add_argument("--sc-rate-warmup", type=int, default=None)
-    sc.add_argument("--sc-seq-loss-weight", type=float, default=None)
-    sc.add_argument("--sc-per-residue", action="store_true")
+    sc = p.add_argument_group("self-conditioning")
+    sc.add_argument("--self-conditioning", action="store_true",
+                    help="Train with self-conditioning: the denoiser also reads the previous "
+                         "step's clean-state estimate")
+    sc.add_argument("--sc-geometry-only", action="store_true",
+                    help="The estimate's features exclude the predicted p(s_0)")
+    sc.add_argument("--sc-late-fusion", action="store_true",
+                    help="The estimate enters after the IPA trunk, geometry heads only")
+    sc.add_argument("--sc-split-trunk", action="store_true",
+                    help="A second fuse MLP and IPA stack for the geometry heads reads the "
+                         "estimate; the sequence head's trunk stays cold")
+    sc.add_argument("--sc-rate", type=float, default=0.5,
+                    help="Share of each batch trained conditioned")
+    sc.add_argument("--sc-onset", type=int, default=0,
+                    help="Steps trained fully cold before conditioning starts")
+    sc.add_argument("--sc-rate-warmup", type=int, default=0,
+                    help="Steps to ramp the rate 0 -> --sc-rate after the onset")
+    sc.add_argument("--sc-seq-loss-weight", type=float, default=1.0,
+                    help="Weight of the sequence losses (KL + CE) of the conditioned rows")
+    sc.add_argument("--sc-per-residue", action="store_true",
+                    help="Draw the conditioning mask per residue instead of per sample")
     p.add_argument("--adam-eps", type=float, default=1e-8)
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute (parameters float32)")
     p.add_argument("--dist-atoms", type=int, default=-1,
@@ -119,10 +128,6 @@ def check_ported(args) -> None:
     if args.data_parallel or args.multihost:
         raise NotImplementedError(
             "--data-parallel and --multihost are not ported yet (ROADMAP A14, parallelism)")
-    given = [f"--{k.replace('_', '-')}" for k, v in SC_FLAGS.items() if getattr(args, k) != v]
-    if given:
-        raise NotImplementedError(f"{', '.join(given)}: self-conditioning is not ported yet "
-                                  "(ROADMAP A11)")
 
 
 def build_config(args, horizon: int = 0) -> DiffAbConfig:
@@ -151,6 +156,11 @@ def build_config(args, horizon: int = 0) -> DiffAbConfig:
         val_pct=args.val_pct,
         checkpoint_dir=args.checkpoint_dir,
         mode_dropout=pick(args.mode_dropout, pt.mode_dropout, 0.0),
+        sc_rate=args.sc_rate,
+        sc_onset_steps=args.sc_onset,
+        sc_rate_warmup=args.sc_rate_warmup,
+        sc_seq_loss_weight=args.sc_seq_loss_weight,
+        sc_per_residue=args.sc_per_residue,
         adam_eps=args.adam_eps,
         update_clip_rms=args.update_clip_rms,
         ema_decay=args.ema,
@@ -166,6 +176,10 @@ def build_config(args, horizon: int = 0) -> DiffAbConfig:
     model = dataclasses.replace(model, dist_atoms=dist_atoms)
     if args.d_pair is not None:
         model = dataclasses.replace(model, d_pair_emb=args.d_pair)
+    if args.self_conditioning:
+        model = dataclasses.replace(
+            model, self_conditioning=True, self_conditioning_sequence=not args.sc_geometry_only,
+            sc_late_fusion=args.sc_late_fusion, sc_split_trunk=args.sc_split_trunk)
     return dataclasses.replace(cfg, model=model, train=train)
 
 

@@ -5,8 +5,7 @@ changes what the model or a training step computes; the defaults are the
 same.  The TPU layout knobs of the JAX config (`use_pallas_attention`,
 `onehot_pair_tables`, `split_pair_mlp0`, `fuse_pair_bias`, `remat_ipa`,
 `remat_pair`) are exact re-groupings of the same arithmetic for XLA and
-Mosaic and have no counterpart here.  The self-conditioning schedule
-(`sc_*`) is not ported yet.
+Mosaic and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -48,8 +47,17 @@ class ModelConfig:
     # None/True: the fused IPA-layer kernel; False: projections in plain
     # PyTorch and the attention-core kernel
     fuse_ipa_layer: bool | None = None
-    # self-conditioning is not ported yet; True raises
+    # Self-conditioning: the denoiser also reads the previous step's
+    # clean-state estimate (x0_hat in each residue's noisy frame, p(s_0)
+    # unless self_conditioning_sequence is False, a validity flag), gated
+    # to generated residues.  Where it enters: the fuse MLP (default, the
+    # whole trunk), after the trunk into the geometry heads only
+    # (sc_late_fusion), or a second fuse MLP and IPA stack feeding the
+    # geometry heads (sc_split_trunk; exclusive with sc_late_fusion).
     self_conditioning: bool = False
+    self_conditioning_sequence: bool = True
+    sc_late_fusion: bool = False
+    sc_split_trunk: bool = False
 
     @property
     def dtype(self) -> torch.dtype:
@@ -76,8 +84,7 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Optimization configuration (`diffab_pytorch_tpu/config.py` TrainConfig,
-    without the self-conditioning schedule).
+    """Optimization configuration (`diffab_pytorch_tpu/config.py` TrainConfig).
 
     The update is the optax chain of the JAX harness: global-norm gradient
     clip (grad_clip_norm > 0) -> Adam normalization (betas, adam_eps) ->
@@ -86,7 +93,14 @@ class TrainConfig:
     decay over lr_decay_steps, which include the warmup).  ema_decay > 0
     keeps an exponential moving average of the parameters.  mode_dropout
     = p presents a sample as fix-structure with probability p and as
-    fix-sequence with probability p (p <= 0.5)."""
+    fix-sequence with probability p (p <= 0.5).
+
+    The self-conditioning schedule (read when ModelConfig.self_conditioning
+    is on): a share sc_rate of the samples (of the residues with
+    sc_per_residue) is trained on the first pass's estimate; the share is
+    0 for sc_onset_steps steps, then ramps linearly to sc_rate over
+    sc_rate_warmup steps; the sequence losses of the conditioned rows are
+    weighted by sc_seq_loss_weight."""
 
     batch_size: int = 16
     epochs: int = 60
@@ -102,6 +116,11 @@ class TrainConfig:
     lr_warmup_steps: int = 0
     lr_decay_steps: int = 0
     lr_min_ratio: float = 0.0
+    sc_rate: float = 0.5
+    sc_onset_steps: int = 0
+    sc_rate_warmup: int = 0
+    sc_seq_loss_weight: float = 1.0
+    sc_per_residue: bool = False
     mode_dropout: float = 0.0
     seed: int = 42
     val_pct: float = 0.1

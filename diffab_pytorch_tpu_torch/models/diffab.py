@@ -18,6 +18,7 @@ from diffab_pytorch_tpu_torch.config import ModelConfig, resolve_device
 from diffab_pytorch_tpu_torch.data.batch import ProteinBatch
 from diffab_pytorch_tpu_torch.models.denoiser import Denoiser
 from diffab_pytorch_tpu_torch.models.embedding import PairEmbedding, ResidueEmbedding
+from diffab_pytorch_tpu_torch.models.ipa import precompute_pair_biases
 
 
 class DiffAbModel(nn.Module):
@@ -64,26 +65,48 @@ class DiffAbModel(nn.Module):
 
     def denoise(self, seq_idx_t, translations_t, orientations_t, res_context_emb,
                 pair_context_emb, beta, generation_mask, residue_mask,
-                pair_biases=None, kernel_weights=None):
+                pair_biases=None, kernel_weights=None, sc_translations_x0=None,
+                sc_seq_probs=None, sc_mask=None, geo_pair_biases=None,
+                geo_kernel_weights=None):
         """One denoising prediction at timestep t.  pair_biases: per-layer
         precomputed bias logits; kernel_weights: per-layer packed fused-layer
-        weights (`denoiser.ipa.kernel_weights()`), both t-independent.
-        generation_mask is accepted for signature parity; the default model
-        (no self-conditioning) does not read it."""
-        del generation_mask
+        weights (`denoiser.ipa.kernel_weights()`), both t-independent;
+        geo_pair_biases / geo_kernel_weights: the same for `geo_ipa`
+        (`denoiser.geo_ipa.pair_biases(pair)`, `.kernel_weights()`).
+        sc_*: the previous clean-state estimate (x0_hat (b, L, 3), p(s_0)
+        (b, L, K), sc_mask (b,) or (b, L)), gated to generation_mask."""
         return self.denoiser(
             seq_idx_t, translations_t, orientations_t, res_context_emb,
             pair_context_emb, beta, residue_mask=residue_mask,
             pair_biases=pair_biases, kernel_weights=kernel_weights,
+            generation_mask=generation_mask, sc_translations_x0=sc_translations_x0,
+            sc_seq_probs=sc_seq_probs, sc_mask=sc_mask, geo_pair_biases=geo_pair_biases,
+            geo_kernel_weights=geo_kernel_weights,
         )
 
     def forward(self, batch: ProteinBatch, seq_idx_t, translations_t, orientations_t,
                 beta, generate_structure: bool = True, generate_sequence: bool = True,
-                structure_visible=None, sequence_visible=None):
-        """Encode the context, then denoise once (the training forward, JAX
-        `DiffAbModel.__call__`); the layers project their own pair biases."""
+                structure_visible=None, sequence_visible=None, sc_translations_x0=None,
+                sc_seq_probs=None, sc_mask=None, self_condition=None):
+        """Encode the context, then denoise (the training forward, JAX
+        `DiffAbModel.__call__`); the layers project their own pair biases.
+
+        self_condition (a self-conditioned model's training pass, JAX
+        `DiffAb.loss_fn`): a function from the first pass's outputs to the
+        second pass's sc_* arguments.  The context is encoded once and the
+        pair biases projected once; the first pass runs without gradients
+        and the second with them."""
         res_emb, pair_emb = self.encode_context(
             batch, generate_structure, generate_sequence,
             structure_visible=structure_visible, sequence_visible=sequence_visible)
-        return self.denoise(seq_idx_t, translations_t, orientations_t, res_emb, pair_emb,
-                            beta, batch.generation_mask, batch.residue_mask)
+        args = (seq_idx_t, translations_t, orientations_t, res_emb, pair_emb, beta,
+                batch.generation_mask, batch.residue_mask)
+        if self_condition is None:
+            return self.denoise(*args, sc_translations_x0=sc_translations_x0,
+                                sc_seq_probs=sc_seq_probs, sc_mask=sc_mask)
+        hoisted = dict(pair_biases=precompute_pair_biases(self.denoiser.ipa, pair_emb))
+        if self.cfg.sc_split_trunk:
+            hoisted["geo_pair_biases"] = self.denoiser.geo_ipa.pair_biases(pair_emb)
+        with torch.no_grad():
+            first = self.denoise(*args, **hoisted)
+        return self.denoise(*args, **hoisted, **self_condition(first))

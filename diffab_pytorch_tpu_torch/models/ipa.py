@@ -208,6 +208,16 @@ class InvariantPointAttentionModule(nn.Module):
             return None
         return [ly.kernel_weights() for ly in self.layers]
 
+    def pair_biases(self, pair_emb) -> list:
+        """Every layer's pair-bias logits (bp, h, L, L) in the compute dtype,
+        as the JAX stack computes them when none are given: one projection
+        of the pair tensor onto the layers' concatenated (d_pair, h)
+        kernels."""
+        dt, h = self.cfg.dtype, self.cfg.n_head
+        w = torch.cat([ly.to_pair_bias.kernel(dt) for ly in self.layers], dim=1)
+        logits = (pair_emb.to(dt) @ w).permute(0, 3, 1, 2)
+        return [logits[:, i * h:(i + 1) * h].contiguous() for i in range(self.cfg.n_ipa_layers)]
+
     def forward(self, res_emb, pair_emb, rot, trans, residue_mask=None,
                 pair_biases=None, kernel_weights=None):
         for i, ly in enumerate(self.layers):

@@ -16,7 +16,9 @@ renoising, on one chain loop.
      coordinates by the posterior mean, the DDIM direction above
      coord_ddim_t_min, or a solver's x0 estimate, "heun" or "ab2";
      orientations by renoising or the geodesic posterior); context
-     residues are clamped.
+     residues are clamped.  A self-conditioned model also reads the
+     previous step's estimate: x0_hat at that step's t (unclipped) and
+     p(s_0), with the flag 0 at the first step and at every t > sc_t_max.
 
 With n_designs = n every batch row gets n designs that share one copy of
 its context (embeddings, pair tensor, bias logits); output row i n + d is
@@ -212,6 +214,21 @@ def _initial_state(model, sched, tables, batch, rep, t_start, init, chord_orient
                                         noise=noise.rot))
 
 
+def hoist_denoiser_constants(model: DiffAbModel, pair_emb) -> dict:
+    """The t-independent arguments of `model.denoise` for a loop over t:
+    `ipa`'s per-layer pair-bias logits and packed fused-layer weights and,
+    for a split-trunk model, `geo_ipa`'s (its biases in the compute dtype,
+    the numbers the JAX `geo_ipa` projects on every call)."""
+    den = model.denoiser
+    dt = model.cfg.dtype
+    out = dict(pair_biases=[b.to(dt) for b in precompute_pair_biases(den.ipa, pair_emb)],
+               kernel_weights=den.ipa.kernel_weights())
+    if model.cfg.sc_split_trunk:
+        out.update(geo_pair_biases=den.geo_ipa.pair_biases(pair_emb),
+                   geo_kernel_weights=den.geo_ipa.kernel_weights())
+    return out
+
+
 def sample(
     model: DiffAbModel,
     sched: DiffusionSchedule,
@@ -249,8 +266,9 @@ def sample(
     moved there.  `generator` (on that device) drives every draw not
     injected through `init_noise` (InitNoise) or `step_noise` (t ->
     StepNoise).  x0_clip: "auto" (1.5 x the largest |coordinate| of any
-    context residue, per target), a float, or None.  sc_t_max needs a
-    self-conditioned model, which is not ported yet."""
+    context residue, per target), a float, or None.  sc_t_max: with a
+    self-conditioned model, feed the estimate only at steps t <= sc_t_max
+    (None: every step after the first)."""
     device = resolve_device(device)
     T = sched.T
     t_start = T if t_start is None else int(t_start)
@@ -274,8 +292,6 @@ def sample(
         raise ValueError("n_fine_tail composes only with step_schedule='uniform'")
     if orientation_reverse not in ("renoise", "posterior"):
         raise ValueError(f"unknown orientation reverse mode: {orientation_reverse!r}")
-    if sc_t_max is not None:
-        raise NotImplementedError("sc_t_max needs self-conditioning, which is not ported yet")
     t_seq = timestep_schedule(t_start, n_steps, step_schedule, step_schedule_p, n_fine_tail)
     s_seq = np.append(t_seq[1:], 0)
 
@@ -306,19 +322,22 @@ def sample(
 
         res_emb, pair_emb = model.encode_context(batch, generate_structure,
                                                  generate_sequence)
-        ipa = model.denoiser.ipa
-        dt = model.cfg.dtype
-        pair_biases = [bias.to(dt) for bias in precompute_pair_biases(ipa, pair_emb)]
-        kernel_weights = ipa.kernel_weights()
+        hoisted = hoist_denoiser_constants(model, pair_emb)
 
         seq_t, x_t, r_t = _initial_state(
             model, sched, tables, batch, rep, t_start, init, chord_orientations, seq_ctx,
             x_ctx, r_ctx, res_mask, seq_gen, struct_gen, generator, init_noise or InitNoise())
 
-        def denoise(seq, x, r, tvec):
+        def denoise(seq, x, r, tvec, **sc):
             return model.denoise(seq, x, r, res_emb, pair_emb, sched.beta[tvec], gen,
-                                 res_mask, pair_biases=pair_biases,
-                                 kernel_weights=kernel_weights)
+                                 res_mask, **hoisted, **sc)
+
+        sc_on = model.cfg.self_conditioning
+        if sc_on:  # the estimate carried from step to step; none yet
+            sc_x = torch.zeros_like(x_t)
+            sc_p = torch.zeros(seq_t.shape + (model.cfg.aa_vocab_size,), dtype=x_t.dtype,
+                               device=device)
+            sc_flag = torch.zeros((bn,), dtype=torch.float32, device=device)
 
         if coord_solver == "ab2":
             # log-SNR lambda(t) = 0.5 log(abar / (1 - abar)), index 0 clamped
@@ -331,7 +350,11 @@ def sample(
             tvec = torch.full((bn,), t, dtype=torch.long, device=device)
             svec = torch.full((bn,), s_t, dtype=torch.long, device=device)
             noise = None if step_noise is None else step_noise(t)
-            den = denoise(seq_t, x_t, r_t, tvec)
+            sc = {}
+            if sc_on:
+                flag = sc_flag if sc_t_max is None else sc_flag * float(t <= sc_t_max)
+                sc = dict(sc_translations_x0=sc_x, sc_seq_probs=sc_p, sc_mask=flag)
+            den = denoise(seq_t, x_t, r_t, tvec, **sc)
             seq_next = sequence.reverse_step(
                 sched, seq_t, den["seq_posterior"], tvec, seq_gen, s=svec,
                 generator=generator, gumbel=None if noise is None else noise.gumbel)
@@ -371,13 +394,17 @@ def sample(
                         x_pred = coordinate.reverse_step_from_x0(
                             sched, x_t, x0_hat, tvec, struct_gen, x0_clip=x0_clip,
                             noise_scale=0.0, s=svec, noise=z)
-                        d2 = denoise(seq_next, x_pred, r_next, svec)
+                        d2 = denoise(seq_next, x_pred, r_next, svec, **sc)
                         x0_2 = coordinate.predicted_x0(sched, x_pred, d2["translations_eps"],
                                                        svec)
                         x0_use = 0.5 * (x0_hat + x0_2)
                 x_next = coordinate.reverse_step_from_x0(
                     sched, x_t, x0_use, tvec, struct_gen, x0_clip=x0_clip, noise_scale=ns_t,
                     s=svec, noise=z)
+            if sc_on:
+                sc_x = coordinate.predicted_x0(sched, x_t, eps, tvec)
+                sc_p = den["seq_posterior"]
+                sc_flag = torch.ones((bn,), dtype=torch.float32, device=device)
             seq_t, x_t, r_t = seq_next, x_next, r_next
             if return_trajectory:
                 trajectory.append((seq_t, x_t, r_t))

@@ -20,7 +20,8 @@ designs of one target.  The cost is |t_grid| x n_draws denoiser calls
 The context is encoded once per target, and each layer's pair-bias logits
 once, shared by the target's n designs inside attention as in
 `sample(n_designs=n)`: the IPA kernels run at b = n x targets with
-bp = targets.  Every draw can be injected (`ScoreDraws`), so tests feed
+bp = targets.  A self-conditioned model is scored cold (no estimate), as
+the JAX scorer does.  Every draw can be injected (`ScoreDraws`), so tests feed
 this scorer the numbers the JAX key schedule draws.
 """
 
@@ -38,8 +39,7 @@ from diffab_pytorch_tpu_torch.diffusion.orientation import OrientationDiffusionT
 from diffab_pytorch_tpu_torch.diffusion.schedule import DiffusionSchedule
 from diffab_pytorch_tpu_torch.geometry.igso3 import AxisAngleNoise
 from diffab_pytorch_tpu_torch.models.diffab import DiffAbModel
-from diffab_pytorch_tpu_torch.models.ipa import precompute_pair_biases
-from diffab_pytorch_tpu_torch.sampling.sampler import SampleResult
+from diffab_pytorch_tpu_torch.sampling.sampler import SampleResult, hoist_denoiser_constants
 from diffab_pytorch_tpu_torch.train.losses import orientation_discrepancy
 
 
@@ -154,9 +154,7 @@ def score_designs(
 
         # the context once per target, the bias logits once per layer
         res_emb, pair_emb = model.encode_context(batch, generate_structure, generate_sequence)
-        ipa = model.denoiser.ipa
-        pair_biases = [bias.to(model.cfg.dtype) for bias in precompute_pair_biases(ipa, pair_emb)]
-        kernel_weights = ipa.kernel_weights()
+        hoisted = hoist_denoiser_constants(model, pair_emb)
         r_d32 = r_d.to(torch.float32)
 
         zero = torch.zeros((bn,), dtype=torch.float32, device=device)
@@ -171,8 +169,9 @@ def score_designs(
                                                   generator=generator, noise=coord_noise)
             r_t = orientation.diffuse_from_t0(tables, r_d, tvec, struct_gen,
                                               generator=generator, noise=rot_noise)
+            # a self-conditioned model scores cold: no estimate
             den = model.denoise(seq_t, x_t, r_t, res_emb, pair_emb, sched.beta[tvec], gen,
-                                res_mask, pair_biases=pair_biases, kernel_weights=kernel_weights)
+                                res_mask, **hoisted)
 
             log_p0 = torch.log_softmax(den["seq_logits"].to(torch.float32), dim=-1)
             ce = -torch.gather(log_p0, -1, seq_d[..., None])[..., 0]

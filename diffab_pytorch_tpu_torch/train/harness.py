@@ -6,8 +6,15 @@ training state is an explicit `TrainState` (step, parameters, optimizer
 moments, EMA).  The model runs on the state's parameters through
 `torch.func.functional_call`, so one model serves any state.  Every random
 number of a step is in a `StepDraws` (timesteps, the mode-dropout uniform,
-and the three forward draws): drawn from a `torch.Generator`, or injected
-by a test that feeds the JAX package the same numbers.
+the three forward draws and, for a self-conditioned model, the
+conditioning uniform): drawn from a `torch.Generator`, or injected by a
+test that feeds the JAX package the same numbers.
+
+A self-conditioned model trains in two passes inside one parametrisation
+by the state's parameters (`DiffAbModel.forward(self_condition=...)`): the
+context encoded once, a first denoise without gradients, its estimate
+x0_hat (unclipped) and p(s_0) fed to the second for the samples (or
+residues) whose uniform falls below the schedule's rate at the step.
 
 The update is the JAX harness's optax chain, written out because
 `torch.optim.Adam` cannot place a clip between its normalization and its
@@ -69,10 +76,14 @@ class StepDraws(NamedTuple):
     gumbel: torch.Tensor  # (b, L, K) sequence forward draw
     coord: torch.Tensor  # (b, L, 3) coordinate noise eps
     orientation: AxisAngleNoise  # (b, L) axis-angle draw
+    # (b,) or (b, L) uniform in [0, 1): the self-conditioning draw, drawn
+    # only for a self-conditioned model
+    sc_u: torch.Tensor | None = None
 
     def to(self, device) -> "StepDraws":
         return StepDraws(*(x.to(device) for x in self[:4]),
-                         AxisAngleNoise(*(a.to(device) for a in self.orientation)))
+                         AxisAngleNoise(*(a.to(device) for a in self.orientation)),
+                         None if self.sc_u is None else self.sc_u.to(device))
 
 
 class NoisedSample(NamedTuple):
@@ -134,13 +145,17 @@ class DiffAb:
         kw = dict(generator=generator, device=device)
         u = torch.rand((b, L, self.config.model.aa_vocab_size), **kw)
         tiny = torch.finfo(u.dtype).tiny
-        return StepDraws(
+        draws = StepDraws(
             t=torch.randint(1, self.config.diffusion.T + 1, (b,), **kw),
             mode_u=torch.rand((b,), **kw),
             gumbel=-torch.log(-torch.log(torch.clamp(u, min=tiny))),
             coord=torch.randn((b, L, 3), **kw),
             orientation=AxisAngleNoise.draw((b, L), generator, torch.float32, device),
         )
+        if not self.config.model.self_conditioning:
+            return draws
+        shape = (b, L) if self.config.train.sc_per_residue else (b,)
+        return draws._replace(sc_u=torch.rand(shape, **kw))
 
     # ------------------------------------------------------------------
     def add_noise(self, batch: ProteinBatch, draws: StepDraws,
@@ -162,10 +177,21 @@ class DiffAb:
                             seq_posterior=seq_posterior, translations_t=translations_t,
                             translations_eps=eps, orientations_t=orientations_t)
 
-    def loss_fn(self, params: Params, batch: ProteinBatch, draws: StepDraws):
-        """One loss evaluation (JAX `DiffAb.loss_fn` without
-        self-conditioning): mode dropout, noise, encode, denoise, losses.
-        Returns (loss, metrics)."""
+    def sc_rate_at(self, step: int | None) -> float:
+        """The self-conditioning rate at `step` (JAX `DiffAb._sc_rate`): 0
+        until sc_onset_steps, then a linear ramp to sc_rate over
+        sc_rate_warmup steps; step None (evaluation) gives sc_rate."""
+        t = self.config.train
+        if step is None or (t.sc_onset_steps == 0 and t.sc_rate_warmup == 0):
+            return t.sc_rate
+        prog = (step - t.sc_onset_steps) / max(t.sc_rate_warmup, 1)
+        return t.sc_rate * min(max(prog, 0.0), 1.0)
+
+    def loss_fn(self, params: Params, batch: ProteinBatch, draws: StepDraws,
+                step: int | None = None):
+        """One loss evaluation (JAX `DiffAb.loss_fn`): mode dropout, noise,
+        encode, denoise (twice for a self-conditioned model, whose schedule
+        reads `step`), losses.  Returns (loss, metrics)."""
         p = self.config.train.mode_dropout
         struct_visible = seq_visible = seq_gen = struct_gen = None
         if p > 0.0:
@@ -175,26 +201,43 @@ class DiffAb:
             seq_gen = batch.generation_mask & ~seq_visible[:, None]
             struct_gen = batch.generation_mask & ~struct_visible[:, None]
         noised = self.add_noise(batch, draws, seq_gen, struct_gen)
+        kwargs = dict(structure_visible=struct_visible, sequence_visible=seq_visible)
+        sc_mask = None
+        if self.config.model.self_conditioning:
+            if draws.sc_u is None:
+                raise ValueError("a self-conditioned model's StepDraws need sc_u")
+            sc_mask = draws.sc_u < self.sc_rate_at(step)
+            if struct_visible is not None:
+                # no structure estimate where the geometry is given
+                sv = struct_visible[:, None] if sc_mask.ndim == 2 else struct_visible
+                sc_mask = sc_mask & ~sv
+            kwargs["self_condition"] = lambda first: dict(
+                sc_translations_x0=coordinate.predicted_x0(
+                    self.sched, noised.translations_t, first["translations_eps"], draws.t),
+                sc_seq_probs=first["seq_posterior"], sc_mask=sc_mask)
         denoised = functional_call(
             self.model, params,
             (batch, noised.seq_idx_t, noised.translations_t, noised.orientations_t,
-             noised.beta),
-            dict(structure_visible=struct_visible, sequence_visible=seq_visible))
+             noised.beta), kwargs)
         seq_log_posterior_pred = sequence.log_posterior_from_predicted_t0(
             self.sched, noised.seq_idx_t, denoised["seq_posterior"], draws.t,
             batch.generation_mask if seq_gen is None else seq_gen)
+        seq_w = None
+        if sc_mask is not None and self.config.train.sc_seq_loss_weight != 1.0:
+            seq_w = torch.where(sc_mask, self.config.train.sc_seq_loss_weight, 1.0)
         losses = diffab_losses(
             denoised, seq_log_posterior_pred, noised.seq_posterior,
             noised.translations_eps, batch.orientations, batch.generation_mask,
             batch.residue_mask, seq_idx_t0_true=batch.seq_idx,
             seq_ce_weight=self.config.train.seq_ce_weight,
-            seq_gen_mask=seq_gen, struct_gen_mask=struct_gen)
+            seq_sample_weight=seq_w, seq_gen_mask=seq_gen, struct_gen_mask=struct_gen)
         return losses["loss"], losses
 
-    def loss_and_grads(self, params: Params, batch: ProteinBatch, draws: StepDraws):
+    def loss_and_grads(self, params: Params, batch: ProteinBatch, draws: StepDraws,
+                       step: int | None = None):
         """(loss, metrics, gradients by parameter name); a parameter the loss
         does not reach gets zeros, as under jax.grad."""
-        loss, metrics = self.loss_fn(params, batch, draws)
+        loss, metrics = self.loss_fn(params, batch, draws, step)
         names = list(params)
         grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True,
                                     materialize_grads=True)
@@ -264,10 +307,10 @@ class DiffAb:
                           ema_params=state.ema_params)
 
     def train_step(self, state: TrainState, batch: ProteinBatch, draws: StepDraws):
-        """Loss and gradients on the pre-update parameters, then the update.
-        Returns (state, {"train/...": 0-dim tensor}); reading a metric waits
-        for the card."""
-        _, metrics, grads = self.loss_and_grads(state.params, batch, draws)
+        """Loss and gradients on the pre-update parameters, then the update;
+        the self-conditioning schedule reads state.step.  Returns (state,
+        {"train/...": 0-dim tensor}); reading a metric waits for the card."""
+        _, metrics, grads = self.loss_and_grads(state.params, batch, draws, state.step)
         state = self.apply_gradients(state, grads)
         return state, {f"train/{k}": v.detach() for k, v in metrics.items()}
 
@@ -282,6 +325,7 @@ class DiffAb:
 
     @torch.no_grad()
     def eval_step(self, params: Params, batch: ProteinBatch, draws: StepDraws):
+        """The loss without gradients; self-conditioning at the full rate."""
         _, metrics = self.loss_fn(params, batch, draws)
         return {f"val/{k}": v for k, v in metrics.items()}
 

@@ -14,7 +14,9 @@ count of generated-and-valid residues (at least 1).
 
 Mode dropout trains a sample as fix-structure or fix-sequence: the
 per-modality masks `struct_gen_mask` / `seq_gen_mask` then drop the
-supervision of the modality that was visible.
+supervision of the modality that was visible.  `seq_sample_weight` (b,)
+or (b, L) re-weights the sequence terms (KL and cross-entropy) only, as a
+weighted mean (the self-conditioning schedule's sc_seq_loss_weight).
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ def diffab_losses(
     residue_mask,  # (b, L) bool
     seq_idx_t0_true=None,  # (b, L), for the cross-entropy term
     seq_ce_weight: float = 0.0,
+    seq_sample_weight=None,  # (b,) or (b, L): weight of the sequence terms
     seq_gen_mask=None,  # (b, L): positions of the sequence terms
     struct_gen_mask=None,  # (b, L): positions of the geometry terms
 ) -> Dict[str, torch.Tensor]:
@@ -66,6 +69,9 @@ def diffab_losses(
     loss_mask = (struct_gen_mask & residue_mask).to(f32)
     denom = torch.clamp(loss_mask.sum(), min=1.0)
     seq_mask = (seq_gen_mask & residue_mask).to(f32)
+    if seq_sample_weight is not None:
+        w = seq_sample_weight.to(f32)
+        seq_mask = seq_mask * (w if w.ndim == 2 else w[:, None])
     seq_denom = torch.clamp(seq_mask.sum(), min=1.0)
 
     seq_elem = kl_divergence_from_log_probs(seq_log_posterior_pred, seq_posterior_true)

@@ -10,7 +10,9 @@ iterable of ProteinBatch: a list is replayed for `epochs` epochs, a
 one-shot iterator runs once.  Every input goes through one loop body.
 Each step's random numbers come from a generator on the harness's device
 seeded with (seed, step), so the loader path, the pool path and a resumed
-run draw the same numbers at the same step.
+run draw the same numbers at the same step.  Each step trains at its
+state's step, which the self-conditioning schedule reads; validation runs
+at the schedule's full rate.
 """
 
 from __future__ import annotations

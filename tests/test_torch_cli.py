@@ -9,8 +9,10 @@ in every string and count and within 1e-5 in every number (the same
 float32 metrics).
 """
 
+import dataclasses
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +31,7 @@ from diffab_pytorch_tpu.structure.relax import relax_ca as jrelax
 from diffab_pytorch_tpu_torch import config as tconfig
 from diffab_pytorch_tpu_torch.cli import evaluate as tevaluate
 from diffab_pytorch_tpu_torch.cli import sample as tsample
+from diffab_pytorch_tpu_torch.cli import train as ttrain
 from diffab_pytorch_tpu_torch.constants import AA_THREE, THREE_TO_ONE
 from diffab_pytorch_tpu_torch.data.dataset import assemble_batch
 from diffab_pytorch_tpu_torch.geometry import so3
@@ -220,11 +223,42 @@ def test_unported_flags_raise(work, flag):
                       "--device", "cpu"])
 
 
-def test_self_conditioning_checkpoint_raises(work, tmp_path):
-    ck = str(tmp_path / "sc")
-    ckpt.save_model_config(ck, tconfig.ModelConfig(self_conditioning=True))
-    with pytest.raises(NotImplementedError, match="A11"):
-        tsample.main(["--patch", work["patch"], "--checkpoint-dir", ck, "--device", "cpu"])
+def test_sample_cli_reads_a_self_conditioned_checkpoint(work, tmp_path, monkeypatch, capsys):
+    """`cli.train --self-conditioning --sc-split-trunk` writes a checkpoint
+    (two steps on copies of the fixture's patch); `cli.sample --device cpu`
+    rebuilds the recorded split-trunk model from it and its designs are
+    the harness's with the same weights, options and seed."""
+    data, ck = tmp_path / "patches", str(tmp_path / "sc")
+    data.mkdir()
+    for i in range(2):
+        shutil.copy(work["patch"], data / f"p{i}.npz")
+    assert ttrain.main(["--data-dir", str(data), "--tiny", "--device", "cpu", "--max-steps",
+                        "2", "-b", "2", "--val-pct", "0", "--checkpoint-dir", ck,
+                        "--self-conditioning", "--sc-split-trunk"]) == 0
+    saved = ckpt.load_model_config(ck)
+    assert saved.self_conditioning and saved.sc_split_trunk
+    written = []
+    real = tsample.write_designs
+    monkeypatch.setattr(tsample, "write_designs",
+                        lambda out, result, *a, **kw: (written.append(result),
+                                                       real(out, result, *a, **kw)))
+    capsys.readouterr()
+    assert tsample.main(["--patch", work["patch"], "--checkpoint-dir", ck, "-n", "2", "-o",
+                         str(tmp_path / "d"), "-s", "3", "--device", "cpu"]) == 0
+    assert "recorded model config (self-conditioning)" in capsys.readouterr().out
+
+    cfg = dataclasses.replace(tconfig.tiny_config(), model=saved)
+    harness = DiffAb(cfg, device="cpu")
+    batch, _ = assemble_batch([load_patch(work["patch"])], cdrs_to_generate=["H3"],
+                              device="cpu")
+    params, step = ckpt.restore_params(ck)
+    assert step == 2
+    want = harness.sample(params, batch, generator=torch.Generator().manual_seed(3),
+                          n_designs=2, noise_t_max=cfg.diffusion.T // 2)
+    (got,) = written
+    assert torch.equal(got.seq_idx, want.seq_idx)
+    assert torch.equal(got.translations, want.translations)
+    assert torch.equal(got.orientations, want.orientations)
 
 
 def test_clis_need_the_card_unless_told(work, monkeypatch, tmp_path):

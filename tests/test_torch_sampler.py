@@ -30,6 +30,7 @@ from diffab_pytorch_tpu.diffusion.schedule import cosine_variance_schedule as js
 from diffab_pytorch_tpu.geometry import so3 as jso3
 from diffab_pytorch_tpu.models.diffab import DiffAbModel as JaxModel
 from diffab_pytorch_tpu.models.ipa import precompute_pair_biases
+from diffab_pytorch_tpu.sampling import sampler as jsampler
 
 from diffab_pytorch_tpu_torch import config as tconfig
 from diffab_pytorch_tpu_torch.data.batch import ProteinBatch, synthetic_batch_numpy
@@ -183,18 +184,50 @@ def test_sample_runs_on_the_card_by_default(arrays, port_setup, monkeypatch):
         DiffAbModel(tconfig.tiny_config().model)
 
 
-@pytest.mark.parametrize("option,value", [("sc_t_max", 5)])
-def test_unported_options_raise(arrays, port_setup, option, value):
-    """Self-conditioning (A11) is the one part of the JAX sampler not
-    ported: its sampling knob and the model flag raise.  The few-step
-    options run; tests/test_torch_fewstep.py holds each against JAX."""
+@pytest.mark.parametrize("sc_t_max", [5])
+def test_sc_t_max_matches_jax(arrays, port_setup, sc_t_max):
+    """A self-conditioned model's chain gated by sc_t_max: the JAX
+    `sample()` against the port's with the JAX draws injected (N designs;
+    tests/test_torch_selfcond.py holds the other variants and options)."""
+    jcfg = dataclasses.replace(jconfig.tiny_config().model, self_conditioning=True)
+    jm = JaxModel(jcfg)
+    jb = JaxBatch(**{k: jnp.asarray(v.astype(np.int32) if v.dtype.kind in "iu" else v)
+                     for k, v in arrays.items()})
+    params = jax.device_get(jax.jit(jm.init)(jax.random.key(0), jb, jb.seq_idx,
+                                             jb.translations, jb.orientations, jnp.zeros((B,))))
+    js = jsched(T, s=0.01)
+    key = jax.random.key(4)
+    want = jsampler.sample(jm, params, js, jorient.make_orientation_tables(js), jb, key,
+                           n_designs=N, sc_t_max=sc_t_max)
+    # the JAX sampler's key schedule from the prior
+    bn = B * N
+    k_init, k_loop = jax.random.split(key)
+    ks, kx, kr = jax.random.split(k_init, 3)
+    init = InitNoise(seq=t_(jax.random.randint(ks, (bn, L), 0, 21)).long(),
+                     coord=t_(jax.random.normal(kx, (bn, L, 3))),
+                     rot_prior=t_(jax.random.normal(kr, (bn, L, 4))))
+    noise = {}
+    for t in range(T, 0, -1):
+        k1, k2, k3 = jax.random.split(jax.random.fold_in(k_loop, t), 3)
+        k_axis, k_theta = jax.random.split(k3)
+        k_bin, k_gauss = jax.random.split(k_theta)
+        noise[t] = StepNoise(gumbel=t_(jax.random.gumbel(k1, (bn, L, 21))),
+                             coord=t_(jax.random.normal(k2, (bn, L, 3))),
+                             orientation=AxisAngleNoise(
+                                 axis=t_(jax.random.normal(k_axis, (bn, L, 3))),
+                                 uniform=t_(jax.random.uniform(k_bin, (bn, L))),
+                                 normal=t_(jax.random.normal(k_gauss, (bn, L)))))
+    tm = load_jax_params(DiffAbModel(tconfig.ModelConfig(**{
+        f.name: getattr(jcfg, f.name) for f in dataclasses.fields(tconfig.ModelConfig)}),
+        device="cpu"), params)
     ts, tt = port_setup
-    with pytest.raises(NotImplementedError):
-        sample(None, ts, tt, ProteinBatch.from_numpy(arrays), device="cpu",
-               **{option: value})
-    with pytest.raises(NotImplementedError):
-        DiffAbModel(dataclasses.replace(tconfig.tiny_config().model,
-                                        self_conditioning=True), device="cpu")
+    got = sample(tm, ts, tt, ProteinBatch.from_numpy(arrays), device="cpu", n_designs=N,
+                 sc_t_max=sc_t_max, init_noise=init, step_noise=noise.__getitem__)
+    np.testing.assert_array_equal(got.seq_idx.numpy(), np.asarray(want.seq_idx))
+    np.testing.assert_allclose(got.translations.numpy(), np.asarray(want.translations),
+                               atol=1e-3)
+    np.testing.assert_allclose(got.orientations.numpy(), np.asarray(want.orientations),
+                               atol=1e-3)
 
 
 def test_reference_option_defaults_run(arrays, port_setup):

@@ -121,7 +121,7 @@ def test_configs_match_jax():
         assert port_config(jc) == tc
     dropped = {f.name for f in dataclasses.fields(jconfig.TrainConfig)} - {
         f.name for f in dataclasses.fields(tconfig.TrainConfig)}
-    assert all(n.startswith("sc_") for n in dropped)
+    assert dropped == set()
 
 
 @pytest.mark.parametrize("modality", ["sequence", "coordinate", "orientation"])

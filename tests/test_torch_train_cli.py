@@ -1,9 +1,8 @@
 """The port's training CLI against the JAX package's, on the CPU: the
-configuration its flags resolve to (field by field, the JAX config's
-self-conditioning fields aside), the flags that are not ported yet, the
-card by default, and the whole path a user runs: `cli.preprocess` ->
-`cli.train --device cpu` -> `cli.sample --device cpu` from that
-checkpoint.
+configuration its flags resolve to (field by field, the self-conditioning
+flags too), the flags that are not ported yet, the card by default, and
+the whole path a user runs: `cli.preprocess` -> `cli.train --device cpu`
+-> `cli.sample --device cpu` from that checkpoint.
 """
 
 import dataclasses
@@ -64,14 +63,25 @@ def test_build_config_matches_jax(flags, horizon):
         assert getattr(got, part) == getattr(want, part), part
 
 
-@pytest.mark.parametrize("flag", [["--self-conditioning"], ["--sc-geometry-only"],
-                                  ["--sc-late-fusion"], ["--sc-split-trunk"],
-                                  ["--sc-rate", "0.3"], ["--sc-onset", "10"],
-                                  ["--sc-rate-warmup", "5"], ["--sc-seq-loss-weight", "0.5"],
-                                  ["--sc-per-residue"], ["--data-parallel"], ["--multihost"]])
+SC_FLAGS = [["--self-conditioning"], ["--sc-geometry-only"], ["--sc-late-fusion"],
+            ["--sc-split-trunk"], ["--sc-rate", "0.3"], ["--sc-onset", "10"],
+            ["--sc-rate-warmup", "5"], ["--sc-seq-loss-weight", "0.5"], ["--sc-per-residue"]]
+
+
+@pytest.mark.parametrize("flag", SC_FLAGS, ids=lambda f: " ".join(f))
+def test_sc_flags_build_the_jax_config(flag):
+    """Each self-conditioning flag alone (the model flags then change
+    nothing, as in JAX), with --self-conditioning, and under --production."""
+    for extra in ([], ["--self-conditioning"], ["--production", "--self-conditioning"]):
+        argv = ["--data-dir", "x", *extra, *flag]
+        want = port_config(jtrain.build_config(jtrain.parse_args(argv), horizon=50))
+        got = ttrain.build_config(ttrain.parse_args(argv), horizon=50)
+        assert got == want, argv
+
+
+@pytest.mark.parametrize("flag", [["--data-parallel"], ["--multihost"]])
 def test_unported_flags_raise(tmp_path, flag):
-    item = "A14" if flag[0] in ("--data-parallel", "--multihost") else "A11"
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="A14"):
         ttrain.main(["--data-dir", str(tmp_path), "--device", "cpu", *flag])
 
 
