@@ -80,7 +80,25 @@ Phases (any failure raises and the script exits non-zero):
      `cli.train --production --self-conditioning
      --sc-split-trunk --sc-onset 2 --sc-rate-warmup 4 --max-steps 8` on
      [data]'s patches and `cli.sample -n 16` from its checkpoint;
-  14. a `kernels` JSON line, the card line, and the final JSON line.
+  14. [parallel]: data parallelism.  (a) NCCL at world size 1 in this
+     process: make_dp_train_step at production_config(), batch 32, bitwise
+     against train_step for 3 steps from the end of the warmup (both under
+     deterministic algorithms),
+     20 timed steps of each, the all_reduce's device ms and bytes, device
+     events a step; sample_fanout_sharded (128 designs, T=100) and
+     score_fanout_sharded equal to sample() and score_designs(); (e) the
+     IPA layer's plain branch (no pair bias; pq != pv) card vs CPU; (b) two
+     ranks sharing the card over gloo (processes started with
+     --parallel-worker; NCCL refuses two ranks on one card): 3 DP steps at
+     2 x 16 rows and one at fuse_ipa_layer=False, from the end of the
+     warmup and under deterministic algorithms, against a host loop, the
+     ranks' states bit-identical after every step, a 2 x 64 fan-out
+     against the host loop's rows; (c) `cli.train --production
+     --data-parallel` under `torch.distributed.run --nproc-per-node 1`
+     (--run-clis) against `cli.train` without the flag (checkpoints
+     bitwise equal), then `cli.sample --data-parallel --rank -n 16`; (d)
+     one rank per card over NCCL where there is more than one card;
+  15. a `kernels` JSON line, the card line, and the final JSON line.
 
 The L = 128 kernel times (phase 7) run where they ran before the long-patch
 and few-step phases existed, so that two versions of this script read them
@@ -93,11 +111,13 @@ Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -590,14 +610,15 @@ class RecordingLogger:
               f"orient {row['train/orientations_loss']:.4f})")
 
 
-def profile_device(torch, fn, wall_s, label, top=12, sum_of=()):
+def profile_device(torch, fn, wall_s, label, top=12, sum_of=(), return_events=False):
     """Device time by kernel over one call of fn (torch.profiler), and the
     idle share of an unprofiled call of wall_s seconds (None: no idle
     share).  Only device-side events (kernels, copies) are traced and
     summed: recording the CPU ops as well gives the same device rows, and
     reading them back took longer than the profiled call.  sum_of: kernel
     names whose events and ms are also printed as one sum.  Returns the
-    device busy ms (None when the profiler reported none)."""
+    device busy ms (None when the profiler reported none), with
+    return_events (busy ms, device events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -632,9 +653,11 @@ def profile_device(torch, fn, wall_s, label, top=12, sum_of=()):
             mine = [r for r in rows if any(name in r[1] for name in sum_of)]
             print(f"[profile]   {' + '.join(sum_of)}: {sum(r[0] for r in mine) / 1e3:.3f} ms in "
                   f"{sum(r[2] for r in mine)} launches")
+        if return_events:
+            return busy_us / 1e3, sum(r[2] for r in rows)
         return busy_us / 1e3
     print(f"[profile] {label}: device time not measured (profiler reported none)")
-    return None
+    return (None, None) if return_events else None
 
 
 def denoiser_calls(t_seq, opts):
@@ -2013,6 +2036,568 @@ def selfcond_phase(torch, card, patches, tmp, train_rate, designs_rate):
     return launches
 
 
+# ---- [parallel]: data parallelism ----------------------------------------------------
+
+PAR_STEPS = 3  # DP training steps held against their reference in (a) and (b)
+PAR_TIMED = 20  # (a): timed steps after PAR_STEPS warm-up steps, DP and plain
+PAR_LOCAL = 64  # (b), (d): designs of the fan-out on each rank
+PAR_CLI_STEPS = 4  # (c): cli.train steps (an epoch of [data]'s patches is 7)
+PAR_CLI_DESIGNS = 16
+PAR_BATCH = 32  # production_config()'s batch, split over the ranks
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """Deterministic algorithms on: the scatter and index backward passes
+    otherwise sum with atomics, so two runs of one training step part in
+    their last bits (PERF.md §7) and no two runs can be held bitwise.
+    Uninitialized memory is left unfilled, as outside this mode, and
+    cuBLAS gets the workspace setting the mode asks for."""
+    import torch.utils.deterministic as det
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    fill = det.fill_uninitialized_memory
+    det.fill_uninitialized_memory = False
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        det.fill_uninitialized_memory = fill
+
+
+def k_launches():
+    """(K1, K2) launch counts so far."""
+    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+
+    return op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches
+
+
+def zero_launches():
+    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+
+    op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
+
+
+def par_train_setup(torch, device, fuse=None):
+    """production_config() (fuse_ipa_layer `fuse`) on `device` and [train]'s
+    synthetic batch of 32 L=128 patches."""
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
+    from diffab_pytorch_tpu_torch.train.harness import DiffAb
+
+    pcfg = C.production_config()
+    pcfg = dataclasses.replace(pcfg, model=dataclasses.replace(pcfg.model, fuse_ipa_layer=fuse))
+    batch = synthetic_batch(100, pcfg.train.batch_size, L_MAIN, pcfg.model.n_atoms,
+                            device=device)
+    return DiffAb(pcfg, device=device), batch
+
+
+def par_draws(torch, harness, rows, step, rank):
+    """Rank `rank`'s draws for its rows at `step`, from a generator on the
+    rows' device seeded by (step, rank): the same numbers in any process."""
+    gen = torch.Generator(device=rows.seq_idx.device).manual_seed(700 + 10 * step + rank)
+    return harness.draw(rows, gen)
+
+
+def par_state(harness):
+    """harness.init(0) at the end of the learning-rate warmup (its step and
+    update count), so that every compared step updates at the full rate:
+    at production_config()'s step 0 the rate is 0, and a comparison of the
+    parameters after it could not fail."""
+    state = harness.init(0)
+    warm = harness.config.train.lr_warmup_steps
+    return dataclasses.replace(state, step=warm, opt_state=state.opt_state._replace(count=warm))
+
+
+def par_fan_setup(torch, device):
+    """default_config() in bf16 from a seeded init on `device`, and [main]'s
+    synthetic 128-residue target."""
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
+    from diffab_pytorch_tpu_torch.train.harness import DiffAb
+
+    cfg = C.default_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                             compute_dtype="bfloat16"))
+    fan = DiffAb(cfg, device=device)
+    fan.init(0)  # the model's own weights
+    target = synthetic_batch(0, 1, L_MAIN, cfg.model.n_atoms, n_generate=N_GENERATE,
+                             device=device)
+    return fan, target
+
+
+def leaf_rel(a: dict, b: dict) -> float:
+    """max over leaves of max |a - b| over the leaf's scale (max |b|, at least 1)."""
+    return max(float((a[k].detach().float() - v.detach().float()).abs().max()
+                     / v.detach().float().abs().max().clamp(min=1.0)) for k, v in b.items())
+
+
+def parallel_one_rank(torch, card, train_rate, designs_rate):
+    """[parallel] (a): NCCL, world size 1, in this process (a TCP store on
+    a free port).  make_dp_train_step at production_config(), batch 32,
+    L=128, against harness.train_step with the same draws for PAR_STEPS
+    steps from the end of the warmup (`par_state`), bitwise (loss,
+    metrics, parameters, EMA), both under deterministic(); then PAR_STEPS + PAR_TIMED steps of each timed
+    (steps/s), the all_reduce's device ms a step (CUDA events around it,
+    5 more steps) and its bytes, one profiled step of each (device events).
+    sample_fanout_sharded (128 designs, default_config() bf16, T=100)
+    against sample() from the same generator: rows equal, designs/s of
+    each; score_fanout_sharded against score_designs: equal.  Returns
+    {path: (K1, K2)}."""
+    import torch.distributed as dist
+
+    from diffab_pytorch_tpu_torch.parallel.dp import (
+        make_dp_train_step, sample_fanout_sharded, score_fanout_sharded)
+    from diffab_pytorch_tpu_torch.sampling.scoring import default_t_grid
+
+    tag = "[parallel] (a)"
+    launches = {}
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.TCPStore("127.0.0.1", 0, 1, True), rank=0,
+                            world_size=1)
+    try:
+        harness, batch = par_train_setup(torch, "cuda")
+        step = make_dp_train_step(harness)
+        draws = lambda s: par_draws(torch, harness, batch, s, 0)
+        with deterministic(torch):
+            dp_state, state = par_state(harness), par_state(harness)
+            equal, losses, lrs, dp_launches = [], [], [], (0, 0)
+            for s in range(PAR_STEPS):
+                d = draws(s)
+                lrs.append(harness.learning_rate(state.opt_state.count))
+                before = k_launches()
+                dp_state, m_dp = step(dp_state, batch, d)
+                losses.append(round(float(m_dp["train/loss"]), 4))
+                torch.cuda.synchronize()
+                dp_launches = tuple(a + c - b for a, b, c in zip(dp_launches, before,
+                                                                  k_launches()))
+                state, m = harness.train_step(state, batch, d)
+                equal.append(all(torch.equal(m_dp[k], m[k]) for k in m)
+                             and all(torch.equal(dp_state.params[k], state.params[k])
+                                     and torch.equal(dp_state.ema_params[k], state.ema_params[k])
+                                     for k in state.params))
+        n_params = sum(v.numel() for v in state.params.values())
+        want = (PAR_STEPS * layer_calls(harness.config.model), 0)
+        print(f"{tag} NCCL world size 1: make_dp_train_step vs train_step, production_config() "
+              f"(bf16, batch 32, L={L_MAIN}), {PAR_STEPS} steps with the same draws under "
+              f"deterministic algorithms: loss, metrics, parameters and EMA bitwise equal by "
+              f"step {equal}; lr by step {lrs}; losses {losses}; DP launches "
+              f"K1, K2 {dp_launches} (expected {want})")
+        if not all(equal) or dp_launches != want or min(lrs) <= 0:
+            raise RuntimeError(f"{tag} the one-rank DP step is not the single-device step")
+        launches["parallel_dp_step_1rank"] = dp_launches
+
+        def timed(fn, st):
+            for s in range(PAR_STEPS):
+                st, _ = fn(st, batch, draws(100 + s))
+            torch.cuda.synchronize()
+            zero_launches()
+            t0 = time.perf_counter()
+            for s in range(PAR_TIMED):
+                st, m = fn(st, batch, draws(200 + s))
+            torch.cuda.synchronize()
+            return PAR_TIMED / (time.perf_counter() - t0), k_launches(), st, float(m["train/loss"])
+        rate_plain, _, state, _ = timed(harness.train_step, state)
+        rate_dp, dp_counts, dp_state, loss = timed(step, dp_state)
+        launches["parallel_dp_train_1rank"] = dp_counts
+        real, spans = dist.all_reduce, []
+
+        def all_reduce(t, *a, **k):
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev[0].record()
+            out = real(t, *a, **k)
+            ev[1].record()
+            spans.append((ev, t.numel() * t.element_size()))
+            return out
+        dist.all_reduce = all_reduce
+        try:
+            for s in range(5):
+                dp_state, _ = step(dp_state, batch, draws(300 + s))
+            torch.cuda.synchronize()
+        finally:
+            dist.all_reduce = real
+        ar_ms = sorted(a.elapsed_time(b) for (a, b), _ in spans)
+        nbytes = spans[0][1]
+        busy_plain, ev_plain = profile_device(
+            torch, lambda: harness.train_step(state, batch, draws(400)), 1 / rate_plain,
+            f"{tag} one plain training step", top=4, return_events=True)
+        busy_dp, ev_dp = profile_device(
+            torch, lambda: step(dp_state, batch, draws(401)), 1 / rate_dp,
+            f"{tag} one DP training step (1 rank)", top=6, return_events=True)
+        print(f"{tag} {PAR_TIMED} steps after {PAR_STEPS}: DP {rate_dp:.3f} steps/s, plain "
+              f"train_step {rate_plain:.3f} steps/s (ratio {rate_dp / rate_plain:.3f}; [train] "
+              f"earlier {train_rate:.3f}) on {card}; DP launches K1, K2 {dp_counts}; all_reduce "
+              f"of {n_params} parameters + metrics = {nbytes} bytes: device ms per step median "
+              f"{ar_ms[len(ar_ms) // 2]:.4f} (min {ar_ms[0]:.4f}, max {ar_ms[-1]:.4f}); device "
+              f"events per step DP {ev_dp} vs plain {ev_plain} "
+              f"(+{(ev_dp or 0) - (ev_plain or 0)}), busy ms {busy_dp} vs {busy_plain}; "
+              f"loss {loss:.4f}")
+        if dp_counts != (PAR_TIMED * layer_calls(harness.config.model), 0):
+            raise RuntimeError(f"{tag} DP steps launched K1, K2 {dp_counts}")
+
+        fan, target = par_fan_setup(torch, "cuda")
+        gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
+        fan.sample(None, target, gen(6), n_designs=N_DESIGNS)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = fan.sample(None, target, gen(7), n_designs=N_DESIGNS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        zero_launches()
+        rows = sample_fanout_sharded(fan, None, target, gen(7), None, N_DESIGNS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches["parallel_fanout_1rank"] = k_launches()
+        zero_launches()
+        scores = score_fanout_sharded(fan, None, target, rows, gen(8))
+        torch.cuda.synchronize()
+        launches["parallel_score_1rank"] = k_launches()
+        plain_scores = fan.score_designs(None, target, plain, gen(8))
+        same_rows = all(torch.equal(a, b) for a, b in zip(rows[:3], plain[:3]))
+        same_scores = all(torch.equal(a, b) for a, b in zip(scores, plain_scores))
+        mcfg = fan.config.model
+        want_fan = (layer_calls(mcfg, fan.config.diffusion.T), 0)
+        want_score = (layer_calls(mcfg, 2 * len(default_t_grid(fan.config.diffusion.T))), 0)
+        print(f"{tag} sample_fanout_sharded({N_DESIGNS} designs, default_config() bf16, "
+              f"T={fan.config.diffusion.T}, L={L_MAIN}) vs sample() from the same generator: "
+              f"rows equal {same_rows}; {N_DESIGNS / (t2 - t1):.2f} designs/s vs "
+              f"{N_DESIGNS / (t1 - t0):.2f} ([main] earlier {designs_rate:.2f}) on {card}; "
+              f"launches K1, K2 {launches['parallel_fanout_1rank']} (expected {want_fan}); "
+              f"score_fanout_sharded vs score_designs: equal {same_scores}, launches "
+              f"{launches['parallel_score_1rank']} (expected {want_score})")
+        if not (same_rows and same_scores and launches["parallel_fanout_1rank"] == want_fan
+                and launches["parallel_score_1rank"] == want_score):
+            raise RuntimeError(f"{tag} the one-rank fan-out or scores differ from sample() / "
+                               f"score_designs()")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def plain_ipa_card_vs_cpu(torch):
+    """[parallel] (e): the IPA layer's plain branch (no kernel: pair bias
+    off, or pq != pv) on the card against the CPU, default_config() widths
+    in float32, 8 designs of 2 targets at L=128 (16 padded residues).
+    Tolerance 1e-4 of the output's scale; neither kernel may launch."""
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
+    from diffab_pytorch_tpu_torch.models.ipa import InvariantPointAttentionLayer
+    from diffab_pytorch_tpu_torch.weights import init_parameters
+
+    base = C.default_config().model
+    b = synthetic_batch(3, 8, L_MAIN, base.n_atoms)
+    mask = b.residue_mask.clone()
+    mask[:, -16:] = False
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn((8, L_MAIN, base.d_residue_emb), generator=gen)
+    pair = torch.randn((2, L_MAIN, L_MAIN, base.d_pair_emb), generator=gen)
+    ok, pq = True, base.n_query_point_per_head
+    for name, fields in (("no pair bias", dict(use_pair_bias=False)),
+                         (f"pq={pq} != pv={pq // 2}", dict(n_value_point_per_head=pq // 2))):
+        layer = init_parameters(InvariantPointAttentionLayer(dataclasses.replace(base, **fields)),
+                                torch.Generator().manual_seed(1))
+        args = (x, pair, b.orientations, b.translations, mask)
+        with torch.no_grad():
+            want = layer(*args)
+            zero_launches()
+            got = layer.to("cuda")(*(a.to("cuda") for a in args)).cpu()
+        rel = float((got - want).abs().max() / want.abs().max())
+        good = rel <= 1e-4 and k_launches() == (0, 0) and not layer.use_kernel
+        ok = ok and good
+        print(f"[parallel] (e) IPA layer's plain branch, {name}, card vs CPU (d=128, h=8, "
+              f"b=8, bp=2, L={L_MAIN}, float32): max |d| / scale {rel:.2e} (tol 1e-4); "
+              f"launches K1, K2 {k_launches()}; {'ok' if good else 'FAILED'}")
+    if not ok:
+        raise RuntimeError("[parallel] (e) the plain IPA branch on the card disagrees with the CPU")
+
+
+def parallel_worker(argv) -> int:
+    """One rank of [parallel] (b) or (d), started by parallel_ranks:
+    chip_smoke.py --parallel-worker RANK WORLD PORT BACKEND OUT_DIR.  The
+    DP step PAR_STEPS times at the K1 flag on its rows from `par_state`
+    under deterministic algorithms (the state checked replicated after
+    each step), one step at fuse_ipa_layer=False (K2),
+    the fan-out of PAR_LOCAL designs a rank; writes what it holds and its
+    launch counts to OUT_DIR/rank<RANK>.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from diffab_pytorch_tpu_torch.parallel.dp import make_dp_train_step, sample_fanout_sharded
+    from diffab_pytorch_tpu_torch.parallel.mesh import batch_sharding, check_replicated, put_global
+
+    rank, world, port, backend, out = int(argv[0]), int(argv[1]), int(argv[2]), argv[3], argv[4]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    store = dist.TCPStore("127.0.0.1", port, world, rank == 0,
+                          timeout=datetime.timedelta(seconds=300))
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world)
+    try:
+        res = {}
+        for fuse, n_steps in ((None, PAR_STEPS), (False, 1)):
+            harness, batch = par_train_setup(torch, device, fuse)
+            rows = put_global(batch, batch_sharding())
+            step, state = make_dp_train_step(harness), par_state(harness)
+            per_step, before = [], k_launches()
+            with deterministic(torch):
+                for s in range(n_steps):
+                    state, m = step(state, rows, par_draws(torch, harness, rows, s, rank))
+                    check_replicated((state.params, state.ema_params))  # raises if ranks differ
+                    per_step.append(({k: float(v) for k, v in m.items()},
+                                     {k: v.detach().to("cpu", copy=True)
+                                      for k, v in state.params.items()}))
+            torch.cuda.synchronize()
+            res[f"train_{fuse}"] = (per_step, tuple(
+                b - a for a, b in zip(before, k_launches())))
+        fan, target = par_fan_setup(torch, device)
+        before = k_launches()
+        rows = sample_fanout_sharded(fan, None, target,
+                                     torch.Generator(device=device).manual_seed(9), None,
+                                     PAR_LOCAL * world)
+        torch.cuda.synchronize()
+        res["fanout"] = ([x.cpu() for x in rows[:3]],
+                         tuple(b - a for a, b in zip(before, k_launches())))
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def parallel_ranks(torch, card, world, backend, tmp, tag):
+    """[parallel] (b) / (d): `world` worker processes (parallel_worker) on
+    `backend`, against the host loop in this process on the card:
+    host_dp_train_step over the same shards and draws, PAR_STEPS steps at
+    the K1 flag and 1 at fuse_ipa_layer=False, from the end of the warmup
+    (`par_state`: every step at a learning rate above 0, printed), both
+    sides under deterministic algorithms, held to 1e-6 of each parameter
+    leaf's scale and 1e-6 of the metrics; the ranks' states were checked
+    bit-identical after every step in the workers; the fan-out's rows equal
+    the host loop's (each rank's sample() of PAR_LOCAL designs from its
+    rank generator, in rank order).  Returns {path: (K1, K2)} of rank 0,
+    with every rank's counts checked equal."""
+    from diffab_pytorch_tpu_torch.parallel.dp import host_dp_train_step, rank_generator
+    from diffab_pytorch_tpu_torch.parallel.mesh import BatchSharding, put_global
+
+    out = os.path.join(tmp, f"ranks_{backend}_{world}")
+    os.makedirs(out, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-worker",
+                               str(r), str(world), str(port), backend, out],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    if any(p.returncode != 0 for p in procs):
+        for r, log in enumerate(logs):
+            print(f"{tag} rank {r} exited {procs[r].returncode}:\n{log[-4000:]}")
+        raise RuntimeError(f"{tag} a worker failed")
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+
+    checks, launches = {}, {}
+    for fuse, n_steps in ((None, PAR_STEPS), (False, 1)):
+        harness, batch = par_train_setup(torch, "cuda", fuse)
+        state = par_state(harness)
+        shards = [put_global(batch, BatchSharding(r, world)) for r in range(world)]
+        d_params, d_metrics, lrs = [], [], []
+        for s in range(n_steps):
+            lrs.append(harness.learning_rate(state.opt_state.count))
+            with deterministic(torch):
+                state, m = host_dp_train_step(
+                    harness, state, shards, [par_draws(torch, harness, x, s, r)
+                                             for r, x in enumerate(shards)])
+            got_m, got_p = ranks[0][f"train_{fuse}"][0][s]
+            d_params.append(leaf_rel(got_p, {k: v.cpu() for k, v in state.params.items()}))
+            d_metrics.append(max(abs(got_m[k] - float(v)) / max(abs(float(v)), 1.0)
+                                 for k, v in m.items()))
+        counts = [r[f"train_{fuse}"][1] for r in ranks]
+        per_step = layer_calls(harness.config.model) * n_steps
+        want = (per_step, 0) if fuse is None else (0, per_step)
+        name = f"train_fuse_{fuse}"
+        checks[name] = max(d_params) <= 1e-6 and max(d_metrics) <= 1e-6 and all(
+            c == want for c in counts) and min(lrs) > 0
+        launches[f"parallel_{backend}{world}_{name}"] = counts[0]
+        print(f"{tag} {world} ranks, {backend}, DP step fuse_ipa_layer={fuse}, {world} x "
+              f"{batch.batch_size // world} rows, {n_steps} steps at lr {lrs} vs the host loop, both "
+              f"under deterministic algorithms: parameters "
+              f"max |d| / scale by step {[f'{v:.2e}' for v in d_params]}, metrics "
+              f"{[f'{v:.2e}' for v in d_metrics]} (tol 1e-6); ranks bit-identical after every "
+              f"step (checked in the workers); launches K1, K2 per rank {counts} (expected "
+              f"{want}); {'ok' if checks[name] else 'FAILED'}")
+    fan, target = par_fan_setup(torch, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    parts = [fan.sample(None, target, rank_generator(gen, r), n_designs=PAR_LOCAL)
+             for r in range(world)]
+    host = [torch.cat([getattr(p, f) for p in parts]).cpu()
+            for f in ("seq_idx", "translations", "orientations")]
+    same = [all(torch.equal(a, b) for a, b in zip(r["fanout"][0], host)) for r in ranks]
+    counts = [r["fanout"][1] for r in ranks]
+    want = (layer_calls(fan.config.model, fan.config.diffusion.T), 0)
+    checks["fanout"] = all(same) and all(c == want for c in counts)
+    launches[f"parallel_{backend}{world}_fanout"] = counts[0]
+    print(f"{tag} {world} ranks, {backend}: sample_fanout_sharded {world} x {PAR_LOCAL} designs "
+          f"(default_config() bf16, T={fan.config.diffusion.T}) vs the host loop's rows in "
+          f"rank order: equal on each rank {same}; launches K1, K2 per rank {counts} (expected "
+          f"{want}); workers' wall {wall:.2f} s (card: {card})")
+    if not all(checks.values()):
+        raise RuntimeError(f"{tag} failed: {checks}")
+    return launches
+
+
+def run_clis(argv) -> int:
+    """[parallel] (c)'s process under torchrun: chip_smoke.py --run-clis
+    MODULE ARGS... [--then MODULE ARGS...]: each module's main() in turn
+    under deterministic(), each followed by a line with its K1 and K2
+    launches."""
+    import runpy
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs, cur = [], []
+    for a in argv:
+        if a == "--then":
+            runs.append(cur)
+            cur = []
+        else:
+            cur.append(a)
+    runs.append(cur)
+    with deterministic(torch):
+        for module, *args in runs:
+            before = k_launches()
+            sys.argv = [module, *args]
+            try:
+                runpy.run_module(module, run_name="__main__", alter_sys=True)
+            except SystemExit as e:
+                if e.code not in (0, None):
+                    raise
+            got = tuple(b - a for a, b in zip(before, k_launches()))
+            print(f"[run-clis] {module} launches K1 {got[0]} K2 {got[1]}", flush=True)
+    return 0
+
+
+def parallel_clis(torch, card, patches, tmp):
+    """[parallel] (c): `cli.train --production --max-steps PAR_CLI_STEPS`
+    in this process, then `cli.train ... --data-parallel` and `cli.sample
+    --data-parallel --rank -n PAR_CLI_DESIGNS` from its checkpoint under
+    `python -m torch.distributed.run --standalone --nproc-per-node 1`
+    (run_clis), both trainings under deterministic(): the two checkpoints
+    are bitwise equal (parameters, moments, EMA); the designs and scores
+    are written once.  Returns {path: (K1, K2)}."""
+    import io
+
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.cli import train as train_cli
+    from diffab_pytorch_tpu_torch.sampling.scoring import default_t_grid
+    from diffab_pytorch_tpu_torch.train import checkpoint as ckpt
+
+    tag = "[parallel] (c)"
+    argv = ["--data-dir", patches, "--production", "--max-steps", str(PAR_CLI_STEPS),
+            "--no-resume"]
+    ck_plain, ck_dp = os.path.join(tmp, "ck_par_plain"), os.path.join(tmp, "ck_par_dp")
+    log = io.StringIO()
+    zero_launches()
+    t0 = time.perf_counter()
+    with deterministic(torch), contextlib.redirect_stdout(log):
+        rc = train_cli.main(argv + ["--checkpoint-dir", ck_plain])
+    torch.cuda.synchronize()
+    plain_s, plain_launches = time.perf_counter() - t0, k_launches()
+
+    patch = os.path.join(patches, sorted(os.listdir(patches))[0])
+    out = os.path.join(tmp, "designs_par")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "1", os.path.abspath(__file__), "--run-clis", "diffab_pytorch_tpu_torch.cli.train",
+           *argv, "--checkpoint-dir", ck_dp, "--data-parallel", "--then",
+           "diffab_pytorch_tpu_torch.cli.sample", "--patch", patch, "--checkpoint-dir", ck_dp,
+           "-n", str(PAR_CLI_DESIGNS), "--rank", "-o", out, "--data-parallel"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=HERE))
+    dp_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:])
+        raise RuntimeError(f"{tag} the torchrun CLIs exited {proc.returncode}")
+    counts = [tuple(int(v) for v in re.findall(r"launches K1 (\d+) K2 (\d+)", line)[0])
+              for line in proc.stdout.splitlines() if line.startswith("[run-clis]")]
+    a, b = (ckpt.restore_checkpoint(d, "cpu") for d in (ck_plain, ck_dp))
+    pairs = ((a.params, b.params), (a.opt_state.mu, b.opt_state.mu),
+             (a.opt_state.nu, b.opt_state.nu), (a.ema_params, b.ema_params))
+    equal = a.step == b.step == PAR_CLI_STEPS and all(
+        set(x) == set(y) and all(torch.equal(x[k].detach(), y[k].detach()) for k in x)
+        for x, y in pairs)
+    pcfg = C.production_config()
+    # rank 0 validates at each epoch end, one K1 call a layer per validation batch
+    n_patches, bsz = len(os.listdir(patches)), pcfg.train.batch_size
+    n_val = int(n_patches * pcfg.train.val_pct)
+    n_evals = PAR_CLI_STEPS // ((n_patches - n_val) // bsz)
+    want_train = (layer_calls(pcfg.model, PAR_CLI_STEPS + n_evals * math.ceil(n_val / bsz)), 0)
+    T = pcfg.diffusion.T
+    want_sample = (layer_calls(C.default_config().model, T + 2 * len(default_t_grid(T))), 0)
+    names = sorted(os.listdir(out)) if os.path.isdir(out) else []
+    checks = {
+        "rc": rc == 0,
+        "checkpoints_equal": equal,
+        "data_parallel": "data-parallel over 1 ranks" in proc.stdout,
+        "launches": plain_launches == want_train and counts == [want_train, want_sample],
+        "designs": names == [f"design_{i:04d}.pdb" for i in range(PAR_CLI_DESIGNS)]
+        + ["designs.fasta", "scores.json"],
+    }
+    print(f"{tag} cli.train {' '.join(argv[2:])} in process {plain_s:.2f} s, launches K1, K2 "
+          f"{plain_launches}; under torchrun --nproc-per-node 1 with --data-parallel, then "
+          f"cli.sample --data-parallel --rank -n {PAR_CLI_DESIGNS}: {dp_s:.2f} s for both, "
+          f"launches {counts} (expected {[want_train, want_sample]}); checkpoints at step "
+          f"{b.step} bitwise equal {equal}; {len(names)} files; checks {checks} (card: {card})")
+    if not all(checks.values()):
+        raise RuntimeError(f"{tag} failed: {checks}")
+    return {"parallel_cli_train": counts[0], "parallel_cli_sample": counts[1]}
+
+
+def parallel_phase(torch, card, patches, tmp, train_rate, designs_rate):
+    """[parallel]: (a) NCCL, world size 1, in process (parallel_one_rank);
+    (e) the IPA layer's plain branch card vs CPU; (b) two ranks on the one
+    card over gloo (NCCL refuses two ranks on one card); (c) the CLIs under
+    torchrun; (d) one rank per card over NCCL when there is more than one
+    card.  Returns {path: (K1, K2)}."""
+    laps = [time.perf_counter()]
+    launches = parallel_one_rank(torch, card, train_rate, designs_rate)
+    laps.append(time.perf_counter())
+    plain_ipa_card_vs_cpu(torch)
+    laps.append(time.perf_counter())
+    launches.update(parallel_ranks(torch, card, 2, "gloo", tmp, "[parallel] (b)"))
+    laps.append(time.perf_counter())
+    launches.update(parallel_clis(torch, card, patches, tmp))
+    laps.append(time.perf_counter())
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1 and PAR_BATCH % n_cards == 0:
+        launches.update(parallel_ranks(torch, card, n_cards, "nccl", tmp, "[parallel] (d)"))
+    else:
+        print(f"[parallel] (d) {n_cards} card(s) on this machine: one rank per card over NCCL "
+              f"needs more than one card (and a batch of {PAR_BATCH} divisible by their count); "
+              f"not run, multi-card scaling not measured")
+    laps.append(time.perf_counter())
+    parts = ("(a) NCCL one rank", "(e) plain IPA", "(b) two ranks gloo", "(c) CLIs",
+             "(d) one rank per card")
+    print(f"[parallel] phase {laps[-1] - laps[0]:.2f} s: " + ", ".join(
+        f"{p} {b_ - a:.2f} s" for p, a, b_ in zip(parts, laps, laps[1:])))
+    return launches
+
+
 def kernel_times(torch, card, pb):
     """Per-launch times at L = 128, the main paths' shapes (b = 128, bp = 1
     and b = bp = pb): K1 in bf16 (also host-paced, and its two launches
@@ -2313,7 +2898,11 @@ def main() -> int:
         launches.update(selfcond_phase(torch, card, os.path.join(tmp, "patches"), tmp,
                                        train_rates[None], designs_per_s))
 
-    # ---- 14. records ---------------------------------------------------------------
+        # ---- 14. data parallelism -------------------------------------------------------------
+        launches.update(parallel_phase(torch, card, os.path.join(tmp, "patches"), tmp,
+                                       train_rates[None], designs_per_s))
+
+    # ---- 15. records ---------------------------------------------------------------
     by_path = lambda i: {path: c[i] for path, c in launches.items()}
     kernels = [{
         "name": "ipa_fused_layer",
@@ -2370,4 +2959,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        sys.exit(parallel_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--run-clis"]:
+        sys.exit(run_clis(sys.argv[2:]))
     sys.exit(main())

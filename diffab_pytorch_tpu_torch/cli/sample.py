@@ -15,6 +15,15 @@ Modes: codesign (default), fix-sequence (structure only), fix-structure
 (sequence only), --t-restart T' (optimization by renoising from T' < T).
 Sampling, scoring and the loop relaxation run on the card unless --device
 names another; the rest of the post-processing is host numpy.
+
+--data-parallel fans the designs out over the ranks of `python -m
+torch.distributed.run` (--standalone --nproc-per-node <cards>; each rank
+takes cuda:LOCAL_RANK, NCCL; with --device cpu, gloo): each rank samples
+n / ranks designs sharing one context, the rows are gathered to rank 0 in
+rank order, and only rank 0 scores, relaxes and writes.  --multihost is
+the same code across nodes; without --data-parallel every rank samples
+all n and rank 0 writes.  Without torchrun's environment either flag runs
+as a one-rank group.
 """
 
 from __future__ import annotations
@@ -26,10 +35,13 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from diffab_pytorch_tpu_torch.config import default_config, resolve_device, tiny_config
 from diffab_pytorch_tpu_torch.constants import AA_THREE, THREE_TO_ONE
 from diffab_pytorch_tpu_torch.data.dataset import COORD_SCALE, assemble_batch
+from diffab_pytorch_tpu_torch.parallel.dp import sample_fanout_sharded
+from diffab_pytorch_tpu_torch.parallel.mesh import init_distributed
 from diffab_pytorch_tpu_torch.structure import antibody
 from diffab_pytorch_tpu_torch.structure.patch import featurize_patch, load_patch
 from diffab_pytorch_tpu_torch.structure.pdb import write_pdb
@@ -40,6 +52,7 @@ from diffab_pytorch_tpu_torch.structure.reconstruct import (
 from diffab_pytorch_tpu_torch.structure.relax import relax_ca
 from diffab_pytorch_tpu_torch.train import checkpoint as ckpt_lib
 from diffab_pytorch_tpu_torch.train.harness import DiffAb
+from diffab_pytorch_tpu_torch.utils.logging import is_primary
 
 CHAIN_LETTERS = ["?", "H", "L"] + [chr(ord("A") + i) for i in range(7)]
 
@@ -97,9 +110,9 @@ def parse_args(argv=None):
     p.add_argument("--no-relax", action="store_true",
                    help="Skip the designed-CA relaxation (loop closure)")
     p.add_argument("--data-parallel", action="store_true",
-                   help="Fan designs out over all local devices (not ported)")
+                   help="Fan designs out over the ranks of torch.distributed.run")
     p.add_argument("--multihost", action="store_true",
-                   help="Multi-host run (not ported)")
+                   help="Join the process group torch.distributed.run sets up across nodes")
     p.add_argument("--rank", action="store_true",
                    help="Score every design with the model-based likelihood ranking; "
                         "outputs stay in design order with score and rank (0 = best) "
@@ -195,11 +208,16 @@ def write_designs(out_dir: str, result, batch, norm, sample_dict, cdrs, *,
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.data_parallel or args.multihost:
-        raise NotImplementedError(
-            "--data-parallel and --multihost are not ported yet (ROADMAP A14, parallelism)")
-    device = resolve_device(args.device)
+    if not (args.data_parallel or args.multihost):
+        return design(args, resolve_device(args.device))
+    with init_distributed(args.device) as device:
+        if args.multihost:
+            print(f"[sample] multihost: rank {dist.get_rank()} of {dist.get_world_size()}")
+        group = dist.group.WORLD if args.data_parallel else None
+        return design(args, device, group)
 
+
+def design(args, device, dp_group=None) -> int:
     if args.patch:
         sample_dict = load_patch(args.patch)
     elif args.pdb:
@@ -234,14 +252,21 @@ def main(argv=None) -> int:
                  generate_sequence=args.mode != "fix-sequence")
     x0_clip = (None if str(args.x0_clip).lower() in ("none", "0")
                else "auto" if args.x0_clip == "auto" else float(args.x0_clip))
-    result = harness.sample(
-        params, batch, generator=torch.Generator(device=device).manual_seed(args.seed),
-        n_designs=args.n_samples, t_start=args.t_restart, init=args.init,
-        chord_orientations=args.chord_orientations, n_steps=args.n_steps,
-        noise_scale=args.noise_scale, noise_t_max=noise_t_max,
-        step_schedule=args.step_schedule, n_fine_tail=args.n_fine_tail,
-        coord_solver=args.coord_solver, coord_solver_t_min=args.coord_solver_t_min,
-        orientation_reverse=args.orientation_reverse, x0_clip=x0_clip, **modes)
+    opts = dict(t_start=args.t_restart, init=args.init,
+                chord_orientations=args.chord_orientations, n_steps=args.n_steps,
+                noise_scale=args.noise_scale, noise_t_max=noise_t_max,
+                step_schedule=args.step_schedule, n_fine_tail=args.n_fine_tail,
+                coord_solver=args.coord_solver, coord_solver_t_min=args.coord_solver_t_min,
+                orientation_reverse=args.orientation_reverse, x0_clip=x0_clip, **modes)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    if dp_group is not None:
+        result = sample_fanout_sharded(harness, params, batch, generator, dp_group,
+                                       args.n_samples, to_rank0=True, **opts)
+    else:
+        result = harness.sample(params, batch, generator=generator,
+                                n_designs=args.n_samples, **opts)
+    if not is_primary():
+        return 0
 
     os.makedirs(args.out_dir, exist_ok=True)
     scores = ranks = None

@@ -16,8 +16,15 @@ which `cli.sample` reads.  --self-conditioning trains a self-conditioned
 model (--sc-geometry-only, --sc-late-fusion, --sc-split-trunk choose the
 variant; the --sc-rate, --sc-onset, --sc-rate-warmup,
 --sc-seq-loss-weight and --sc-per-residue schedule is read with it).
-Training runs on the card unless --device names another; --data-parallel
-and --multihost are not ported yet and raise.
+Training runs on the card unless --device names another.
+
+Data parallelism: --data-parallel splits each batch's rows over the ranks
+of `python -m torch.distributed.run` (--standalone --nproc-per-node
+<cards> on one node; each rank takes cuda:LOCAL_RANK, NCCL; with --device
+cpu, gloo), and only rank 0 validates and writes.  --multihost is the same
+code across nodes (torchrun's --nnodes, --rdzv-endpoint); without
+--data-parallel every rank trains the whole batch.  Without torchrun's
+environment either flag runs as a one-rank group.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import argparse
 import dataclasses
 
 import numpy as np
+import torch.distributed as dist
 
 from diffab_pytorch_tpu_torch.config import (
     DiffAbConfig,
@@ -36,10 +44,11 @@ from diffab_pytorch_tpu_torch.config import (
     tiny_config,
 )
 from diffab_pytorch_tpu_torch.data.dataset import PatchDataset
+from diffab_pytorch_tpu_torch.parallel.mesh import init_distributed
 from diffab_pytorch_tpu_torch.train import checkpoint as ckpt_lib
 from diffab_pytorch_tpu_torch.train.harness import DiffAb
 from diffab_pytorch_tpu_torch.train.trainer import fit
-from diffab_pytorch_tpu_torch.utils.logging import MetricLogger
+from diffab_pytorch_tpu_torch.utils.logging import MetricLogger, is_primary
 
 
 def parse_args(argv=None):
@@ -116,18 +125,12 @@ def parse_args(argv=None):
     p.add_argument("--csv", default=None, help="Metrics CSV path")
     p.add_argument("--wandb", action="store_true", default=False)
     p.add_argument("--data-parallel", action="store_true",
-                   help="Shard the batch over all local devices (not ported)")
-    p.add_argument("--multihost", action="store_true", help="Multi-host run (not ported)")
+                   help="Split each batch over the ranks of torch.distributed.run")
+    p.add_argument("--multihost", action="store_true",
+                   help="Join the process group torch.distributed.run sets up across nodes")
     p.add_argument("--device", default=None,
                    help="Device to run on (default: the CUDA card; 'cpu' to run on the CPU)")
     return p.parse_args(argv)
-
-
-def check_ported(args) -> None:
-    """Raise NotImplementedError for a flag whose feature is not ported."""
-    if args.data_parallel or args.multihost:
-        raise NotImplementedError(
-            "--data-parallel and --multihost are not ported yet (ROADMAP A14, parallelism)")
 
 
 def build_config(args, horizon: int = 0) -> DiffAbConfig:
@@ -185,9 +188,16 @@ def build_config(args, horizon: int = 0) -> DiffAbConfig:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    check_ported(args)
-    device = resolve_device(args.device)
+    if not (args.data_parallel or args.multihost):
+        return train(args, resolve_device(args.device))
+    with init_distributed(args.device) as device:
+        if args.multihost:
+            print(f"[train] multihost: rank {dist.get_rank()} of {dist.get_world_size()}")
+        group = dist.group.WORLD if args.data_parallel else None
+        return train(args, device, group)
 
+
+def train(args, device, dp_group=None) -> int:
     ds = PatchDataset.from_dir(args.data_dir, cdrs_to_generate=args.cdrs)
     if len(ds) == 0:
         print(f"no .npz patches under {args.data_dir}")
@@ -207,16 +217,19 @@ def main(argv=None) -> int:
     val_ds = PatchDataset(val_paths, cdrs_to_generate=args.cdrs) if n_val else None
 
     harness = DiffAb(cfg, device=device)
-    ckpt_lib.save_model_config(args.checkpoint_dir, cfg.model)
+    if is_primary():
+        ckpt_lib.save_model_config(args.checkpoint_dir, cfg.model)
     logger = MetricLogger(csv_path=args.csv, use_wandb=args.wandb,
                           config=dataclasses.asdict(cfg), print_every=cfg.train.log_every)
     print(f"[train] {len(train_paths)} training and {n_val} validation patches, batch "
           f"{cfg.train.batch_size}, on {device}"
-          + (" (device pool)" if args.device_pool else ""))
+          + (" (device pool)" if args.device_pool else "")
+          + (f" (data-parallel over {dist.get_world_size(dp_group)} ranks)"
+             if dp_group is not None else ""))
     try:
         fit(harness, train_ds, val_ds, epochs=args.epochs, max_steps=args.max_steps,
             logger=logger, checkpoint_dir=args.checkpoint_dir, resume=not args.no_resume,
-            device_pool=args.device_pool)
+            device_pool=args.device_pool, dp_group=dp_group)
     finally:
         logger.close()
     return 0

@@ -10,7 +10,10 @@ copy: the consumer's stream waits on it before the batch is used, and
 every tensor is marked with `record_stream` for the consumer's stream, so
 the allocator does not hand its memory to a later copy while a step still
 reads it.  A worker exception is raised to the consumer.  On the CPU the
-batches pass through as they are.
+batches pass through as they are.  With `sharding` = (rank, world), each
+batch is cut to the rank-th of world equal blocks of its rows (the block
+`parallel.mesh.batch_sharding(group)` names) before it is pinned, so only
+those rows are pinned and copied.
 """
 
 from __future__ import annotations
@@ -30,13 +33,13 @@ class PrefetchLoader:
     """Iterate (batch on `device`, info) over a host iterator of
     (ProteinBatch, info) pairs (or bare batches, info None).
     `batch_seconds`: the worker's time for each batch (assembly, pinning
-    and issuing the copy)."""
+    and issuing the copy).  `sharding`: (rank, world); each batch becomes
+    rank's block of its rows."""
 
-    def __init__(self, batch_iter: Iterable, device, prefetch: int = 2, sharding=None):
-        if sharding is not None:
-            raise NotImplementedError("sharded loading is not ported yet (ROADMAP A14, "
-                                      "parallelism)")
+    def __init__(self, batch_iter: Iterable, device, prefetch: int = 2,
+                 sharding: tuple[int, int] | None = None):
         self.device = torch.device(device)
+        self.sharding = sharding
         self.batch_seconds: list[float] = []
         self._iter = batch_iter
         self._q: queue.Queue = queue.Queue(maxsize=max(1, prefetch))
@@ -57,6 +60,13 @@ class PrefetchLoader:
                 continue
         return False
 
+    def _rows(self, batch):
+        rank, world = self.sharding
+        if batch.batch_size % world:
+            raise ValueError(f"batch size {batch.batch_size} not divisible by dp={world}")
+        n = batch.batch_size // world
+        return batch._map(lambda x: x[rank * n:(rank + 1) * n])
+
     def _to_device(self, batch):
         if self._stream is None:
             return batch.to(self.device), None
@@ -76,6 +86,8 @@ class PrefetchLoader:
                 except StopIteration:
                     break
                 batch, info = item if isinstance(item, tuple) else (item, None)
+                if self.sharding is not None:
+                    batch = self._rows(batch)
                 batch, event = self._to_device(batch)
                 self.batch_seconds.append(time.perf_counter() - t0)
                 if not self._put((batch, info, event)):

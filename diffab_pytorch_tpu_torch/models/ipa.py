@@ -1,6 +1,8 @@
 """Invariant Point Attention (`diffab_pytorch_tpu/models/ipa.py`).
 
-The layer runs one of the JAX package's two kernel paths:
+Where the kernels' preconditions hold (pair bias on, as many query as
+value points: the JAX layer's `use_pair_bias and pq == pv`), the layer
+runs one of the JAX package's two kernel paths:
 
 - `fuse_ipa_layer` None or True (default): one fused-layer call
   (`ops/ipa_fused_layer.py`, K1) computes the projections, frames,
@@ -12,7 +14,10 @@ The layer runs one of the JAX package's two kernel paths:
 
 On both, the attended pair rows and their W_pair projection follow as
 plain matmuls, target-major before the design-major transpose, then the
-to_out bias row is added.
+to_out bias row is added.  Elsewhere (no pair bias, or pq != pv) the layer
+is the JAX layer's XLA branch in plain PyTorch: logits from the scalar
+and point terms (and the pair bias when on) over sqrt(3) or sqrt(2), the
+softmax, the weighted sums, one to_out over the concatenated features.
 
 Design fan-out: when the state batch b is n times the pair batch bp, rows
 [i n, (i+1) n) are n designs of target i sharing one pair tensor and one
@@ -77,26 +82,26 @@ class InvariantPointAttentionLayer(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if not cfg.use_pair_bias or cfg.n_query_point_per_head != cfg.n_value_point_per_head:
-            raise NotImplementedError(
-                "only the fused layer (pair bias on, equal q/v point counts) "
-                "is ported"
-            )
         self.cfg = cfg
         dt, d, h = cfg.dtype, cfg.d_residue_emb, cfg.n_head
-        ds, p, dp = cfg.d_scalar_per_head, cfg.n_query_point_per_head, cfg.d_pair_emb
+        ds, dp = cfg.d_scalar_per_head, cfg.d_pair_emb
+        pq, pv = cfg.n_query_point_per_head, cfg.n_value_point_per_head
+        # the kernels take the layer only where JAX's does (models/ipa.py:237)
+        self.use_kernel = cfg.use_pair_bias and pq == pv
         self.to_q_scalar = Linear(d, h * ds, dt, bias=False)
         self.to_k_scalar = Linear(d, h * ds, dt, bias=False)
         self.to_v_scalar = Linear(d, h * ds, dt, bias=False)
-        self.to_q_point = Linear(d, h * p * 3, dt, bias=False)
-        self.to_k_point = Linear(d, h * p * 3, dt, bias=False)
-        self.to_v_point = Linear(d, h * p * 3, dt, bias=False)
-        self.to_pair_bias = Linear(dp, h, dt, bias=False)
+        self.to_q_point = Linear(d, h * pq * 3, dt, bias=False)
+        self.to_k_point = Linear(d, h * pq * 3, dt, bias=False)
+        self.to_v_point = Linear(d, h * pv * 3, dt, bias=False)
+        if cfg.use_pair_bias:
+            self.to_pair_bias = Linear(dp, h, dt, bias=False)
         self.gamma = nn.Parameter(torch.full((h,), float(torch.log(torch.expm1(torch.tensor(1.0))))))
-        self.to_out = Linear(h * ds + h * dp + h * p * 3 + h * p, d, dt)
+        d_pair_out = h * dp if cfg.use_pair_bias else 0
+        self.to_out = Linear(h * ds + d_pair_out + h * pv * 3 + h * pv, d, dt)
         self.scale_scalar = ds ** -0.5
-        self.scale_point = (4.5 * p) ** -0.5
-        self.scale_total = 3 ** -0.5
+        self.scale_point = (4.5 * pq) ** -0.5
+        self.scale_total = (3 if cfg.use_pair_bias else 2) ** -0.5
 
     def kernel_weights(self) -> tuple[LayerKernelWeights, torch.Tensor, torch.Tensor]:
         """(packed fused-layer weights, W_pair (h dp, d), b_row (d,)) in the
@@ -140,11 +145,12 @@ class InvariantPointAttentionLayer(nn.Module):
             mask = residue_mask.to(dt)
         else:
             mask = torch.ones((b, L), dtype=dt, device=x.device)
-        if pair_bias is None:
+        if pair_bias is None and cfg.use_pair_bias:
             pair_bias = self.to_pair_bias(pair.to(dt)).permute(0, 3, 1, 2)
-        bias = pair_bias.to(dt).contiguous()
-
         rot, trans = rot.to(dt).contiguous(), trans.to(dt).contiguous()
+        if not self.use_kernel:
+            return self._plain_path(x, pair, rot, trans, residue_mask, pair_bias, n_designs)
+        bias = pair_bias.to(dt).contiguous()
         if cfg.fuse_ipa_layer is False:
             acc, attn, W_pair, b_row = self._attention_core_path(x, rot, trans, mask, bias)
         else:
@@ -158,6 +164,49 @@ class InvariantPointAttentionLayer(nn.Module):
         op = _pair_rows(attn, pair.to(dt), n_designs) @ W_pair  # (bp, i, n, d)
         acc = acc + op.transpose(1, 2).reshape(b, L, -1)
         return acc + b_row
+
+    def _plain_path(self, x, pair, rot, trans, residue_mask, pair_bias, n_designs):
+        """JAX `models/ipa.py:312-389`, the layer without the kernels'
+        preconditions: separate query and value point counts, the pair
+        term only when use_pair_bias.  Returns the layer's output."""
+        cfg = self.cfg
+        dt, h, ds = cfg.dtype, cfg.n_head, cfg.d_scalar_per_head
+        pq, pv = cfg.n_query_point_per_head, cfg.n_value_point_per_head
+        b, L, _ = x.shape
+        mods = (self.to_q_scalar, self.to_k_scalar, self.to_v_scalar,
+                self.to_q_point, self.to_k_point, self.to_v_point)
+        proj = x @ torch.cat([m.kernel(dt) for m in mods], dim=1)
+        q_s, k_s, v_s, q_p, k_p, v_p = torch.split(
+            proj, [h * ds] * 3 + [h * pq * 3] * 2 + [h * pv * 3], dim=-1)
+        # (b, h, L, features): the head batched beside the design
+        heads = lambda t, f: t.reshape(b, L, h, f).transpose(1, 2)
+        q_p, k_p, v_p = (frames_apply(t.reshape(b, L, h, n, 3), rot, trans)
+                         for t, n in ((q_p, pq), (k_p, pq), (v_p, pv)))
+        qf, kf = heads(q_p, pq * 3), heads(k_p, pq * 3)
+        # |q_i - k_j|^2 through its expansion, as the JAX branch computes it
+        sq_dist = ((qf * qf).sum(-1)[..., :, None] + (kf * kf).sum(-1)[..., None, :]
+                   - 2.0 * qf @ kf.transpose(-1, -2))
+        gamma = F.softplus(self.gamma.to(dt))
+        logit = (heads(q_s, ds) @ heads(k_s, ds).transpose(-1, -2)) * self.scale_scalar
+        logit = logit - 0.5 * self.scale_point * gamma[:, None, None] * sq_dist
+        if cfg.use_pair_bias:
+            # one bias per target, broadcast over its designs
+            bp = pair.shape[0]
+            logit = (logit.reshape(bp, n_designs, h, L, L)
+                     + pair_bias.to(dt)[:, None]).reshape(b, h, L, L)
+        logit = logit * self.scale_total
+        if residue_mask is not None:
+            logit = torch.where(residue_mask[:, None, None, :], logit,
+                                torch.tensor(-1e9, dtype=dt, device=x.device))
+        attn = torch.softmax(logit, dim=-1)
+        outs = [(attn @ heads(v_s, ds)).transpose(1, 2).reshape(b, L, h * ds)]
+        if cfg.use_pair_bias:
+            outs.append(attended_pair_rows(attn, pair.to(dt), n_designs))
+        out_p = (attn @ heads(v_p, pv * 3)).transpose(1, 2).reshape(b, L, h, pv, 3)
+        out_p = frames_apply_inverse(out_p, rot, trans)
+        nrm = torch.sqrt((out_p * out_p).sum(dim=-1) + 1e-8)
+        outs += [out_p.reshape(b, L, h * pv * 3), nrm.reshape(b, L, h * pv)]
+        return self.to_out(torch.cat(outs, dim=-1))
 
     def _attention_core_path(self, x, rot, trans, mask, bias):
         """JAX `models/ipa.py:283-300`: projections and frames, the
@@ -203,8 +252,9 @@ class InvariantPointAttentionModule(nn.Module):
 
     def kernel_weights(self) -> list | None:
         """Every layer's packed fused-layer weights, or None when the
-        layers run the attention-core path (`fuse_ipa_layer=False`)."""
-        if self.cfg.fuse_ipa_layer is False:
+        layers run the attention-core path (`fuse_ipa_layer=False`) or no
+        kernel at all."""
+        if self.cfg.fuse_ipa_layer is False or not self.layers[0].use_kernel:
             return None
         return [ly.kernel_weights() for ly in self.layers]
 
@@ -212,8 +262,10 @@ class InvariantPointAttentionModule(nn.Module):
         """Every layer's pair-bias logits (bp, h, L, L) in the compute dtype,
         as the JAX stack computes them when none are given: one projection
         of the pair tensor onto the layers' concatenated (d_pair, h)
-        kernels."""
+        kernels.  Without the pair bias, None for every layer."""
         dt, h = self.cfg.dtype, self.cfg.n_head
+        if not self.cfg.use_pair_bias:
+            return [None] * self.cfg.n_ipa_layers
         w = torch.cat([ly.to_pair_bias.kernel(dt) for ly in self.layers], dim=1)
         logits = (pair_emb.to(dt) @ w).permute(0, 3, 1, 2)
         return [logits[:, i * h:(i + 1) * h].contiguous() for i in range(self.cfg.n_ipa_layers)]
@@ -231,7 +283,10 @@ class InvariantPointAttentionModule(nn.Module):
 
 def precompute_pair_biases(ipa: InvariantPointAttentionModule, pair_emb) -> list:
     """Pair-bias logits (bp, h, L, L) of every layer in float32, computed
-    once from the t-independent pair embedding."""
+    once from the t-independent pair embedding (None for every layer
+    without the pair bias)."""
+    if not ipa.cfg.use_pair_bias:
+        return [None] * ipa.cfg.n_ipa_layers
     return [
         torch.einsum("bijd,dh->bhij", pair_emb.float(), ly.to_pair_bias.weight.t().float())
         for ly in ipa.layers

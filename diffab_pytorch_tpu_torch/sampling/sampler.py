@@ -221,7 +221,8 @@ def hoist_denoiser_constants(model: DiffAbModel, pair_emb) -> dict:
     the numbers the JAX `geo_ipa` projects on every call)."""
     den = model.denoiser
     dt = model.cfg.dtype
-    out = dict(pair_biases=[b.to(dt) for b in precompute_pair_biases(den.ipa, pair_emb)],
+    out = dict(pair_biases=[None if b is None else b.to(dt)
+                            for b in precompute_pair_biases(den.ipa, pair_emb)],
                kernel_weights=den.ipa.kernel_weights())
     if model.cfg.sc_split_trunk:
         out.update(geo_pair_biases=den.geo_ipa.pair_biases(pair_emb),

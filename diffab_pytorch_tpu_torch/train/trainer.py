@@ -13,6 +13,15 @@ seeded with (seed, step), so the loader path, the pool path and a resumed
 run draw the same numbers at the same step.  Each step trains at its
 state's step, which the self-conditioning schedule reads; validation runs
 at the schedule's full rate.
+
+Data parallelism (`dp_group`, the counterpart of the JAX fit's
+`sharding`): every rank reads the same global batches and keeps its rows
+(`parallel.mesh.batch_sharding`; the loader pins and copies only those),
+draws them from its rank's stream (`parallel.dp.rank_seed` of the step's
+seed: rank 0 draws the single-device numbers) and trains with
+`make_dp_train_step`.  Only rank 0 validates, on the global batches (the
+single-device numbers), and writes checkpoints, model_config.json and
+logs; every rank restores the same checkpoint on resume.
 """
 
 from __future__ import annotations
@@ -23,13 +32,16 @@ from typing import Iterable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from diffab_pytorch_tpu_torch.data.batch import ProteinBatch
 from diffab_pytorch_tpu_torch.data.dataset import PatchDataset
 from diffab_pytorch_tpu_torch.data.loader import PrefetchLoader
+from diffab_pytorch_tpu_torch.parallel.dp import make_dp_train_step, rank_seed
+from diffab_pytorch_tpu_torch.parallel.mesh import batch_sharding, put_global
 from diffab_pytorch_tpu_torch.train import checkpoint as ckpt_lib
 from diffab_pytorch_tpu_torch.train.harness import DiffAb, OptState, TrainState
-from diffab_pytorch_tpu_torch.utils.logging import MetricLogger
+from diffab_pytorch_tpu_torch.utils.logging import MetricLogger, is_primary
 
 Data = Union[PatchDataset, Iterable[ProteinBatch]]
 
@@ -43,8 +55,9 @@ def _copy_state(state: TrainState) -> TrainState:
     return TrainState(state.step, params, opt, on(state.ema_params))
 
 
-def _step_generator(generator: torch.Generator, seed: int, step: int) -> torch.Generator:
-    return generator.manual_seed(seed * 1_000_003 + step)
+def _step_generator(generator: torch.Generator, seed: int, step: int,
+                    rank: int = 0) -> torch.Generator:
+    return generator.manual_seed(rank_seed(seed * 1_000_003 + step, rank))
 
 
 def fit(
@@ -61,6 +74,7 @@ def fit(
     state: Optional[TrainState] = None,
     train_step=None,
     device_pool: bool = False,
+    dp_group=None,
 ) -> TrainState:
     """Train and return the final TrainState.  `state` continues a run in
     memory; otherwise the state is initialized from `seed` (default
@@ -70,22 +84,35 @@ def fit(
     a dataset, every len(train_data) for a list of batches.
     `train_step(state, batch, draws) -> (state, metrics)` replaces
     `harness.train_step`; it cannot be combined with device_pool, whose
-    step gathers the rows itself."""
+    step gathers the rows itself.  `dp_group`: train data-parallel over
+    that process group (each batch's rows split over its ranks; the
+    default step is then `make_dp_train_step(harness, dp_group)`)."""
     cfg = harness.config.train
     dev = harness.device
     seed = cfg.seed if seed is None else seed
     epochs = cfg.epochs if epochs is None else epochs
     logger = logger or MetricLogger(print_every=cfg.log_every)
     gen = torch.Generator(device=dev)
+    primary = is_primary()
+    shard, rank = None, 0
+    if dp_group is not None:
+        if device_pool:
+            raise ValueError("device_pool uses the single-device pool step; it cannot be "
+                             "combined with data parallelism")
+        shard = batch_sharding(dp_group)
+        rank = shard.rank
+        shard.rows(cfg.batch_size)  # the batch must split evenly over the ranks
 
     if state is None:
         state = harness.init(seed)
         if checkpoint_dir and resume and ckpt_lib.latest_step(checkpoint_dir) is not None:
             state = ckpt_lib.restore_checkpoint(checkpoint_dir, dev)
             print(f"[trainer] resumed from step {state.step}")
-    if checkpoint_dir:
+    if checkpoint_dir and primary:
         ckpt_lib.save_model_config(checkpoint_dir, harness.config.model)
 
+    if train_step is None and dp_group is not None:
+        train_step = make_dp_train_step(harness, dp_group)
     step_fn = train_step or harness.train_step
     loader = None
     if device_pool:
@@ -112,10 +139,12 @@ def fit(
     else:
         if isinstance(train_data, PatchDataset):
             loader = PrefetchLoader(train_data.batches(
-                cfg.batch_size, shuffle=True, seed=seed, epochs=epochs), dev)
+                cfg.batch_size, shuffle=True, seed=seed, epochs=epochs), dev, sharding=shard)
             source = (batch for batch, _ in loader)
         else:
             source = itertools.chain.from_iterable(itertools.repeat(train_data, epochs))
+            if shard is not None:
+                source = (put_global(batch, shard) for batch in source)
 
         def run_step(state, batch, generator):
             batch = batch.to(dev)
@@ -137,7 +166,7 @@ def fit(
     t_last = time.time()
 
     def run_eval(params):
-        if val_data is None:
+        if val_data is None or not primary:
             return
         batches = val_data
         if isinstance(val_data, PatchDataset):
@@ -156,7 +185,8 @@ def fit(
         for item in source:
             if max_steps is not None and state.step >= max_steps:
                 break
-            state, metrics = run_step(state, item, _step_generator(gen, seed, state.step))
+            state, metrics = run_step(state, item,
+                                      _step_generator(gen, seed, state.step, rank))
             step = state.step
             if step % cfg.log_every == 0:
                 now = time.time()
@@ -172,7 +202,7 @@ def fit(
                     pending = (_copy_state(state), step)
                 else:
                     pending = None
-            if checkpoint_dir and step % cfg.checkpoint_every == 0:
+            if checkpoint_dir and primary and step % cfg.checkpoint_every == 0:
                 if last_ok_step >= step - cfg.log_every:
                     ckpt_lib.save_checkpoint(checkpoint_dir, state)
                 else:
@@ -192,8 +222,10 @@ def fit(
         print(f"[trainer] final state diverged (best {best_loss:.4g}, validated "
               f"snapshot at step {step_good}); falling back")
         state = state_good
-        if checkpoint_dir:
+        if checkpoint_dir and primary:
             ckpt_lib.prune_after(checkpoint_dir, step_good)
-    if checkpoint_dir:
+    if checkpoint_dir and primary:
         ckpt_lib.save_checkpoint(checkpoint_dir, state)
+    if dp_group is not None:
+        dist.barrier(group=dp_group)  # every rank returns after the checkpoint is written
     return state

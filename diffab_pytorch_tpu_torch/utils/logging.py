@@ -16,7 +16,9 @@ from typing import Dict, Optional
 import torch
 
 
-def _primary() -> bool:
+def is_primary() -> bool:
+    """True on the process that writes files: rank 0 of the default group,
+    or a process with no group."""
     dist = torch.distributed
     return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
@@ -38,7 +40,7 @@ class MetricLogger:
         self._file = sys.stdout if file is None else file
         self._t0 = time.time()
         self._wandb = None
-        self._primary = _primary()
+        self._primary = is_primary()
         if use_wandb and self._primary:
             try:
                 import wandb  # type: ignore

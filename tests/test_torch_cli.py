@@ -217,10 +217,20 @@ def test_evaluate_cli_rejects_a_mismatched_design(work, tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--data-parallel", "--multihost"])
-def test_unported_flags_raise(work, flag):
-    with pytest.raises(NotImplementedError, match="A14"):
-        tsample.main(["--patch", work["patch"], "--checkpoint-dir", work["ckpt"], flag,
-                      "--device", "cpu"])
+def test_unported_flags_raise(work, flag, tmp_path):
+    """The flags once raised; since the parallel layer is ported they run.
+    Outside torchrun a flag runs as a one-rank group, whose rank 0 draws
+    the single-device stream: the files equal the plain run's byte for
+    byte, and the group is gone afterwards."""
+    out = tmp_path / "designs"
+    assert tsample.main(["--patch", work["patch"], "--checkpoint-dir", work["ckpt"], "-n",
+                         str(N), "--cdrs", "H3", "-o", str(out), "-s", "3", "--rank",
+                         "--device", "cpu", flag]) == 0
+    names = sorted(os.listdir(work["out"]))
+    assert sorted(os.listdir(out)) == names
+    for name in names:
+        assert (out / name).read_bytes() == (work["out"] / name).read_bytes(), name
+    assert not torch.distributed.is_initialized()
 
 
 def test_sample_cli_reads_a_self_conditioned_checkpoint(work, tmp_path, monkeypatch, capsys):

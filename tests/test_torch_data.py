@@ -384,8 +384,15 @@ def test_prefetch_loader_yields_the_host_batches(patch_dir):
     with pytest.raises(StopIteration):
         next(loader)
     loader.close()
-    with pytest.raises(NotImplementedError, match="A14"):
-        PrefetchLoader(iter(()), "cpu", sharding=object())
+    # with a rank's sharding each batch is that rank's rows of the host batch
+    for rank in range(2):
+        sharded = PrefetchLoader(ds.batches(2, seed=1, epochs=2), "cpu", sharding=(rank, 2))
+        got = list(sharded)
+        assert len(got) == len(plain)
+        for (a, _), (b, _) in zip(got, plain):
+            assert a.batch_size == 1
+            assert_same_batch(a, b.gather_rows(torch.tensor([rank])))
+        sharded.close()
 
 
 def test_prefetch_loader_raises_the_worker_error_and_closes():

@@ -1,6 +1,7 @@
 """The port's training CLI against the JAX package's, on the CPU: the
 configuration its flags resolve to (field by field, the self-conditioning
-flags too), the flags that are not ported yet, the card by default, and
+flags too), --data-parallel and --multihost outside torchrun, the card by
+default, and
 the whole path a user runs: `cli.preprocess` -> `cli.train --device cpu`
 -> `cli.sample --device cpu` from that checkpoint.
 """
@@ -81,8 +82,26 @@ def test_sc_flags_build_the_jax_config(flag):
 
 @pytest.mark.parametrize("flag", [["--data-parallel"], ["--multihost"]])
 def test_unported_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="A14"):
-        ttrain.main(["--data-dir", str(tmp_path), "--device", "cpu", *flag])
+    """The flags once raised; since the parallel layer is ported they run.
+    Outside torchrun a flag trains as a one-rank group, whose rank 0 draws
+    the single-device stream: its checkpoint equals the plain run's."""
+    patches = tmp_path / "patches"
+    patches.mkdir()
+    for i in range(4):
+        pdb = tmp_path / f"c{i}.pdb"
+        pdb.write_text(make_synthetic_antibody_pdb(seed=30 + i))
+        tpreprocess.process_one(str(pdb), str(patches / f"c{i}.npz"), "H", "L", "A", 48)
+    argv = ["--data-dir", str(patches), "--tiny", "--device", "cpu", "--max-steps", "2", "-b",
+            "2", "--val-pct", "0"]
+    assert ttrain.main(argv + ["--checkpoint-dir", str(tmp_path / "plain")]) == 0
+    assert ttrain.main(argv + ["--checkpoint-dir", str(tmp_path / "flag"), *flag]) == 0
+    assert not torch.distributed.is_initialized()
+    plain = ckpt.restore_checkpoint(str(tmp_path / "plain"), device="cpu")
+    got = ckpt.restore_checkpoint(str(tmp_path / "flag"), device="cpu")
+    assert got.step == plain.step == 2
+    for a, b in ((got.params, plain.params), (got.opt_state.mu, plain.opt_state.mu),
+                 (got.opt_state.nu, plain.opt_state.nu), (got.ema_params, plain.ema_params)):
+        assert all(torch.equal(a[k].detach(), b[k].detach()) for k in b)
 
 
 def test_train_needs_the_card_unless_told(tmp_path, monkeypatch):
