@@ -98,7 +98,27 @@ Phases (any failure raises and the script exits non-zero):
      (--run-clis) against `cli.train` without the flag (checkpoints
      bitwise equal), then `cli.sample --data-parallel --rank -n 16`; (d)
      one rank per card over NCCL where there is more than one card;
-  15. a `kernels` JSON line, the card line, and the final JSON line.
+  15. [tp]: tensor parallelism, each IPA layer split by head.  (a) NCCL at
+     world size 1 in this process: make_sharded_train_step on make_mesh(1)
+     bitwise against train_step (production_config(), 3 steps from the
+     warmup's end under deterministic algorithms) at both flags; (b) two
+     ranks sharing the card over gloo (--tp-worker processes) at tp = 2,
+     4 heads a rank, production_config() in float32 and bf16 at both
+     flags, 3 steps, each replayed in one process on the card from the tp
+     run's state with the same draws (float32 gradients within 1e-5 of
+     the gradient's largest entry of the host loop of the ranks' parts;
+     bf16 within twice the bf16 step's own distance from float32; the
+     update from the tp gradients within 1e-5 of each leaf's scale), the
+     replicated leaves bit-identical after every step, then each rank's
+     collectives a step, steps/s, busy ms, device events, idle share and
+     peak memory; (d) the sharded checkpoint restored into the ranks and
+     single-device, bitwise; (c) four ranks, dp = 2 x tp = 2, float32,
+     each step replayed with host_dp_loss_and_grads; (e) K1 and K2
+     against their plain versions at h = 4, 2, 1 (L = 128 and 256, both
+     shapes and dtypes), K1 at h = 8 against its two halves, and their
+     times at those h beside h = 8's; (f) tp = 2 over NCCL, one rank per
+     card, where there is more than one card;
+  16. a `kernels` JSON line, the card line, and the final JSON line.
 
 The L = 128 kernel times (phase 7) run where they ran before the long-patch
 and few-step phases existed, so that two versions of this script read them
@@ -2081,15 +2101,17 @@ def zero_launches():
     op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
 
 
-def par_train_setup(torch, device, fuse=None):
-    """production_config() (fuse_ipa_layer `fuse`) on `device` and [train]'s
-    synthetic batch of 32 L=128 patches."""
+def par_train_setup(torch, device, fuse=None, compute_dtype="bfloat16"):
+    """production_config() (fuse_ipa_layer `fuse`, its bf16 compute or
+    `compute_dtype`) on `device` and [train]'s synthetic batch of 32 L=128
+    patches."""
     from diffab_pytorch_tpu_torch import config as C
     from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
     from diffab_pytorch_tpu_torch.train.harness import DiffAb
 
     pcfg = C.production_config()
-    pcfg = dataclasses.replace(pcfg, model=dataclasses.replace(pcfg.model, fuse_ipa_layer=fuse))
+    pcfg = dataclasses.replace(pcfg, model=dataclasses.replace(
+        pcfg.model, fuse_ipa_layer=fuse, compute_dtype=compute_dtype))
     batch = synthetic_batch(100, pcfg.train.batch_size, L_MAIN, pcfg.model.n_atoms,
                             device=device)
     return DiffAb(pcfg, device=device), batch
@@ -2598,25 +2620,590 @@ def parallel_phase(torch, card, patches, tmp, train_rate, designs_rate):
     return launches
 
 
-def kernel_times(torch, card, pb):
+TP_STEPS = 3  # (a)-(c): tp steps held against their reference
+TP_TIMED = 5  # (b): timed steps a rank after the checked ones, and of train_step beside them
+TP_RUNS = (("float32", None), ("float32", False), ("bfloat16", None), ("bfloat16", False))
+TP_HEADS = (4, 2, 1)  # (e): one rank's heads at tp = 2, 4, 8 of the default h = 8
+# (b) bf16: two bf16 runs that round apart each sit about the bf16-float32 gap from
+# float32, and about sqrt(2) times that gap from each other; a scalar loss one bf16
+# step (2^-8 of its value) apart
+TP_BF16_FACTOR = 2.0
+
+
+def tp_one_rank(torch, card):
+    """[tp] (a): NCCL, world size 1, in this process: make_mesh(1) and
+    make_sharded_train_step at production_config() (bf16, batch 32, L=128)
+    from the end of the warmup, against train_step with the same draws for
+    TP_STEPS steps under deterministic algorithms, bitwise (metrics,
+    parameters, EMA), at fuse_ipa_layer None (K1 6 a step) and False (K2 6
+    a step).  Returns {path: (K1, K2)}."""
+    import torch.distributed as dist
+
+    from diffab_pytorch_tpu_torch.parallel.mesh import make_mesh
+    from diffab_pytorch_tpu_torch.parallel.tp import make_sharded_train_step, shard_state
+
+    tag, launches = "[tp] (a)", {}
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.TCPStore("127.0.0.1", 0, 1, True), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(1)
+        for fuse in (None, False):
+            harness, batch = par_train_setup(torch, "cuda", fuse)
+            step = make_sharded_train_step(harness, mesh)
+            equal, counts = [], (0, 0)
+            with deterministic(torch):
+                tp_state, state = shard_state(par_state(harness), mesh), par_state(harness)
+                for s in range(TP_STEPS):
+                    d = par_draws(torch, harness, batch, s, 0)
+                    before = k_launches()
+                    tp_state, m_tp = step(tp_state, batch, d)
+                    torch.cuda.synchronize()
+                    counts = tuple(a + c - b for a, b, c in zip(counts, before, k_launches()))
+                    state, m = harness.train_step(state, batch, d)
+                    equal.append(all(torch.equal(m_tp[k], m[k]) for k in m) and all(
+                        torch.equal(tp_state.params[k], state.params[k])
+                        and torch.equal(tp_state.ema_params[k], state.ema_params[k])
+                        for k in state.params))
+            n = TP_STEPS * layer_calls(harness.config.model)
+            want = (n, 0) if fuse is None else (0, n)
+            launches[f"tp_nccl1_fuse_{fuse}"] = counts
+            ok = all(equal) and counts == want
+            print(f"{tag} NCCL world size 1, mesh {mesh.shape}: make_sharded_train_step vs "
+                  f"train_step, production_config() (bf16, batch 32, L={L_MAIN}), "
+                  f"fuse_ipa_layer={fuse}, {TP_STEPS} steps from the warmup's end under "
+                  f"deterministic algorithms: metrics, parameters and EMA bitwise equal by step "
+                  f"{equal}; launches K1, K2 {counts} (expected {want}); "
+                  f"{'ok' if ok else 'FAILED'} (card: {card})")
+            if not ok:
+                raise RuntimeError(f"{tag} the tp = 1 step is not the single-device step")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def tp_replay(torch, device, dtype, fuse, batch, dp, tp, steps):
+    """[tp] (b) / (c)'s references, on rank 0 of the workers: each checked
+    tp step replayed in this one process on the card from the tp run's
+    gathered pre-step state with the same draws, under deterministic
+    algorithms.  The gradients of `train_step` (`loss_and_grads`; at dp > 1
+    `host_dp_loss_and_grads` over the dp shards) and, in float32, of the
+    host loop of the tp ranks' parts (`host_tp_harness`: the same kernel
+    calls at h / tp heads, summed in this process), against the tp step's
+    (gathered over tp, averaged over dp); the update, `apply_gradients` on
+    the pre-step state with the tp step's own gradients, against the tp
+    step's parameters; for bf16 the whole step (the replay's own gradients
+    and update) against the tp step's, with the same distances between the
+    replay in bf16 and in float32 (the bf16 step's own rounding gap).
+    Returns by step: metrics (the largest relative difference against
+    train_step), update (max |d| over each leaf's scale, at least 1);
+    float32: host and single (max |d| over the whole gradient's largest
+    entry, against the host loop and against train_step) and far (the
+    leaf of train_step's largest |d|, it, and the leaf's largest entry);
+    bf16: grads, grads_gap (relative L2 distances), step and step_gap (the
+    parameters' distance as a share of the step's update)."""
+    from diffab_pytorch_tpu_torch.parallel.dp import host_dp_loss_and_grads
+    from diffab_pytorch_tpu_torch.parallel.mesh import BatchSharding, put_global
+    from diffab_pytorch_tpu_torch.parallel.tp import host_tp_harness
+    from diffab_pytorch_tpu_torch.train.harness import OptState, TrainState
+
+    dtypes = (dtype,) if dtype == "float32" else (dtype, "float32")
+    harnesses = {dt: par_train_setup(torch, device, fuse, dt)[0] for dt in dtypes}
+    shards = [put_global(batch, BatchSharding(r, dp)) for r in range(dp)]
+    on = lambda d, grad=False: {k: v.to(device, copy=True).requires_grad_(grad)
+                                for k, v in d.items()}
+    host = lambda d: {k: v.detach().to("cpu", copy=True) for k, v in d.items()}
+
+    def loss_and_grads(harness, params, draws, step):
+        if dp == 1:
+            _, metrics, grads = harness.loss_and_grads(params, batch, draws[0], step)
+        else:
+            grads, metrics = host_dp_loss_and_grads(harness, params, shards, draws, step)
+        return {f"train/{k}": float(v) for k, v in metrics.items()}, host(grads)
+
+    out = []
+    with deterministic(torch):
+        for s, rec in enumerate(steps):
+            pre = rec["pre"]
+            fresh = lambda: TrainState(pre["step"], on(pre["params"], True),
+                                       OptState(pre["count"], on(pre["mu"]), on(pre["nu"])),
+                                       on(pre["ema"]))
+            got = {}
+            for dt, harness in harnesses.items():
+                state = fresh()
+                draws = [par_draws(torch, harness, x, s, r) for r, x in enumerate(shards)]
+                metrics, grads = loss_and_grads(harness, state.params, draws, state.step)
+                own = harness.apply_gradients(state, on(grads))
+                got[dt] = (grads, metrics, host(own.params))
+            grads, metrics, own = got[dtype]
+            replayed = harnesses[dtype].apply_gradients(fresh(), on(rec["grads"]))
+            row = dict(metrics=max(abs(rec["metrics"][k] - v) / max(abs(v), 1e-30)
+                                   for k, v in metrics.items()),
+                       update=leaf_rel(rec["post"], host(replayed.params)))
+            if dtype == "float32":
+                top = max(float(v.abs().max()) for v in grads.values())
+                state = fresh()
+                _, host_grads = loss_and_grads(host_tp_harness(harnesses[dtype], tp),
+                                               state.params, draws, state.step)
+                diff = {k: float((rec["grads"][k] - v).abs().max()) for k, v in grads.items()}
+                far = max(diff, key=diff.get)
+                row.update(host=max(float((rec["grads"][k] - v).abs().max())
+                                    for k, v in host_grads.items()) / top,
+                           single=diff[far] / top,
+                           far=(far, diff[far], float(grads[far].abs().max())))
+            else:
+                g32, _, own32 = got["float32"]
+                row.update(grads=grad_l2(rec["grads"], grads), grads_gap=grad_l2(grads, g32),
+                           step=update_l2(rec["post"], own, pre["params"]),
+                           step_gap=update_l2(own, own32, pre["params"]))
+            out.append(row)
+    return out
+
+
+def tp_worker(argv) -> int:
+    """One rank of [tp] (b), (c) or (f), started by tp_start: chip_smoke.py
+    --tp-worker RANK WORLD PORT TP BACKEND OUT_DIR.  Gloo on the one card
+    (or NCCL, one card a rank), the (dp, tp) mesh over WORLD ranks; for
+    each of TP_RUNS (tp = WORLD) or float32 at the K1 flag (dp x tp): the
+    state from `par_state`, sharded; TP_STEPS steps under deterministic
+    algorithms, each after the gradients of the pre-step state (gathered
+    over tp), with the replicated leaves checked bit-identical over the
+    mesh after each step; then (tp = WORLD, the first run) the sharded
+    checkpoint saved and restored into the mesh; then the collectives of
+    one step (count and bytes), TP_TIMED timed steps, one profiled step and
+    the peak memory; last, on rank 0, the checked steps replayed
+    single-device (`tp_replay`).  Writes what it holds to
+    OUT_DIR/rank<RANK>.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from diffab_pytorch_tpu_torch.parallel.mesh import (
+        batch_sharding, check_replicated, make_mesh, param_sharding, put_global)
+    from diffab_pytorch_tpu_torch.parallel.tp import (
+        gather_params, gather_state, head_shard, make_sharded_train_step, shard_state,
+        tp_harness)
+    from diffab_pytorch_tpu_torch.train import checkpoint as ckpt
+
+    rank, world, port, tp = (int(a) for a in argv[:4])
+    backend, out = argv[4], argv[5]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(device)
+    store = dist.TCPStore("127.0.0.1", port, world, rank == 0,
+                          timeout=datetime.timedelta(seconds=300))
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world)
+    cpu = lambda d: {k: v.detach().to("cpu", copy=True) for k, v in d.items()}
+
+    def host_state(state):
+        full = gather_state(state, mesh)  # a collective: every rank calls it
+        return dict(step=full.step, count=full.opt_state.count, params=cpu(full.params),
+                    mu=cpu(full.opt_state.mu), nu=cpu(full.opt_state.nu),
+                    ema=cpu(full.ema_params))
+    try:
+        mesh = make_mesh(tp)
+        res = {}
+        for i, (dtype, fuse) in enumerate(TP_RUNS if tp == world else TP_RUNS[:1]):
+            torch.cuda.reset_peak_memory_stats()
+            harness, batch = par_train_setup(torch, device, fuse, dtype)
+            local = tp_harness(harness, head_shard(harness.config.model, mesh))
+            rows = put_global(batch, batch_sharding(mesh.dp_group))
+            state = shard_state(par_state(harness), mesh)
+            splits = param_sharding(state.params, mesh)
+            step = make_sharded_train_step(harness, mesh)
+            draws = lambda s: par_draws(torch, harness, rows, s, mesh.dp_rank)
+            per_step, counts, lrs = [], (0, 0), []
+            with deterministic(torch):
+                for s in range(TP_STEPS):
+                    pre = host_state(state)
+                    lrs.append(harness.learning_rate(state.opt_state.count))
+                    _, _, grads = local.loss_and_grads(state.params, rows, draws(s), state.step)
+                    grads = gather_params([grads], mesh)[0]
+                    if mesh.shape["dp"] > 1:  # the average the step applies
+                        flat = torch.cat([g.reshape(-1) for g in grads.values()])
+                        dist.all_reduce(flat, group=mesh.dp_group)
+                        flat /= mesh.shape["dp"]
+                        grads = dict(zip(grads, (f.view_as(g) for f, g in zip(
+                            flat.split([g.numel() for g in grads.values()]), grads.values()))))
+                    torch.cuda.synchronize()
+                    before = k_launches()
+                    state, m = step(state, rows, draws(s))
+                    torch.cuda.synchronize()
+                    counts = tuple(a + c - b for a, b, c in zip(counts, before, k_launches()))
+                    check_replicated([v for k, v in state.params.items() if splits[k] is None]
+                                     + [v for k, v in state.ema_params.items()
+                                        if splits[k] is None], mesh.group)
+                    per_step.append(dict(pre=pre, grads=cpu(grads), post=host_state(state)[
+                        "params"], metrics={k: float(v) for k, v in m.items()}))
+            run = dict(launches=counts, lrs=lrs, heads=local.model.denoiser.ipa.layers[0].n_head)
+            if tp == world and i == 0:
+                ck_dir = os.path.join(out, "ck_tp")
+                ckpt.save_checkpoint(ck_dir, state, mesh=mesh)
+                back = ckpt.restore_checkpoint(ck_dir, device, mesh=mesh)
+                run["restored_equal"] = all(
+                    torch.equal(back.params[k].detach(), v.detach()) and torch.equal(
+                        back.ema_params[k], state.ema_params[k]) and torch.equal(
+                        back.opt_state.mu[k], state.opt_state.mu[k]) and torch.equal(
+                        back.opt_state.nu[k], state.opt_state.nu[k])
+                    for k, v in state.params.items())
+                saved = host_state(state)
+                if rank == 0:
+                    run["saved"] = saved
+            real, seen = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}, []
+
+            def counted(name):
+                def call(t, *a, **k):
+                    x = a[0] if name == "all_gather" else t
+                    seen.append((name, x.numel() * x.element_size()))
+                    return real[name](t, *a, **k)
+                return call
+            for n in real:
+                setattr(dist, n, counted(n))
+            try:
+                state, _ = step(state, rows, draws(100))
+                torch.cuda.synchronize()
+            finally:
+                for n, f in real.items():
+                    setattr(dist, n, f)
+            t0 = time.perf_counter()
+            for s in range(TP_TIMED):
+                state, m = step(state, rows, draws(200 + s))
+            torch.cuda.synchronize()
+            rate = TP_TIMED / (time.perf_counter() - t0)
+            busy, events = profile_device(torch, lambda: step(state, rows, draws(300)), 1 / rate,
+                                          f"[tp] rank {rank} one step", top=0,
+                                          return_events=True)
+            run.update(collectives=seen, rate=rate, busy_ms=busy, events=events,
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       loss=float(m["train/loss"]))
+            del state, local
+            if rank == 0:
+                run["check"] = tp_replay(torch, device, dtype, fuse, batch,
+                                         mesh.shape["dp"], tp, per_step)
+            res[f"{dtype}_{fuse}"] = run
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_start(world, tp, backend, tmp):
+    """Start `world` tp_worker processes; returns (processes, out dir, start)."""
+    out = os.path.join(tmp, f"tp_{backend}_{world}_{tp}")
+    os.makedirs(out, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-worker", str(r),
+                               str(world), str(port), str(tp), backend, out],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    return procs, out, time.perf_counter()
+
+
+def tp_join(torch, procs, out, t0, tag):
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    if any(p.returncode != 0 for p in procs):
+        for r, log in enumerate(logs):
+            print(f"{tag} rank {r} exited {procs[r].returncode}:\n{log[-4000:]}")
+        raise RuntimeError(f"{tag} a worker failed")
+    for log in logs[:1]:
+        for line in log.splitlines():
+            if line.startswith("[profile]"):
+                print(f"{tag} {line}")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(len(procs))], wall
+
+
+def grad_l2(a: dict, b: dict) -> float:
+    """|a - b| / |b| over all leaves together."""
+    num = sum(float((a[k].float() - v.float()).square().sum()) for k, v in b.items())
+    return (num / max(sum(float(v.float().square().sum()) for v in b.values()), 1e-30)) ** 0.5
+
+
+def tp_plain_rate(torch, dtype, fuse):
+    """train_step's steps/s on the card over TP_TIMED steps after one,
+    beside the tp step's (same config, batch and draws)."""
+    harness, batch = par_train_setup(torch, "cuda", fuse, dtype)
+    state = par_state(harness)
+    state, _ = harness.train_step(state, batch, par_draws(torch, harness, batch, 100, 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(TP_TIMED):
+        state, _ = harness.train_step(state, batch, par_draws(torch, harness, batch, 200 + s, 0))
+    torch.cuda.synchronize()
+    return TP_TIMED / (time.perf_counter() - t0)
+
+
+def update_l2(a: dict, b: dict, before: dict) -> float:
+    """|a - b| over |b - before|: two steps' parameters against one step's
+    update, all leaves together."""
+    num = sum(float((a[k] - v).square().sum()) for k, v in b.items())
+    return (num / max(sum(float((v - before[k]).square().sum()) for k, v in b.items()),
+                      1e-30)) ** 0.5
+
+
+def tp_rule(dtype, fuse, check) -> tuple[bool, str]:
+    """[tp]'s rule on a run's replayed steps (`tp_replay`).  Both dtypes:
+    the update the tp step makes from its own gradients within 1e-5 of
+    each leaf's scale (at least 1) of the single-device update from those
+    gradients.  float32: the gradients within 1e-5 of the whole gradient's
+    largest entry of the host loop of the tp ranks' parts on the card, and
+    at fuse_ipa_layer=False of train_step's too; the metrics within 1e-5
+    relative of train_step's.  At the K1 flag train_step's gradient
+    distance is a reading, not a gate: K1's float32 route (3xTF32) rounds
+    a layer's output ~3e-6 of its scale apart at 4 and 8 heads (its
+    per-head weights are bitwise equal; PERF.md §6), and a ReLU of a
+    head whose input lies that close to 0 changes side.  bf16 (stated
+    before the first run): the gradients' relative L2 distance and the
+    whole step's parameters' distance as a share of its update each at
+    most TP_BF16_FACTOR times the replay's own bf16-float32 gap, the
+    metrics within 2^-8 relative.  Returns (passed, what it read)."""
+    col = lambda key, fmt=".2e": [f"{row[key]:{fmt}}" for row in check]
+    if dtype == "float32":
+        ok = all(max(row["host"], row["update"], row["metrics"]) <= 1e-5
+                 and (fuse is not False or row["single"] <= 1e-5) for row in check)
+        far = [(row["far"][0], f"{row['far'][1]:.2e}", f"{row['far'][2]:.2e}") for row in check]
+        return ok, (f"gradients max |d| / the gradient's largest entry by step, against the "
+                    f"host loop of the tp ranks' parts on the card {col('host')} and against "
+                    f"the single-device step {col('single')}"
+                    + (" (a reading at the K1 flag: the largest |d| (leaf, |d|, its largest "
+                       f"entry) {far})" if fuse is not False else "")
+                    + f"; update from the tp gradients / leaf scale {col('update')}; metrics "
+                    f"{col('metrics')} (tol 1e-5)")
+    ok = all(row["metrics"] <= 2 ** -8 and row["update"] <= 1e-5
+             and row["grads"] <= TP_BF16_FACTOR * row["grads_gap"]
+             and row["step"] <= TP_BF16_FACTOR * row["step_gap"] for row in check)
+    return ok, (f"gradient L2 by step {col('grads', '.3e')} vs the bf16-float32 gap "
+                f"{col('grads_gap', '.3e')}; the step's parameters / update {col('step', '.3e')} "
+                f"vs {col('step_gap', '.3e')} (rule: at most {TP_BF16_FACTOR} x the gap); update "
+                f"from the tp gradients / leaf scale {col('update')} (tol 1e-5); metrics "
+                f"{col('metrics')} (tol 2^-8)")
+
+
+def tp_run_line(tag, backend, name, got, rate_plain, card):
+    """The collectives, rates, busy ms, events, idle share and peak memory
+    of a run's ranks."""
+    coll = got[0]["collectives"]
+    by_kind = {k: (sum(1 for c in coll if c[0] == k), sum(c[1] for c in coll if c[0] == k))
+               for k in ("all_reduce", "all_gather")}
+    idle = [None if g["busy_ms"] is None
+            else round(max(0.0, 1 - g["busy_ms"] / 1e3 * g["rate"]), 3) for g in got]
+    how = ("gloo through host memory, the ranks sharing the card; not an NCCL figure"
+           if backend == "gloo" else "NCCL, one card a rank")
+    print(f"{tag} {name}: collectives a step per rank {by_kind} (count, bytes); steps/s per "
+          f"rank {[round(g['rate'], 3) for g in got]} ({how}) vs train_step {rate_plain:.3f}; "
+          f"busy ms a step per rank {[round(g['busy_ms'] or 0, 3) for g in got]}, device "
+          f"events {[g['events'] for g in got]}, idle share {idle}; peak memory per rank "
+          f"{[round(g['peak_gb'], 3) for g in got]} GB (card: {card})")
+
+
+def tp_two_ranks(torch, card, tmp, backend="gloo", tag="[tp] (b)"):
+    """[tp] (b) and (d) (or (f): NCCL, one card a rank): two tp_worker ranks
+    at tp = 2 (4 heads a rank) for TP_RUNS, each checked step held to
+    train_step's gradients and update on the card from the same state with
+    the same draws (`tp_replay`, `tp_rule`); the replicated leaves bit-identical over the
+    ranks after every step (checked in the workers); K1 or K2 6 a step on 4
+    heads; every step at a learning rate above 0.  (d): the sharded
+    checkpoint restored into the ranks equals their parts, and restored
+    single-device the gathered state, bitwise.  Returns {path: (K1, K2)}."""
+    from diffab_pytorch_tpu_torch.train import checkpoint as ckpt
+
+    procs, out, t0 = tp_start(2, 2, backend, tmp)
+    ranks, wall = tp_join(torch, procs, out, t0, tag)
+    launches, checks = {}, {}
+    for dtype, fuse in TP_RUNS:
+        name = f"{dtype}_{fuse}"
+        got = [r[name] for r in ranks]
+        n = TP_STEPS * 6
+        want = (n, 0) if fuse is None else (0, n)
+        counts = [g["launches"] for g in got]
+        ok, rule = tp_rule(dtype, fuse, got[0]["check"])
+        lrs = got[0]["lrs"]
+        ok = ok and all(c == want for c in counts) and min(lrs) > 0 and all(
+            g["heads"] == 4 for g in got)
+        checks[name] = ok
+        launches[f"tp_{backend}2_{name}"] = counts[0]
+        print(f"{tag} 2 ranks, {backend}, tp = 2 ({got[0]['heads']} heads a rank), "
+              f"production_config() {dtype}, fuse_ipa_layer={fuse}, {TP_STEPS} steps at lr "
+              f"{[f'{v:.2e}' for v in lrs]}, each replayed on the card from the same "
+              f"state: {rule}; launches K1, K2 per rank {counts} (expected {want}); "
+              f"{'ok' if ok else 'FAILED'}")
+        tp_run_line(tag, backend, name, got, tp_plain_rate(torch, dtype, fuse), card)
+    name = "_".join(map(str, TP_RUNS[0]))
+    restored = [r[name]["restored_equal"] for r in ranks]
+    back = ckpt.restore_checkpoint(os.path.join(out, "ck_tp"), "cpu")
+    saved = ranks[0][name]["saved"]
+    single = all(torch.equal(a[k].detach(), b[k]) for a, b in (
+        (back.params, saved["params"]), (back.opt_state.mu, saved["mu"]),
+        (back.opt_state.nu, saved["nu"]), (back.ema_params, saved["ema"])) for k in b)
+    single = single and (back.step, back.opt_state.count) == (saved["step"], saved["count"])
+    checks["checkpoint"] = all(restored) and single
+    print(f"{tag} (d) the sharded state after the {name} steps saved (gathered over tp, "
+          f"rank 0 writes): restored into the 2 ranks equal to their parts bitwise "
+          f"{restored}; restored single-device equal to the gathered state bitwise {single} "
+          f"(step {back.step}); workers' wall {wall:.2f} s")
+    if not all(checks.values()):
+        raise RuntimeError(f"{tag} failed: {checks}")
+    return launches
+
+
+def tp_dp_by_tp(torch, card, tmp):
+    """[tp] (c): four tp_worker ranks over gloo on the card, dp = 2 x
+    tp = 2, float32 at the K1 flag, each of TP_STEPS steps held to the
+    host DP step (`host_dp_loss_and_grads` over the two dp shards with
+    their draws, then the update) on the card from the same state
+    (`tp_replay`, `tp_rule`).  Returns {path: (K1, K2)}."""
+    tag = "[tp] (c)"
+    procs, out, t0 = tp_start(4, 2, "gloo", tmp)
+    ranks, wall = tp_join(torch, procs, out, t0, tag)
+    got = [r["float32_None"] for r in ranks]
+    counts = [g["launches"] for g in got]
+    want = (TP_STEPS * 6, 0)
+    ok, rule = tp_rule("float32", None, got[0]["check"])
+    ok = ok and all(c == want for c in counts) and min(got[0]["lrs"]) > 0
+    print(f"{tag} 4 ranks, gloo on the card, dp = 2 x tp = 2, production_config() float32, "
+          f"2 x 16 rows, {TP_STEPS} steps, each replayed with the host DP step on the card "
+          f"from the same state: {rule}; launches K1, K2 per rank {counts} (expected {want}); "
+          f"workers' wall {wall:.2f} s; {'ok' if ok else 'FAILED'}")
+    tp_run_line(tag, "gloo", "float32_None", got, tp_plain_rate(torch, "float32", None), card)
+    if not ok:
+        raise RuntimeError(f"{tag} the dp x tp step disagrees with the host DP step")
+    return {"tp_gloo4_dp2_tp2": counts[0]}
+
+
+def tp_kernels(torch, card, pb):
+    """[tp] (e): K1 and K2 at one tp rank's head counts (h = 4, 2, 1 of 8),
+    d = 128, ds = 32, P = 8, b = bp = 32 and b = 128 / bp = 1, L = 128 and
+    256, in both dtypes, against their plain versions (check_layer /
+    check_attention's rules, 8 padded keys); K1 at h = 8 against its two
+    halves (`tp_head_halves`); then kernel_times at each h.  Returns (K1
+    error, K2 error, {h: kernel_times(...)})."""
+    err1 = err2 = 0.0
+    with torch.no_grad():
+        for i, (h, L, (b, bp), dtype) in enumerate(
+                (h, L, shape, dtype) for h in TP_HEADS for L in (L_MAIN, 256)
+                for shape in ((32, 32), (N_DESIGNS, 1))
+                for dtype in (torch.bfloat16, torch.float32)):
+            bf = dtype == torch.bfloat16
+            name = f"[tp] (e) {'bf16' if bf else 'f32'} h={h} L={L} b={b} bp={bp}"
+            err1 = max(err1, check_layer(
+                torch, f"{name} K1", layer_inputs(torch, b, bp, L, 128, h, 32, 8, dtype, dtype,
+                                                  600 + i, 8), bf16=bf))
+            err2 = max(err2, check_attention(
+                torch, f"{name} K2", attention_inputs(torch, b, bp, L, h, 32, 8, dtype, dtype,
+                                                      700 + i, 8), 8, bf16=bf))
+        tp_head_halves(torch)
+    times = {h: kernel_times(torch, card, pb, h=h) for h in TP_HEADS}
+    for h, t in times.items():
+        err1 = max(err1, t[3], t[4])
+    return err1, err2, times
+
+
+def tp_head_halves(torch):
+    """[tp] (e): one K1 call at h = 8 against two at h = 4 on each half of
+    its heads' packed weights and biases (L = 128, both shapes and
+    dtypes): each block computes one (head, design), so the attention
+    weights must be bitwise equal; the output, the sum of the halves',
+    is printed as a share of the output's scale (the head-count rounding
+    the tp step's float32 rule meets, PERF.md §6)."""
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+
+    for b, bp in ((32, 32), (N_DESIGNS, 1)):
+        for dtype in (torch.float32, torch.bfloat16):
+            a = layer_inputs(torch, b, bp, L_MAIN, 128, 8, 32, 8, dtype, dtype, 800 + b, 8)
+            w = a["wts"]
+            fh = w.w_out.shape[0] // w.n_head
+            acc8, attn8 = op.fused_ipa_layer_packed(**a)
+            halves = []
+            for r in range(2):
+                sl = slice(4 * r, 4 * r + 4)
+                wr = op.LayerKernelWeights(w.w_qkv[sl].contiguous(),
+                                           w.w_out[sl.start * fh:sl.stop * fh].contiguous(),
+                                           w.g[sl].contiguous(), 4, w.d_scalar, w.n_point)
+                halves.append(op.fused_ipa_layer_packed(**dict(
+                    a, wts=wr, bias=a["bias"][:, sl].contiguous())))
+            same = torch.equal(torch.cat([h[1] for h in halves], 1), attn8)
+            summed = halves[0][0].float() + halves[1][0].float()
+            apart = float((summed - acc8.float()).abs().max()
+                          / acc8.float().abs().max().clamp(min=1.0))
+            print(f"[tp] (e) K1 at h = 8 vs two calls at h = 4 on its halves ({dtype}, b={b} "
+                  f"bp={bp} L={L_MAIN}): attention weights bitwise equal {same}; outputs' sum "
+                  f"{apart:.2e} of the output's scale apart")
+            if not same:
+                raise RuntimeError("[tp] (e) K1's attention weights depend on the head count")
+
+
+def tp_phase(torch, card, tmp, k1_times, k2_times):
+    """[tp]: (a) one NCCL rank; (b) two ranks on the card over gloo, with
+    (d) the checkpoints; (c) four ranks, dp x tp; (e) the kernels at the
+    path's head counts, with their times beside h = 8's (`k1_times`,
+    `k2_times` from phase 7); (f) one rank per card over NCCL where there
+    are several cards.  Returns ({path: (K1, K2)}, K1 error, K2 error,
+    {h: times})."""
+    laps = [time.perf_counter()]
+    launches = tp_one_rank(torch, card)
+    laps.append(time.perf_counter())
+    launches.update(tp_two_ranks(torch, card, tmp))
+    laps.append(time.perf_counter())
+    launches.update(tp_dp_by_tp(torch, card, tmp))
+    laps.append(time.perf_counter())
+    err1, err2, times = tp_kernels(torch, card, PAR_BATCH)
+    for label in ("sample", "train"):
+        t4 = times[4]
+        print(f"[tp] (e) per launch at L={L_MAIN}, {label} shape, h = 4 beside h = 8 (card: "
+              f"{card}): K1 bf16 {t4[0][label]['ms']:.4f} vs {k1_times[label]['ms']:.4f} ms "
+              f"(x{t4[0][label]['ms'] / k1_times[label]['ms']:.3f}; bound "
+              f"{t4[0][label]['bound_ms']:.5f} vs {k1_times[label]['bound_ms']:.5f}); K2 bf16 "
+              f"{t4[2][('bfloat16', label)]['ms']:.4f} vs "
+              f"{k2_times[('bfloat16', label)]['ms']:.4f} ms (bound "
+              f"{t4[2][('bfloat16', label)]['bound_ms']:.5f} vs "
+              f"{k2_times[('bfloat16', label)]['bound_ms']:.5f})")
+    laps.append(time.perf_counter())
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        launches.update(tp_two_ranks(torch, card, tmp, "nccl", "[tp] (f)"))
+    else:
+        print(f"[tp] (f) {n_cards} card on this machine: tp = 2 over NCCL, one rank per card, "
+              f"needs two cards or more; not run, no cross-card tp number measured")
+    laps.append(time.perf_counter())
+    parts = ("(a) NCCL one rank", "(b)+(d) two ranks gloo", "(c) dp x tp", "(e) kernels",
+             "(f) one rank per card")
+    print(f"[tp] phase {laps[-1] - laps[0]:.2f} s: " + ", ".join(
+        f"{p} {b_ - a:.2f} s" for p, a, b_ in zip(parts, laps, laps[1:])))
+    return launches, err1, err2, times
+
+
+def kernel_times(torch, card, pb, h=8):
     """Per-launch times at L = 128, the main paths' shapes (b = 128, bp = 1
     and b = bp = pb): K1 in bf16 (also host-paced, and its two launches
     apart by the profiler) and float32, K2 in both dtypes, each beside its
     plain version and its bound; K1 is held to its plain version at
-    b = 128 first.  Returns (K1 bf16 times, K1 float32 times, K2 times,
-    K1 bf16 error, K1 float32 error)."""
+    b = 128 first.  `h`: the heads of a call (8, the default width's; 4, 2,
+    1 for one tp rank's at tp = 2, 4, 8).  Returns (K1 bf16 times, K1
+    float32 times, K2 times, K1 bf16 error, K1 float32 error)."""
     from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
     from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
 
-    main_shape = dict(L=L_MAIN, d=128, h=8, ds=32, p=8)
-    att_shape = dict(L=L_MAIN, h=8, ds=32, p=8)
+    main_shape = dict(L=L_MAIN, d=128, h=h, ds=32, p=8)
+    att_shape = dict(L=L_MAIN, h=h, ds=32, p=8)
+    heads = "" if h == 8 else f" h={h}"
     k1_times = {}
     for label, b, bp, seed in (("sample", N_DESIGNS, 1, 4), ("train", pb, pb, 6)):
         with torch.no_grad():
             a = layer_inputs(torch, b, bp, **main_shape, dtype=torch.bfloat16,
                              bias_dtype=torch.bfloat16, seed=seed, n_masked=0)
             if label == "sample":
-                err_bf16 = check_layer(torch, "main bf16 (b=128 bp=1 L=128)", a, bf16=True)
+                err_bf16 = check_layer(torch, f"main bf16 (b=128 bp=1 L=128{heads})", a,
+                                       bf16=True)
             kern = lambda a=a: op.fused_ipa_layer_packed(**a)
             km = cuda_time_ms(kern, 20)
             pm = cuda_time_ms(lambda a=a: op.fused_ipa_layer_packed_reference(**a), 5)
@@ -2628,7 +3215,8 @@ def kernel_times(torch, card, pb):
         k1_times[label] = dict(ms=min(km, km2), plain_ms=pm, bound_ms=bnd, bound_by=by,
                                host_paced_ms=host_paced,
                                launch_ms=tl and {n: tl[n] for n in K1_LAUNCHES})
-        print(f"[time] ipa_fused_layer b={b} bp={bp} L=128 bf16 ({label} shape) on {card}: "
+        print(f"[time] ipa_fused_layer b={b} bp={bp} L=128{heads} bf16 ({label} shape) on "
+              f"{card}: "
               f"kernel {km:.4f} / {km2:.4f} ms (CUDA events, 20 calls queued behind a sleep), "
               f"{host_paced:.4f} ms issued call by call from the host (the earlier design's "
               f"method), "
@@ -2636,18 +3224,19 @@ def kernel_times(torch, card, pb):
               f"{t_o:.4f} ms, {nb / 1e6:.2f} MB -> {t_b:.4f} ms; bound by {by}), "
               f"{bnd / min(km, km2):.3%} of bound")
         if tl is None:
-            print(f"[time] ipa_fused_layer {label} shape, its launches: not measured "
+            print(f"[time] ipa_fused_layer{heads} {label} shape, its launches: not measured "
                   f"(the profiler reported no device time)")
             continue
-        print(f"[time] ipa_fused_layer {label} shape, profiler over 20 queued calls "
+        print(f"[time] ipa_fused_layer{heads} {label} shape, profiler over 20 queued calls "
               f"({tl['calls_seen']} seen): " + ", ".join(
             f"{n} {'not measured' if tl[n] is None else f'{tl[n]:.4f} ms'}"
             for n in K1_LAUNCHES)
             + f"; {tl['events_per_call']:.2f} device events per call, {tl['kernels_ms']:.4f} ms "
             f"in all; card idle between them per call: " + ", ".join(
                 f"before {k} {v:.4f} ms" for k, v in tl["idle_before_ms"].items()))
-    print("[earlier] ipa_fused_layer b=128 bp=1 L=128 bf16: 0.7938 ms per call with the earlier "
-          "CUDA-core design (PERF.md, K1 row; CUDA events, calls issued by the host)")
+    if h == 8:
+        print("[earlier] ipa_fused_layer b=128 bp=1 L=128 bf16: 0.7938 ms per call with the "
+              "earlier CUDA-core design (PERF.md, K1 row; CUDA events, calls issued by the host)")
 
     # K1's float32 route (3xTF32), timed as bf16 above
     k1_f32 = {}
@@ -2656,7 +3245,8 @@ def kernel_times(torch, card, pb):
             a = layer_inputs(torch, b, bp, **main_shape, dtype=torch.float32,
                              bias_dtype=torch.float32, seed=seed, n_masked=0)
             if label == "sample":
-                err_f32 = check_layer(torch, "main f32 (b=128 bp=1 L=128)", a, bf16=False)
+                err_f32 = check_layer(torch, f"main f32 (b=128 bp=1 L=128{heads})", a,
+                                      bf16=False)
             kern = lambda a=a: op.fused_ipa_layer_packed(**a)
             km = cuda_time_ms(kern, 20)
             pm = cuda_time_ms(lambda a=a: op.fused_ipa_layer_packed_reference(**a), 5)
@@ -2664,13 +3254,15 @@ def kernel_times(torch, card, pb):
         fl, nb = ipa_layer_flops_bytes(b, bp, **main_shape, itemsize=4, bias_itemsize=4)
         bnd, by, t_o, t_b = bound_ms(fl, nb, "float32")
         k1_f32[label] = dict(ms=min(km, km2), plain_ms=pm, bound_ms=bnd, bound_by=by)
-        print(f"[time] ipa_fused_layer b={b} bp={bp} L=128 f32 ({label} shape) on {card}: "
+        print(f"[time] ipa_fused_layer b={b} bp={bp} L=128{heads} f32 ({label} shape) on "
+              f"{card}: "
               f"kernel {km:.4f} / {km2:.4f} ms, plain version {pm:.4f} ms, bound {bnd:.4f} ms "
               f"({fl / 1e9:.2f} GFLOP at the 3xTF32 rate -> {t_o:.4f} ms, {nb / 1e6:.2f} MB -> "
               f"{t_b:.4f} ms; bound by {by}), {bnd / min(km, km2):.3%} of bound")
-    print("[earlier] ipa_fused_layer L=128 f32 with the earlier CUDA-core design (three "
-          "launches): 0.9785-0.9824 ms at b=128 bp=1 and 0.3148-0.3155 ms at b=bp=32 (PERF.md, "
-          "K1 row; CUDA events, queued; H100 80GB HBM3, 700 W)")
+    if h == 8:
+        print("[earlier] ipa_fused_layer L=128 f32 with the earlier CUDA-core design (three "
+              "launches): 0.9785-0.9824 ms at b=128 bp=1 and 0.3148-0.3155 ms at b=bp=32 "
+              "(PERF.md, K1 row; CUDA events, queued; H100 80GB HBM3, 700 W)")
 
     # K2 in both dtypes
     k2_times = {}
@@ -2688,13 +3280,15 @@ def kernel_times(torch, card, pb):
             bnd, by, t_o, t_b = bound_ms(fl, nb, dname)
             k2_times[(dname, label)] = dict(ms=min(km, km2), plain_ms=pm, bound_ms=bnd,
                                             bound_by=by)
-            print(f"[time] ipa_attention b={b} bp={bp} L=128 {dname} ({label} shape) on {card}: "
+            print(f"[time] ipa_attention b={b} bp={bp} L=128{heads} {dname} ({label} shape) on "
+                  f"{card}: "
                   f"kernel {km:.4f} / {km2:.4f} ms, plain version {pm:.4f} ms, bound "
                   f"{bnd:.4f} ms ({fl / 1e9:.2f} GFLOP -> {t_o:.4f} ms, {nb / 1e6:.2f} MB -> "
                   f"{t_b:.4f} ms; bound by {by}), {bnd / min(km, km2):.3%} of bound")
-    print("[earlier] ipa_attention with the earlier CUDA-core design: bf16 0.1064-0.1071 ms at "
-          "b=bp=32 and 0.4235-0.4263 ms at b=128 bp=1; float32 0.1152-0.1159 / 0.4263-0.4293 ms "
-          "(PERF.md, K2 row; CUDA events, queued; H100 80GB HBM3, 700 W)")
+    if h == 8:
+        print("[earlier] ipa_attention with the earlier CUDA-core design: bf16 0.1064-0.1071 ms "
+              "at b=bp=32 and 0.4235-0.4263 ms at b=128 bp=1; float32 0.1152-0.1159 / "
+              "0.4263-0.4293 ms (PERF.md, K2 row; CUDA events, queued; H100 80GB HBM3, 700 W)")
 
     return k1_times, k1_f32, k2_times, err_bf16, err_f32
 
@@ -2902,7 +3496,12 @@ def main() -> int:
         launches.update(parallel_phase(torch, card, os.path.join(tmp, "patches"), tmp,
                                        train_rates[None], designs_per_s))
 
-    # ---- 15. records ---------------------------------------------------------------
+        # ---- 15. tensor parallelism -----------------------------------------------------------
+        tp_launches, err1_tp, err2_tp, tp_times = tp_phase(torch, card, tmp, k1_times,
+                                                           k2_times)
+        launches.update(tp_launches)
+
+    # ---- 16. records ---------------------------------------------------------------
     by_path = lambda i: {path: c[i] for path, c in launches.items()}
     kernels = [{
         "name": "ipa_fused_layer",
@@ -2923,6 +3522,8 @@ def main() -> int:
         "max_err_L_over_128": err1_long,
         "L256": {f"{d}_{shape}": t for (k, d, shape), t in long_times.items()
                  if k == "ipa_fused_layer"},
+        "max_err_tp_heads": err1_tp,
+        "tp_heads": {h: {"bf16": t[0], "f32": t[1]} for h, t in tp_times.items()},
     }, {
         "name": "ipa_attention",
         "route": "cuda",
@@ -2942,6 +3543,9 @@ def main() -> int:
         "max_err_L_over_128": err2_long,
         "L256": {f"{d}_{shape}": t for (k, d, shape), t in long_times.items()
                  if k == "ipa_attention"},
+        "max_err_tp_heads": err2_tp,
+        "tp_heads": {h: {f"{d}_{shape}": v for (d, shape), v in t[2].items()}
+                     for h, t in tp_times.items()},
     }]
     print(json.dumps({"kernels": kernels}))
     print(f"[main] L=256: designs/s {designs_per_s_256:.3f} (bf16); few-step recipes: "
@@ -2963,4 +3567,6 @@ if __name__ == "__main__":
         sys.exit(parallel_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--run-clis"]:
         sys.exit(run_clis(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-worker"]:
+        sys.exit(tp_worker(sys.argv[2:]))
     sys.exit(main())

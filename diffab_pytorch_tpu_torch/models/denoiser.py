@@ -16,6 +16,9 @@ orientation heads after the trunk (`sc_late_fusion`), or a second fuse
 MLP and IPA stack `geo_ipa` whose output the geometry heads read
 (`sc_split_trunk`).  In the last two the sequence head reads a trunk
 computed from the context alone.
+
+With `heads` (tensor parallelism) both IPA stacks are built for one tp
+rank's heads (`models/ipa.py`); every other module is replicated.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from diffab_pytorch_tpu_torch.geometry import so3
 from diffab_pytorch_tpu_torch.models.encoding import beta_encode
 from diffab_pytorch_tpu_torch.models.ipa import InvariantPointAttentionModule, frames_apply_inverse
 from diffab_pytorch_tpu_torch.models.layers import Embedding, Linear, MLPHead
+from diffab_pytorch_tpu_torch.parallel.mesh import HeadShard
 
 
 def sc_feature_width(cfg: ModelConfig) -> int:
@@ -38,7 +42,7 @@ def sc_feature_width(cfg: ModelConfig) -> int:
 
 
 class Denoiser(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, heads: HeadShard | None = None):
         super().__init__()
         if cfg.sc_late_fusion and not cfg.self_conditioning:
             raise ValueError("sc_late_fusion requires self_conditioning")
@@ -53,11 +57,11 @@ class Denoiser(nn.Module):
         self.sequence_embedding = Embedding(cfg.aa_vocab_size, d, dt)
         self.fuse_0 = Linear(2 * d + (sc_w if early else 0), d, dt)
         self.fuse_1 = Linear(d, d, dt)
-        self.ipa = InvariantPointAttentionModule(cfg)
+        self.ipa = InvariantPointAttentionModule(cfg, heads)
         if cfg.sc_split_trunk:
             self.geo_fuse_0 = Linear(2 * d + sc_w, d, dt)
             self.geo_fuse_1 = Linear(d, d, dt)
-            self.geo_ipa = InvariantPointAttentionModule(cfg)
+            self.geo_ipa = InvariantPointAttentionModule(cfg, heads)
         geo_in = d + 3 + (sc_w if cfg.sc_late_fusion else 0)
         self.coordinate_head = MLPHead(geo_in, d, 3, dt)
         self.orientation_head = MLPHead(geo_in, d, 3, dt)

@@ -7,6 +7,13 @@ fix-structure, (False, False) everything visible.  A modality that is not
 generated is visible context for every valid residue.  Training's mode
 dropout sets the same per sample through `structure_visible` /
 `sequence_visible` (b,).
+
+With `heads` (tensor parallelism, `parallel.tp`) the denoiser's IPA
+layers are one tp rank's part, and the training forward copies the pair
+embedding into the tp region once: every use of it downstream (the
+layers' pair biases and pair rows, in `ipa` and `geo_ipa`, hoisted or
+not) is per head, so its gradient is summed over tp once a step rather
+than once a layer.
 """
 
 from __future__ import annotations
@@ -19,18 +26,20 @@ from diffab_pytorch_tpu_torch.data.batch import ProteinBatch
 from diffab_pytorch_tpu_torch.models.denoiser import Denoiser
 from diffab_pytorch_tpu_torch.models.embedding import PairEmbedding, ResidueEmbedding
 from diffab_pytorch_tpu_torch.models.ipa import precompute_pair_biases
+from diffab_pytorch_tpu_torch.parallel.mesh import HeadShard, copy_to_tp_region
 
 
 class DiffAbModel(nn.Module):
     """Parameter names mirror the flax DiffAbModel tree, so a JAX parameter
     tree loads by name (`weights.load_jax_params`)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, heads: HeadShard | None = None):
         super().__init__()
         self.cfg = cfg
+        self.heads = heads
         self.residue_context_embedding = ResidueEmbedding(cfg)
         self.pair_context_embedding = PairEmbedding(cfg)
-        self.denoiser = Denoiser(cfg)
+        self.denoiser = Denoiser(cfg, heads)
         self.to(resolve_device(device))
 
     def encode_context(self, batch: ProteinBatch, generate_structure: bool = True,
@@ -99,6 +108,7 @@ class DiffAbModel(nn.Module):
         res_emb, pair_emb = self.encode_context(
             batch, generate_structure, generate_sequence,
             structure_visible=structure_visible, sequence_visible=sequence_visible)
+        pair_emb = copy_to_tp_region(pair_emb, self.heads)
         args = (seq_idx_t, translations_t, orientations_t, res_emb, pair_emb, beta,
                 batch.generation_mask, batch.residue_mask)
         if self_condition is None:

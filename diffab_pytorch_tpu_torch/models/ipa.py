@@ -22,6 +22,16 @@ softmax, the weighted sums, one to_out over the concatenated features.
 Design fan-out: when the state batch b is n times the pair batch bp, rows
 [i n, (i+1) n) are n designs of target i sharing one pair tensor and one
 set of bias logits.
+
+Tensor parallelism (`heads`, a `parallel.mesh.HeadShard`): a layer built
+for one tp rank holds its h / tp heads' parameters (`param_sharding`: the
+projections' columns, its heads' slice of each of to_out's four row
+blocks) and the whole gamma and to_out bias.  Every branch runs on those
+heads (K1, K2 or the plain branch at h / tp); the layer's input enters
+through `copy_to_tp_region` (its gradient summed over tp, as is gamma's,
+of which the rank reads its heads' slice), the partial output (b, L, d) is
+summed over tp by `reduce_from_tp_region`, and the bias row is added once,
+after the sum.
 """
 
 from __future__ import annotations
@@ -37,6 +47,11 @@ from diffab_pytorch_tpu_torch.ops.ipa_fused_layer import (
     LayerKernelWeights,
     fused_ipa_layer_packed,
     pack_layer_weights,
+)
+from diffab_pytorch_tpu_torch.parallel.mesh import (
+    HeadShard,
+    copy_to_tp_region,
+    reduce_from_tp_region,
 )
 
 
@@ -78,12 +93,18 @@ def attended_pair_rows(attn, pair, n_designs: int = 1):
 
 
 class InvariantPointAttentionLayer(nn.Module):
-    """One IPA layer; parameter names mirror the flax layer's."""
+    """One IPA layer; parameter names mirror the flax layer's.  With
+    `heads`, one tp rank's part of it (the module docstring)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, heads: HeadShard | None = None):
         super().__init__()
         self.cfg = cfg
-        dt, d, h = cfg.dtype, cfg.d_residue_emb, cfg.n_head
+        self.heads = heads
+        h_all = cfg.n_head
+        self.n_head = h = h_all if heads is None else h_all // heads.size
+        if heads is not None:
+            heads.heads(h_all)  # raises unless tp divides the heads
+        dt, d = cfg.dtype, cfg.d_residue_emb
         ds, dp = cfg.d_scalar_per_head, cfg.d_pair_emb
         pq, pv = cfg.n_query_point_per_head, cfg.n_value_point_per_head
         # the kernels take the layer only where JAX's does (models/ipa.py:237)
@@ -96,20 +117,28 @@ class InvariantPointAttentionLayer(nn.Module):
         self.to_v_point = Linear(d, h * pv * 3, dt, bias=False)
         if cfg.use_pair_bias:
             self.to_pair_bias = Linear(dp, h, dt, bias=False)
-        self.gamma = nn.Parameter(torch.full((h,), float(torch.log(torch.expm1(torch.tensor(1.0))))))
+        self.gamma = nn.Parameter(
+            torch.full((h_all,), float(torch.log(torch.expm1(torch.tensor(1.0))))))
         d_pair_out = h * dp if cfg.use_pair_bias else 0
         self.to_out = Linear(h * ds + d_pair_out + h * pv * 3 + h * pv, d, dt)
         self.scale_scalar = ds ** -0.5
         self.scale_point = (4.5 * pq) ** -0.5
         self.scale_total = (3 if cfg.use_pair_bias else 2) ** -0.5
 
+    def softplus_gamma(self) -> torch.Tensor:
+        """softplus(gamma) of the layer's heads, in the compute dtype."""
+        g = self.gamma
+        if self.heads is not None:
+            g = copy_to_tp_region(g, self.heads)[self.heads.heads(self.cfg.n_head)]
+        return F.softplus(g.to(self.cfg.dtype))
+
     def kernel_weights(self) -> tuple[LayerKernelWeights, torch.Tensor, torch.Tensor]:
         """(packed fused-layer weights, W_pair (h dp, d), b_row (d,)) in the
         compute dtype — parameters only, so the sampler computes them once."""
         cfg = self.cfg
-        dt, h, ds, dp = cfg.dtype, cfg.n_head, cfg.d_scalar_per_head, cfg.d_pair_emb
+        dt, h, ds, dp = cfg.dtype, self.n_head, cfg.d_scalar_per_head, cfg.d_pair_emb
         p = cfg.n_value_point_per_head
-        gamma = F.softplus(self.gamma.to(dt))
+        gamma = self.softplus_gamma()
         # to_out rows: [scalar (h ds) | pair (h dp) | points (h p 3) | norms (h p)]
         W_s, W_pair, W_p, W_n = torch.split(
             self.to_out.kernel(dt), [h * ds, h * dp, h * p * 3, h * p])
@@ -124,8 +153,10 @@ class InvariantPointAttentionLayer(nn.Module):
     def forward(self, x, pair, rot, trans, residue_mask=None, pair_bias=None,
                 kernel_weights=None):
         """x (b, L, d), pair (bp, L, L, dp), rot (b, L, 3, 3), trans (b, L, 3),
-        residue_mask (b, L), pair_bias (bp, h, L, L) precomputed or None."""
+        residue_mask (b, L), pair_bias (bp, h, L, L) precomputed (the
+        layer's h heads) or None."""
         cfg = self.cfg
+        x = copy_to_tp_region(x, self.heads)
         dt = cfg.dtype
         b, L, _ = x.shape
         bp = pair.shape[0]
@@ -149,7 +180,8 @@ class InvariantPointAttentionLayer(nn.Module):
             pair_bias = self.to_pair_bias(pair.to(dt)).permute(0, 3, 1, 2)
         rot, trans = rot.to(dt).contiguous(), trans.to(dt).contiguous()
         if not self.use_kernel:
-            return self._plain_path(x, pair, rot, trans, residue_mask, pair_bias, n_designs)
+            acc = self._plain_path(x, pair, rot, trans, residue_mask, pair_bias, n_designs)
+            return reduce_from_tp_region(acc, self.heads) + self.to_out.bias.to(dt)
         bias = pair_bias.to(dt).contiguous()
         if cfg.fuse_ipa_layer is False:
             acc, attn, W_pair, b_row = self._attention_core_path(x, rot, trans, mask, bias)
@@ -163,14 +195,15 @@ class InvariantPointAttentionLayer(nn.Module):
         # design-major transpose then moves a (b, L, d) tensor
         op = _pair_rows(attn, pair.to(dt), n_designs) @ W_pair  # (bp, i, n, d)
         acc = acc + op.transpose(1, 2).reshape(b, L, -1)
-        return acc + b_row
+        return reduce_from_tp_region(acc, self.heads) + b_row
 
     def _plain_path(self, x, pair, rot, trans, residue_mask, pair_bias, n_designs):
         """JAX `models/ipa.py:312-389`, the layer without the kernels'
         preconditions: separate query and value point counts, the pair
-        term only when use_pair_bias.  Returns the layer's output."""
+        term only when use_pair_bias.  Returns the layer's output without
+        the bias row."""
         cfg = self.cfg
-        dt, h, ds = cfg.dtype, cfg.n_head, cfg.d_scalar_per_head
+        dt, h, ds = cfg.dtype, self.n_head, cfg.d_scalar_per_head
         pq, pv = cfg.n_query_point_per_head, cfg.n_value_point_per_head
         b, L, _ = x.shape
         mods = (self.to_q_scalar, self.to_k_scalar, self.to_v_scalar,
@@ -186,7 +219,7 @@ class InvariantPointAttentionLayer(nn.Module):
         # |q_i - k_j|^2 through its expansion, as the JAX branch computes it
         sq_dist = ((qf * qf).sum(-1)[..., :, None] + (kf * kf).sum(-1)[..., None, :]
                    - 2.0 * qf @ kf.transpose(-1, -2))
-        gamma = F.softplus(self.gamma.to(dt))
+        gamma = self.softplus_gamma()
         logit = (heads(q_s, ds) @ heads(k_s, ds).transpose(-1, -2)) * self.scale_scalar
         logit = logit - 0.5 * self.scale_point * gamma[:, None, None] * sq_dist
         if cfg.use_pair_bias:
@@ -206,14 +239,14 @@ class InvariantPointAttentionLayer(nn.Module):
         out_p = frames_apply_inverse(out_p, rot, trans)
         nrm = torch.sqrt((out_p * out_p).sum(dim=-1) + 1e-8)
         outs += [out_p.reshape(b, L, h * pv * 3), nrm.reshape(b, L, h * pv)]
-        return self.to_out(torch.cat(outs, dim=-1))
+        return F.linear(torch.cat(outs, dim=-1), self.to_out.weight.to(dt))
 
     def _attention_core_path(self, x, rot, trans, mask, bias):
         """JAX `models/ipa.py:283-300`: projections and frames, the
         attention core, the sliced output projection.  Returns (acc without
         the pair term and bias row, attn, W_pair, b_row)."""
         cfg = self.cfg
-        dt, h, ds, dp = cfg.dtype, cfg.n_head, cfg.d_scalar_per_head, cfg.d_pair_emb
+        dt, h, ds, dp = cfg.dtype, self.n_head, cfg.d_scalar_per_head, cfg.d_pair_emb
         p = cfg.n_value_point_per_head
         b, L, _ = x.shape
         mods = (self.to_q_scalar, self.to_k_scalar, self.to_v_scalar,
@@ -223,7 +256,7 @@ class InvariantPointAttentionLayer(nn.Module):
         q_s, k_s, v_s = (t.reshape(b, L, h, ds) for t in (q_s, k_s, v_s))
         q_p, k_p, v_p = (frames_apply(t.reshape(b, L, h, p, 3), rot, trans)
                          for t in (q_p, k_p, v_p))
-        gamma = F.softplus(self.gamma.to(dt))
+        gamma = self.softplus_gamma()
         out_s_t, attn, out_p = fused_ipa_attention_raw(
             q_s, k_s, v_s, q_p, k_p, v_p, bias, gamma, mask,
             self.scale_scalar, self.scale_point, self.scale_total)
@@ -238,13 +271,14 @@ class InvariantPointAttentionLayer(nn.Module):
 
 class InvariantPointAttentionModule(nn.Module):
     """Stack of IPA layers (layer_0, layer_1, ...); pair embedding and
-    frames stay fixed, the residue embedding is refined layer to layer."""
+    frames stay fixed, the residue embedding is refined layer to layer.
+    With `heads`, every layer is one tp rank's part."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, heads: HeadShard | None = None):
         super().__init__()
         self.cfg = cfg
         for i in range(cfg.n_ipa_layers):
-            self.add_module(f"layer_{i}", InvariantPointAttentionLayer(cfg))
+            self.add_module(f"layer_{i}", InvariantPointAttentionLayer(cfg, heads))
 
     @property
     def layers(self) -> list[InvariantPointAttentionLayer]:
@@ -259,11 +293,11 @@ class InvariantPointAttentionModule(nn.Module):
         return [ly.kernel_weights() for ly in self.layers]
 
     def pair_biases(self, pair_emb) -> list:
-        """Every layer's pair-bias logits (bp, h, L, L) in the compute dtype,
-        as the JAX stack computes them when none are given: one projection
-        of the pair tensor onto the layers' concatenated (d_pair, h)
-        kernels.  Without the pair bias, None for every layer."""
-        dt, h = self.cfg.dtype, self.cfg.n_head
+        """Every layer's pair-bias logits (bp, h, L, L) of its h heads in the
+        compute dtype, as the JAX stack computes them when none are given:
+        one projection of the pair tensor onto the layers' concatenated
+        (d_pair, h) kernels.  Without the pair bias, None for every layer."""
+        dt, h = self.cfg.dtype, self.layers[0].n_head
         if not self.cfg.use_pair_bias:
             return [None] * self.cfg.n_ipa_layers
         w = torch.cat([ly.to_pair_bias.kernel(dt) for ly in self.layers], dim=1)
@@ -282,9 +316,9 @@ class InvariantPointAttentionModule(nn.Module):
 
 
 def precompute_pair_biases(ipa: InvariantPointAttentionModule, pair_emb) -> list:
-    """Pair-bias logits (bp, h, L, L) of every layer in float32, computed
-    once from the t-independent pair embedding (None for every layer
-    without the pair bias)."""
+    """Pair-bias logits (bp, h, L, L) of every layer's h heads in float32,
+    computed once from the t-independent pair embedding (None for every
+    layer without the pair bias)."""
     if not ipa.cfg.use_pair_bias:
         return [None] * ipa.cfg.n_ipa_layers
     return [

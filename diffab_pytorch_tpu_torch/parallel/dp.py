@@ -20,6 +20,10 @@ with `to_rank0=True` on rank 0 only (None elsewhere).
     Gloo has no all_gather for tensors on the card, so on a gloo group
     they are gathered through host memory.
 
+Tensor parallelism (JAX's `make_sharded_train_step`, `shard_state`) is
+`parallel/tp.py`; its step runs this module's gradient all-reduce over the
+mesh's dp group.
+
 Random streams.  JAX folds the device index into the key.  Here rank r
 draws from its own generator: rank 0 from the generator it was given, rank
 r > 0 from a fresh generator on the same device seeded with

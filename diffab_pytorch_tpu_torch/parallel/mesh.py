@@ -22,8 +22,19 @@ group itself:
 
 Every function takes the process group it should use (None: the default
 group), so a caller can also hand it a gloo group whose tensors live on the
-card.  Tensor parallelism (JAX's `make_mesh(tp=...)`, `param_sharding`) is
-not ported (ROADMAP A14b).
+card.
+
+Tensor parallelism (JAX's `make_mesh(tp=...)` and `param_sharding`):
+
+  * `make_mesh(tp, group)`: the group's n ranks as a (dp, tp) grid, rank =
+    dp index x tp + tp index (JAX's device order), with a process group for
+    this rank's dp column and one for its tp row; `mesh_layout` is the
+    arithmetic alone;
+  * `param_sharding(params, mesh)`: which axis of each torch parameter is
+    split over tp (`Split`), or None: JAX's Megatron split of the IPA
+    layers, by head (see its docstring);
+  * `HeadShard`, `copy_to_tp_region` and `reduce_from_tp_region`: what an
+    IPA layer built for its rank's heads needs (`models/ipa.py`).
 """
 
 from __future__ import annotations
@@ -39,6 +50,8 @@ import torch.distributed as dist
 from diffab_pytorch_tpu_torch.config import resolve_device
 
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+DP_AXIS = "dp"
+TP_AXIS = "tp"
 
 
 def _group_device(group) -> torch.device:
@@ -119,8 +132,10 @@ def check_replicated(tree, group=None) -> None:
     bad = (mine != first).any(dim=1).sum().reshape(1)
     dist.all_reduce(bad, group=group)
     if int(bad) > 0:
-        raise RuntimeError(f"replicated state differs across ranks: {int(bad)} rank-tensor "
-                           f"pairs differ from rank 0's of {len(leaves)} tensors")
+        ranks = dist.get_process_group_ranks(group or dist.group.WORLD)
+        raise RuntimeError(f"replicated state differs across ranks of the group of global "
+                           f"ranks {ranks}: {int(bad)} rank-tensor pairs differ from its "
+                           f"rank 0's of {len(leaves)} tensors")
 
 
 def put_global(tree, sharding):
@@ -169,3 +184,224 @@ def init_distributed(device=None):
         yield device
     finally:
         dist.destroy_process_group()
+
+
+# ---- the (dp, tp) mesh ---------------------------------------------------------------
+
+
+class Layout(NamedTuple):
+    """The ranks of an n-rank group as a (dp, tp) grid: `rows` are the tp
+    groups (dp index d holds ranks d tp ... d tp + tp - 1), `columns` the dp
+    groups (tp index t holds ranks t, t + tp, ...)."""
+
+    dp: int
+    tp: int
+
+    @property
+    def rows(self) -> list[list[int]]:
+        return [[d * self.tp + t for t in range(self.tp)] for d in range(self.dp)]
+
+    @property
+    def columns(self) -> list[list[int]]:
+        return [[d * self.tp + t for d in range(self.dp)] for t in range(self.tp)]
+
+    def coords(self, rank: int) -> tuple[int, int]:
+        """(dp index, tp index) of a rank."""
+        return divmod(rank, self.tp)
+
+
+def mesh_layout(n: int, tp: int = 1) -> Layout:
+    """The (n / tp, tp) grid of JAX's `make_mesh(n, tp)`: device (or rank)
+    i sits at dp index i // tp and tp index i % tp."""
+    if tp < 1 or n % tp:
+        raise ValueError(f"n_devices={n} not divisible by tp={tp}")
+    return Layout(n // tp, tp)
+
+
+class Mesh(NamedTuple):
+    """One rank's view of a (dp, tp) mesh: the whole group, the process
+    groups of its dp column (the ranks that hold the same parameter
+    shards) and of its tp row (the ranks that split one model), its
+    coordinates, and `shape` {"dp": n / tp, "tp": tp} as JAX's Mesh.shape."""
+
+    group: object
+    dp_group: object
+    tp_group: object
+    dp_rank: int
+    tp_rank: int
+    shape: dict
+
+
+def make_mesh(tp: int = 1, group=None) -> Mesh:
+    """The (dp, tp) mesh over `group`'s ranks (None: the default group),
+    ranked as JAX ranks devices (`mesh_layout`).  Every rank of the default
+    group must call it, in the same order as its other group creations: it
+    creates every dp and every tp subgroup (`dist.new_group`, on the
+    group's backend) and keeps its own two."""
+    layout = mesh_layout(dist.get_world_size(group), tp)
+    ranks = dist.get_process_group_ranks(group or dist.group.WORLD)
+    backend = dist.get_backend(group)
+    dp_index, tp_index = layout.coords(dist.get_rank(group))
+    made = {}
+    for kind, sets in (("dp", layout.columns), ("tp", layout.rows)):
+        for i, members in enumerate(sets):
+            g = dist.new_group([ranks[r] for r in members], backend=backend)
+            if i == (tp_index if kind == "dp" else dp_index):
+                made[kind] = g
+    return Mesh(group, made["dp"], made["tp"], dp_index, tp_index,
+                {DP_AXIS: layout.dp, TP_AXIS: layout.tp})
+
+
+# ---- the split of the parameters over tp ------------------------------------------------
+
+# JAX's Megatron patterns (parallel/mesh.py _COL_PARALLEL / _ROW_PARALLEL)
+_COL_PARALLEL = ("to_q_scalar", "to_k_scalar", "to_v_scalar", "to_q_point", "to_k_point",
+                 "to_v_point", "to_pair_bias")
+_ROW_PARALLEL = "to_out"
+
+
+class Split(NamedTuple):
+    """A parameter split over tp along axis `dim`: the axis is cut into
+    consecutive blocks of the sizes `blocks` (of the tensor the split was
+    read from), and each block into tp equal parts; rank t keeps part t of
+    every block, concatenated in block order."""
+
+    dim: int
+    blocks: tuple[int, ...]
+
+    def shard(self, t: torch.Tensor, rank: int, tp: int) -> torch.Tensor:
+        """Rank `rank`'s part of the full tensor t (differentiable; a view
+        for one block)."""
+        parts = [blk.chunk(tp, self.dim)[rank] for blk in t.split(list(self.blocks), self.dim)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, self.dim)
+
+    def gather(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        """The full tensor from every rank's part in rank order (the split
+        read from a part)."""
+        pieces = [p.split(list(self.blocks), self.dim) for p in parts]
+        return torch.cat([torch.cat([pc[i] for pc in pieces], self.dim)
+                          for i in range(len(self.blocks))], self.dim)
+
+
+def _layer_of(name: str) -> tuple[str, str]:
+    """("<layer>.", module) of a parameter name "<layer>.<module>.weight"."""
+    parts = name.split(".")
+    prefix = ".".join(parts[:-2])
+    return (prefix + "." if prefix else ""), (parts[-2] if len(parts) > 1 else "")
+
+
+def param_sharding(params: dict, mesh) -> dict:
+    """{name: Split or None}: how each parameter of a DiffAb state dict
+    (full or one rank's part; `mesh` a Mesh, or the tp size) is split over
+    tp.  JAX's Megatron split of every IPA layer, wherever it sits (`ipa`,
+    `geo_ipa`):
+
+      * column-parallel: the weights of to_{q,k,v}_{scalar,point} and
+        to_pair_bias, flax (in, out) `P(None, "tp")`, are split along their
+        output features, torch dim 0: head-major, so rank t keeps heads
+        [t h / tp, (t + 1) h / tp);
+      * row-parallel: to_out's weight, flax `P("tp", None)`, along its
+        input features, torch dim 1.  Its inputs are the four blocks
+        [scalar h ds | pair h dp | points h P 3 | norms h P] (no pair block
+        without the pair bias), each head-major, and each is split by head,
+        so a rank keeps its heads' slice of every block.  JAX cuts the axis
+        in tp contiguous pieces instead, which do not line up with the heads
+        (GSPMD moves the data as it needs); the layer's numbers are the same;
+      * everything else is replicated, gamma and to_out's bias included, as
+        in JAX.
+
+    Where the layer's head count h does not divide by tp, the port
+    replicates the whole layer (every rank runs every head, and the layer
+    needs no collective); JAX replicates only the leaves whose axis does not
+    divide and lets GSPMD split the rest.  The numbers are the same."""
+    tp = mesh if isinstance(mesh, int) else mesh.shape[TP_AXIS]
+    out = {}
+    for name, t in params.items():
+        prefix, module = _layer_of(name)
+        split = None
+        gamma = params.get(prefix + "gamma")
+        if (tp > 1 and name.endswith(".weight") and gamma is not None
+                and gamma.shape[0] % tp == 0):
+            if module in _COL_PARALLEL:
+                split = Split(0, (t.shape[0],))
+            elif module == _ROW_PARALLEL:
+                blocks = [params[prefix + "to_q_scalar.weight"].shape[0]]
+                pair = params.get(prefix + "to_pair_bias.weight")
+                if pair is not None:
+                    blocks.append(pair.shape[0] * pair.shape[1])
+                vp = params[prefix + "to_v_point.weight"].shape[0]
+                split = Split(1, (*blocks, vp, vp // 3))
+        out[name] = split
+    return out
+
+
+# ---- the collectives of a layer split by head --------------------------------------------
+
+
+class HeadShard(NamedTuple):
+    """One tp rank's heads of an IPA layer: heads [rank h / size,
+    (rank + 1) h / size).  `group` is the tp process group; None means no
+    collectives: one process runs every rank's heads and sums them (the
+    reference `parallel.tp.host_tp_loss_and_grads`)."""
+
+    rank: int
+    size: int
+    group: object = None
+
+    def heads(self, h: int) -> slice:
+        if h % self.size:
+            raise ValueError(f"n_head={h} not divisible by tp={self.size}")
+        n = h // self.size
+        return slice(self.rank * n, (self.rank + 1) * n)
+
+
+def _all_reduce_f32(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over the group, taken in float32 and cast back (one
+    rounding of a bf16 sum, and gloo never sees a bf16 tensor)."""
+    y = x.to(torch.float32, copy=True).contiguous()
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+class _CopyToRegion(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce_f32(grad, ctx.group), None
+
+
+class _ReduceFromRegion(torch.autograd.Function):
+    """The sum over the group forward; the gradient passed through."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_tp_region(x: torch.Tensor, shard: HeadShard | None) -> torch.Tensor:
+    """x as an input of a layer split by head: unchanged forward, its
+    gradient (each rank's heads' part) summed over the tp group backward,
+    so that every rank's parameters upstream get the whole gradient.
+    Identity without a group."""
+    if shard is None or shard.group is None:
+        return x
+    return _CopyToRegion.apply(x, shard.group)
+
+
+def reduce_from_tp_region(x: torch.Tensor, shard: HeadShard | None) -> torch.Tensor:
+    """The layer's partial output summed over the tp group (float32 sum, one
+    cast back); the gradient passes through unchanged.  Identity without a
+    group."""
+    if shard is None or shard.group is None:
+        return x
+    return _ReduceFromRegion.apply(x, shard.group)

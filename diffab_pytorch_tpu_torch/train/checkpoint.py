@@ -8,6 +8,12 @@ beside the step directories records the architecture, so inference entry
 points rebuild the same parameter shapes.  The newest `max_to_keep`
 checkpoints are kept.  The diffusion schedule and IGSO(3) tables are not
 saved: they are rebuilt deterministically.
+
+One format, sharded or not (JAX `restore_checkpoint` into a sharded
+template): with a tensor-parallel `mesh`, `save_checkpoint` gathers the
+state over tp and the mesh's rank 0 writes the full state, and
+`restore_checkpoint` returns this rank's part (`parallel.tp.shard_state`);
+a checkpoint written either way restores either way.
 """
 
 from __future__ import annotations
@@ -19,8 +25,10 @@ import shutil
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from diffab_pytorch_tpu_torch.config import ModelConfig, resolve_device
+from diffab_pytorch_tpu_torch.parallel.tp import gather_state, shard_state
 from diffab_pytorch_tpu_torch.train.harness import OptState, TrainState
 
 _MODEL_CONFIG_FILE = "model_config.json"
@@ -59,9 +67,19 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def save_checkpoint(directory: str, state: TrainState, max_to_keep: int = 3) -> int:
+def save_checkpoint(directory: str, state: TrainState, max_to_keep: int = 3,
+                    mesh=None) -> int:
     """Write the state at its step (atomically: a temporary file, then a
-    rename), then drop all but the newest `max_to_keep` checkpoints."""
+    rename), then drop all but the newest `max_to_keep` checkpoints.  With
+    `mesh` (a tp-sharded state) every rank of the mesh calls it: the state
+    is gathered over tp, the mesh's rank 0 writes, and every rank returns
+    once the file is written."""
+    if mesh is not None:
+        full = gather_state(state, mesh)
+        if dist.get_rank(mesh.group) == 0:
+            save_checkpoint(directory, full, max_to_keep)
+        dist.barrier(group=mesh.group)
+        return int(state.step)
     step = int(state.step)
     cpu = lambda d: None if d is None else {k: v.detach().cpu() for k, v in d.items()}
     blob = {
@@ -99,16 +117,19 @@ def _load(directory: str, step: Optional[int]):
                       map_location="cpu", weights_only=True)
 
 
-def restore_checkpoint(directory: str, device=None, step: Optional[int] = None) -> TrainState:
+def restore_checkpoint(directory: str, device=None, step: Optional[int] = None,
+                       mesh=None) -> TrainState:
     """The whole TrainState of `step` (default the latest) on `device`: the
-    card unless the caller names another (`config.resolve_device`)."""
+    card unless the caller names another (`config.resolve_device`); with a
+    tensor-parallel `mesh`, this rank's part of it."""
     device = resolve_device(device)
     blob = _load(directory, step)
     on = lambda d: None if d is None else {k: v.to(device) for k, v in d.items()}
     params = {k: v.requires_grad_(True) for k, v in on(blob["params"]).items()}
-    return TrainState(step=int(blob["step"]), params=params,
-                      opt_state=OptState(int(blob["opt_count"]), on(blob["mu"]), on(blob["nu"])),
-                      ema_params=on(blob["ema_params"]))
+    state = TrainState(step=int(blob["step"]), params=params,
+                       opt_state=OptState(int(blob["opt_count"]), on(blob["mu"]), on(blob["nu"])),
+                       ema_params=on(blob["ema_params"]))
+    return state if mesh is None else shard_state(state, mesh)
 
 
 def restore_params(directory: str, step: Optional[int] = None, prefer_ema: bool = True):

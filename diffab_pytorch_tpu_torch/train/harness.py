@@ -23,7 +23,10 @@ outside the square root) -> per-parameter update-RMS clip
 (`clip_by_block_rms`) -> decoupled weight decay -> learning rate from the
 schedule at the pre-update count; then the EMA blend
 d * ema + (1 - d) * params.  Parameters, moments and EMA are updated in
-place, which keeps one copy of each on the card.
+place, which keeps one copy of each on the card.  On a tensor-parallel
+state the two norms (the clip's global norm, each parameter's update RMS)
+are those of the full parameters: the step passes a `leaf_norms` hook
+(`parallel.tp`); every other stage is element-wise.
 
 Metric names are the JAX package's: {train,val}/{seq_loss,
 translations_loss, orientations_loss, seq_ce_loss, loss}.
@@ -94,6 +97,11 @@ class NoisedSample(NamedTuple):
     translations_t: torch.Tensor  # (b, L, 3)
     translations_eps: torch.Tensor  # (b, L, 3), the MSE target
     orientations_t: torch.Tensor  # (b, L, 3, 3)
+
+
+def _local_norms(names: list[str], tensors: list[torch.Tensor]):
+    """Each tensor's 2-norm and element count."""
+    return torch._foreach_norm(tensors), [t.numel() for t in tensors]
 
 
 class DiffAb:
@@ -262,19 +270,23 @@ class DiffAb:
         return t.lr
 
     @torch.no_grad()
-    def apply_gradients(self, state: TrainState, grads: Params) -> TrainState:
+    def apply_gradients(self, state: TrainState, grads: Params, leaf_norms=None) -> TrainState:
         """The optimizer update and the EMA blend, in place on the state's
         tensors; returns the state at step + 1.  Each stage runs on all
         parameters at once (`torch._foreach_*`), so the update is a few
-        dozen launches rather than a dozen per parameter."""
+        dozen launches rather than a dozen per parameter.  `leaf_norms(names,
+        tensors) -> (norms, element counts)` gives the norms of the full
+        leaves for a state that holds parts of them (default: the tensors'
+        own, `_local_norms`)."""
         t = self.config.train
+        leaf_norms = leaf_norms or _local_norms
         names = list(state.params)
         params = [state.params[k] for k in names]
         mu = [state.opt_state.mu[k] for k in names]
         nu = [state.opt_state.nu[k] for k in names]
         g = [grads[k] for k in names]
         if t.grad_clip_norm > 0:
-            g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            g_norm = torch.linalg.vector_norm(torch.stack(leaf_norms(names, g)[0]))
             scale = torch.where(g_norm < t.grad_clip_norm, torch.ones_like(g_norm),
                                 t.grad_clip_norm / g_norm)
             g = torch._foreach_mul(g, scale)
@@ -291,8 +303,8 @@ class DiffAb:
         u = torch._foreach_div(mu, 1.0 - b1 ** count)
         torch._foreach_div_(u, den)
         if t.update_clip_rms > 0:
-            rms = torch._foreach_mul(torch._foreach_norm(u),
-                                     [1.0 / math.sqrt(x.numel()) for x in u])
+            norms, numels = leaf_norms(names, u)
+            rms = torch._foreach_mul(norms, [1.0 / math.sqrt(n) for n in numels])
             torch._foreach_div_(u, torch._foreach_clamp_min(
                 torch._foreach_div(rms, t.update_clip_rms), 1.0))
         if t.weight_decay > 0:

@@ -22,6 +22,14 @@ seed: rank 0 draws the single-device numbers) and trains with
 `make_dp_train_step`.  Only rank 0 validates, on the global batches (the
 single-device numbers), and writes checkpoints, model_config.json and
 logs; every rank restores the same checkpoint on resume.
+
+Tensor parallelism (`mesh`, a `parallel.mesh.Mesh`): rows and rank streams
+over `mesh.dp_group` as above (every tp rank of a dp row trains on the
+same rows with the same draws), the state sharded over tp
+(`parallel.tp.shard_state`; restored sharded on resume), the step
+`make_sharded_train_step`; dp row 0's tp ranks validate together on their
+parts with the tp model, and every rank joins each checkpoint's gather
+while rank 0 writes the full state, in the one format `cli.sample` reads.
 """
 
 from __future__ import annotations
@@ -39,6 +47,12 @@ from diffab_pytorch_tpu_torch.data.dataset import PatchDataset
 from diffab_pytorch_tpu_torch.data.loader import PrefetchLoader
 from diffab_pytorch_tpu_torch.parallel.dp import make_dp_train_step, rank_seed
 from diffab_pytorch_tpu_torch.parallel.mesh import batch_sharding, put_global
+from diffab_pytorch_tpu_torch.parallel.tp import (
+    head_shard,
+    make_sharded_train_step,
+    shard_state,
+    tp_harness,
+)
 from diffab_pytorch_tpu_torch.train import checkpoint as ckpt_lib
 from diffab_pytorch_tpu_torch.train.harness import DiffAb, OptState, TrainState
 from diffab_pytorch_tpu_torch.utils.logging import MetricLogger, is_primary
@@ -75,6 +89,7 @@ def fit(
     train_step=None,
     device_pool: bool = False,
     dp_group=None,
+    mesh=None,
 ) -> TrainState:
     """Train and return the final TrainState.  `state` continues a run in
     memory; otherwise the state is initialized from `seed` (default
@@ -86,7 +101,10 @@ def fit(
     `harness.train_step`; it cannot be combined with device_pool, whose
     step gathers the rows itself.  `dp_group`: train data-parallel over
     that process group (each batch's rows split over its ranks; the
-    default step is then `make_dp_train_step(harness, dp_group)`)."""
+    default step is then `make_dp_train_step(harness, dp_group)`).  `mesh`:
+    train tensor-parallel over that (dp, tp) mesh (`state`, when given, is
+    this rank's part; the default step `make_sharded_train_step(harness,
+    mesh)`)."""
     cfg = harness.config.train
     dev = harness.device
     seed = cfg.seed if seed is None else seed
@@ -95,6 +113,14 @@ def fit(
     gen = torch.Generator(device=dev)
     primary = is_primary()
     shard, rank = None, 0
+    eval_harness, evaluates = harness, primary
+    if mesh is not None:
+        if dp_group is not None:
+            raise ValueError("give the mesh or a dp_group, not both: the mesh has its dp group")
+        dp_group = mesh.dp_group
+        heads = head_shard(harness.config.model, mesh)
+        eval_harness = harness if heads is None else tp_harness(harness, heads)
+        evaluates = mesh.dp_rank == 0
     if dp_group is not None:
         if device_pool:
             raise ValueError("device_pool uses the single-device pool step; it cannot be "
@@ -106,12 +132,17 @@ def fit(
     if state is None:
         state = harness.init(seed)
         if checkpoint_dir and resume and ckpt_lib.latest_step(checkpoint_dir) is not None:
-            state = ckpt_lib.restore_checkpoint(checkpoint_dir, dev)
+            state = ckpt_lib.restore_checkpoint(checkpoint_dir, dev, mesh=mesh)
             print(f"[trainer] resumed from step {state.step}")
+        elif mesh is not None:
+            state = shard_state(state, mesh)
     if checkpoint_dir and primary:
         ckpt_lib.save_model_config(checkpoint_dir, harness.config.model)
+    saves = bool(checkpoint_dir) and (primary or mesh is not None)
 
-    if train_step is None and dp_group is not None:
+    if train_step is None and mesh is not None:
+        train_step = make_sharded_train_step(harness, mesh)
+    elif train_step is None and dp_group is not None:
         train_step = make_dp_train_step(harness, dp_group)
     step_fn = train_step or harness.train_step
     loader = None
@@ -166,7 +197,7 @@ def fit(
     t_last = time.time()
 
     def run_eval(params):
-        if val_data is None or not primary:
+        if val_data is None or not evaluates:
             return
         batches = val_data
         if isinstance(val_data, PatchDataset):
@@ -175,7 +206,7 @@ def fit(
         ms = []
         for i, vb in enumerate(batches):
             vb = vb.to(dev)
-            ms.append(harness.eval_step(
+            ms.append(eval_harness.eval_step(
                 params, vb, harness.draw(vb, _step_generator(gen, seed + 1 + i, state.step))))
         if ms:
             logger.log(state.step, {k: float(np.mean([float(m[k]) for m in ms]))
@@ -202,10 +233,10 @@ def fit(
                     pending = (_copy_state(state), step)
                 else:
                     pending = None
-            if checkpoint_dir and primary and step % cfg.checkpoint_every == 0:
+            if saves and step % cfg.checkpoint_every == 0:
                 if last_ok_step >= step - cfg.log_every:
-                    ckpt_lib.save_checkpoint(checkpoint_dir, state)
-                else:
+                    ckpt_lib.save_checkpoint(checkpoint_dir, state, mesh=mesh)
+                elif primary:
                     print(f"[trainer] step {step}: loss diverged from best "
                           f"{best_loss:.4g}; not overwriting the checkpoint")
             if steps_per_epoch and step % steps_per_epoch == 0:
@@ -224,8 +255,8 @@ def fit(
         state = state_good
         if checkpoint_dir and primary:
             ckpt_lib.prune_after(checkpoint_dir, step_good)
-    if checkpoint_dir and primary:
-        ckpt_lib.save_checkpoint(checkpoint_dir, state)
-    if dp_group is not None:
-        dist.barrier(group=dp_group)  # every rank returns after the checkpoint is written
+    if saves:
+        ckpt_lib.save_checkpoint(checkpoint_dir, state, mesh=mesh)
+    if dp_group is not None:  # every rank returns after the checkpoint is written
+        dist.barrier(group=dp_group if mesh is None else mesh.group)
     return state

@@ -52,7 +52,9 @@ def opt_state_from_jax(opt_state):
     state as the JAX harness builds it: a tuple holding one
     ScaleByAdamState (count, mu, nu) among empty and schedule states, or
     that state itself; arrays may be numpy.  mu and nu map by the same
-    names and transposes as `params_from_jax`."""
+    names and transposes as `params_from_jax`.  A state JAX's `shard_state`
+    placed on a (dp, tp) mesh reads the same (np.asarray gathers each
+    leaf); the port's `parallel.tp.shard_state` then cuts it for a rank."""
     from diffab_pytorch_tpu_torch.train.harness import OptState
 
     parts = opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,)
