@@ -118,7 +118,27 @@ Phases (any failure raises and the script exits non-zero):
      shapes and dtypes), K1 at h = 8 against its two halves, and their
      times at those h beside h = 8's; (f) tp = 2 over NCCL, one rank per
      card, where there is more than one card;
-  16. a `kernels` JSON line, the card line, and the final JSON line.
+  16. [rest]: the rest of the JAX package.  (a) sample_sharded of 8
+     128-residue targets (default_config() bf16, T=100): NCCL at world
+     size 1 in this process, bitwise sample() on the same batch, K1 600
+     launches a call at b = bp = 8, designs/s beside [main]'s; then two
+     gloo ranks sharing the card (--parallel-worker ... rest), 2 x 4
+     targets, bitwise the host loop of each rank's sample() from its rank
+     generator; (b) pool_train_step(steps_per_call=4) at
+     production_config(), batch 32, from a device pool of [train]'s batch
+     under deterministic algorithms, bitwise four one-step calls (state
+     and stacked metrics), K1 24 a call, one call at fuse_ipa_layer=False
+     (K2 24), steps/s of both beside [train]'s; (c) checked_fn around one
+     production training step (bitwise the unwrapped step; with a NaN
+     parameter it raises naming an op; its slowdown), assert_all_finite,
+     trace() with named_scope("denoiser") around one sample() of the
+     25-step recipe (the Chrome trace holds the scope and K1's kernel),
+     block_and_time and StepTimer beside CUDA events; (d) the
+     compositional corpus (write_combo_corpus, 4 instances of each of 40
+     train combinations) through cli.preprocess -k 128, cli.train
+     --production --max-steps 4 (K1 counted a step), the checkpoint, and
+     cli.sample -n 16 from it on a held-out combination's patch;
+  17. a `kernels` JSON line, the card line, and the final JSON line.
 
 The L = 128 kernel times (phase 7) run where they ran before the long-patch
 and few-step phases existed, so that two versions of this script read them
@@ -2343,7 +2363,8 @@ def parallel_worker(argv) -> int:
     under deterministic algorithms (the state checked replicated after
     each step), one step at fuse_ipa_layer=False (K2),
     the fan-out of PAR_LOCAL designs a rank; writes what it holds and its
-    launch counts to OUT_DIR/rank<RANK>.pt."""
+    launch counts to OUT_DIR/rank<RANK>.pt.  With a sixth argument `rest`,
+    one rank of [rest] (a) instead (`rest_worker`)."""
     import datetime
 
     import torch
@@ -2362,6 +2383,9 @@ def parallel_worker(argv) -> int:
                           timeout=datetime.timedelta(seconds=300))
     dist.init_process_group(backend, store=store, rank=rank, world_size=world)
     try:
+        if argv[5:6] == ["rest"]:
+            rest_worker(rank, world, device, out)
+            return 0
         res = {}
         for fuse, n_steps in ((None, PAR_STEPS), (False, 1)):
             harness, batch = par_train_setup(torch, device, fuse)
@@ -3182,6 +3206,438 @@ def tp_phase(torch, card, tmp, k1_times, k2_times):
     return launches, err1, err2, times
 
 
+REST_TARGETS = 8  # (a): targets of sample_sharded, each its own seed
+REST_K = 4  # (b): steps_per_call
+REST_TIMED_CALLS = 3  # (b): timed k = 4 calls, against REST_K times as many k = 1 calls
+REST_RECIPE = dict(n_steps=25)  # (c): the 25-step recipe of bench.py, traced and timed
+REST_COMBOS_PER = 4  # (d): instances of each train combination in the corpus
+REST_CLI_STEPS = 4  # (d): cli.train steps on the corpus
+
+
+def rest_targets(torch, device, n=REST_TARGETS, seed0=300):
+    """n synthetic L_MAIN-residue targets, each drawn from its own seed, as
+    one batch of n rows."""
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.data.batch import ProteinBatch, synthetic_batch
+
+    parts = [synthetic_batch(seed0 + i, 1, L_MAIN, C.default_config().model.n_atoms,
+                             n_generate=N_GENERATE, device=device) for i in range(n)]
+    return ProteinBatch(**{f.name: None if getattr(parts[0], f.name) is None else
+                           torch.cat([getattr(p, f.name) for p in parts])
+                           for f in dataclasses.fields(ProteinBatch)})
+
+
+def rest_worker(rank, world, device, out) -> None:
+    """[rest] (a) on one of two gloo ranks sharing the card (parallel_worker
+    with the mode `rest`): sample_sharded of REST_TARGETS targets, its
+    rows and launch counts to OUT_DIR/rest<RANK>.pt."""
+    import torch
+
+    from diffab_pytorch_tpu_torch.parallel.dp import sample_sharded
+
+    fan, _ = par_fan_setup(torch, device)
+    targets = rest_targets(torch, device)
+    before = k_launches()
+    rows = sample_sharded(fan, None, targets, torch.Generator(device=device).manual_seed(31),
+                          None)
+    torch.cuda.synchronize()
+    torch.save(([x.cpu() for x in rows[:3]], tuple(b - a for a, b in zip(before, k_launches()))),
+               os.path.join(out, f"rest{rank}.pt"))
+
+
+def rest_sample_sharded(torch, card, tmp, designs_rate):
+    """[rest] (a): sample_sharded of REST_TARGETS 128-residue targets
+    (default_config() bf16, T=100, one design each).  NCCL at world size 1
+    in this process: bitwise sample() on the same batch from the same
+    generator, K1 at b = bp = REST_TARGETS, designs/s of each beside
+    [main]'s.  Then two gloo ranks sharing the card (--parallel-worker ...
+    rest processes), REST_TARGETS / 2 targets each, against the host loop
+    of each rank's sample() from its rank generator: bitwise, as [parallel]
+    (b) holds the fan-out (sampling has no backward pass, so no atomics).
+    Returns {path: (K1, K2)}."""
+    import torch.distributed as dist
+
+    from diffab_pytorch_tpu_torch.parallel.dp import rank_generator, sample_sharded
+    from diffab_pytorch_tpu_torch.parallel.mesh import BatchSharding, put_global
+
+    tag = "[rest] (a)"
+    fan, _ = par_fan_setup(torch, "cuda")
+    targets = rest_targets(torch, "cuda")
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
+    mcfg, T = fan.config.model, fan.config.diffusion.T
+    want = (layer_calls(mcfg, T), 0)
+    launches = {}
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.TCPStore("127.0.0.1", 0, 1, True), rank=0,
+                            world_size=1)
+    try:
+        sample_sharded(fan, None, targets, gen(30), None)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = fan.sample(None, targets, gen(31))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        zero_launches()
+        rows = sample_sharded(fan, None, targets, gen(31), None)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches["rest/sample_sharded"] = k_launches()
+    finally:
+        dist.destroy_process_group()
+    same = all(torch.equal(a, b) for a, b in zip(rows[:3], plain[:3]))
+    finite = bool(torch.isfinite(rows.translations).all() and torch.isfinite(rows.orientations).all())
+    print(f"{tag} NCCL world size 1: sample_sharded({REST_TARGETS} targets of L={L_MAIN}, "
+          f"default_config() bf16, T={T}) vs sample() on the same batch from the same generator: "
+          f"rows bitwise equal {same}, finite {finite}; {REST_TARGETS / (t2 - t1):.3f} designs/s "
+          f"vs sample() {REST_TARGETS / (t1 - t0):.3f} ([main] earlier {designs_rate:.3f} at "
+          f"{N_DESIGNS} designs of one target) on {card}; launches K1, K2 "
+          f"{launches['rest/sample_sharded']} (expected {want}: b = bp = {REST_TARGETS})")
+    if not (same and finite and launches["rest/sample_sharded"] == want):
+        raise RuntimeError(f"{tag} the one-rank sample_sharded is not sample()")
+
+    out = os.path.join(tmp, "rest_ranks")
+    os.makedirs(out, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-worker",
+                               str(r), "2", str(port), "gloo", out, "rest"],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    if any(p.returncode != 0 for p in procs):
+        for r, log in enumerate(logs):
+            print(f"{tag} rank {r} exited {procs[r].returncode}:\n{log[-4000:]}")
+        raise RuntimeError(f"{tag} a worker failed")
+    ranks = [torch.load(os.path.join(out, f"rest{r}.pt"), weights_only=False) for r in range(2)]
+    parts = [fan.sample(None, put_global(targets, BatchSharding(r, 2)),
+                        rank_generator(gen(31), r)) for r in range(2)]
+    host = [torch.cat([getattr(p, f) for p in parts]).cpu()
+            for f in ("seq_idx", "translations", "orientations")]
+    same = [all(torch.equal(a, b) for a, b in zip(r[0], host)) for r in ranks]
+    counts = [r[1] for r in ranks]
+    want2 = (layer_calls(mcfg, T), 0)
+    launches["rest/sample_sharded_gloo2"] = counts[0]
+    print(f"{tag} 2 ranks, gloo, sharing the card: sample_sharded 2 x {REST_TARGETS // 2} "
+          f"targets vs the host loop of each rank's sample() from its rank generator: bitwise "
+          f"equal on each rank {same} (no tolerance: the same kernels on the same rows); "
+          f"launches K1, K2 per rank {counts} (expected {want2}: b = bp = {REST_TARGETS // 2}); "
+          f"workers' wall {wall:.2f} s (card: {card})")
+    if not (all(same) and all(c == want2 for c in counts)):
+        raise RuntimeError(f"{tag} the two-rank sample_sharded differs from the host loop")
+    return launches
+
+
+def rest_steps_per_call(torch, card, train_rate):
+    """[rest] (b): pool_train_step(steps_per_call=REST_K) at
+    production_config(), batch 32, rows drawn from a device pool of
+    [train]'s batch, from the warmup's end (`par_state`) under
+    deterministic algorithms: bitwise the chain of REST_K one-step calls
+    (state, Adam moments, EMA and the stacked metrics); K1 6 a step; one
+    call at fuse_ipa_layer=False (K2); then REST_TIMED_CALLS calls of each
+    k timed outside the deterministic mode, steps/s beside [train]'s.
+    Returns {path: (K1, K2)}."""
+    tag = "[rest] (b)"
+    launches = {}
+    for fuse in (None, False):
+        harness, pool = par_train_setup(torch, "cuda", fuse)
+        pb = pool.batch_size
+        g = torch.Generator(device="cuda").manual_seed(41)
+        idx = torch.stack([torch.randperm(pb, generator=g, device="cuda")
+                           for _ in range(REST_K)])
+        draws = [harness.draw(pool.gather_rows(i), torch.Generator(device="cuda").manual_seed(
+            900 + s)) for s, i in enumerate(idx)]
+        with deterministic(torch):
+            chain, metrics = par_state(harness), []
+            for i, d in zip(idx, draws):
+                chain, m = harness.pool_train_step(chain, pool, i, d)
+                metrics.append(m)
+            torch.cuda.synchronize()
+            zero_launches()
+            multi, stacked = harness.pool_train_step(par_state(harness), pool, idx, draws,
+                                                     steps_per_call=REST_K)
+            torch.cuda.synchronize()
+            counts = k_launches()
+        per_call = layer_calls(harness.config.model, REST_K)
+        want = (per_call, 0) if fuse is None else (0, per_call)
+        checks = {
+            "state": multi.step == chain.step and multi.opt_state.count == chain.opt_state.count
+            and all(torch.equal(multi.params[k], chain.params[k])
+                    and torch.equal(multi.ema_params[k], chain.ema_params[k])
+                    and torch.equal(multi.opt_state.mu[k], chain.opt_state.mu[k])
+                    and torch.equal(multi.opt_state.nu[k], chain.opt_state.nu[k])
+                    for k in chain.params),
+            "metrics": all(v.shape == (REST_K,) and torch.equal(
+                v, torch.stack([m[k] for m in metrics])) for k, v in stacked.items()),
+            "finite": all(bool(torch.isfinite(v).all()) for v in stacked.values()),
+            "launches": counts == want,
+        }
+        name = "rest/steps_per_call" + ("" if fuse is None else "_fuse_False")
+        launches[name] = counts
+        print(f"{tag} fuse_ipa_layer={fuse}: pool_train_step(steps_per_call={REST_K}) vs "
+              f"{REST_K} one-step calls, production_config() (bf16, batch {pb}, L={L_MAIN}) "
+              f"under deterministic algorithms: state, moments, EMA and stacked metrics bitwise "
+              f"{checks['state'] and checks['metrics']}; losses "
+              f"{[round(float(v), 4) for v in stacked['train/loss']]}; launches K1, K2 {counts} "
+              f"(expected {want}); checks {checks}")
+        if not all(checks.values()):
+            raise RuntimeError(f"{tag} steps_per_call={REST_K} is not the one-step chain")
+        if fuse is not None:
+            continue
+        # one call's arguments at each k: all REST_K steps, or step j's rows
+        calls = {REST_K: lambda j: (idx, draws), 1: lambda j: (idx[j % REST_K], draws[j % REST_K])}
+        rates = {}
+        for k in (REST_K, 1, REST_K, 1):  # interleaved: the host's speed drifts
+            state, _ = harness.pool_train_step(par_state(harness), pool, *calls[k](0),
+                                               steps_per_call=k)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n_calls = REST_TIMED_CALLS * REST_K // k
+            for j in range(n_calls):
+                state, _ = harness.pool_train_step(state, pool, *calls[k](j), steps_per_call=k)
+            torch.cuda.synchronize()
+            rates.setdefault(k, []).append(n_calls * k / (time.perf_counter() - t0))
+        print(f"{tag} steps/s over {REST_TIMED_CALLS * REST_K} steps, interleaved runs: "
+              f"steps_per_call={REST_K} {[f'{r:.3f}' for r in rates[REST_K]]}, one-step calls "
+              f"{[f'{r:.3f}' for r in rates[1]]} (ratio of means "
+              f"{sum(rates[REST_K]) / sum(rates[1]):.3f}; [train] earlier {train_rate:.3f}) "
+              f"on {card}")
+    return launches
+
+
+def rest_tools(torch, card, tmp):
+    """[rest] (c): the debug and profiling tools on the card.  checked_fn
+    around one production training step (batch 32, deterministic
+    algorithms): its state and metrics bitwise the unwrapped step's, its
+    time beside the unwrapped step's; with one parameter set to NaN it
+    raises FloatingPointError naming an op; assert_all_finite on the state.
+    trace() around one sample() of the 25-step recipe (128 designs of
+    [main]'s target) with named_scope("denoiser") on the model's denoise:
+    the Chrome trace holds the scope and K1's kernel; block_and_time and
+    StepTimer on that call beside CUDA events.  Returns {path: (K1, K2)}."""
+    from diffab_pytorch_tpu_torch.sampling.sampler import timestep_schedule
+    from diffab_pytorch_tpu_torch.utils.debug import assert_all_finite, checked_fn
+    from diffab_pytorch_tpu_torch.utils.profiling import (
+        StepTimer, block_and_time, named_scope, trace)
+
+    tag = "[rest] (c)"
+    launches = {}
+    harness, batch = par_train_setup(torch, "cuda")
+    draws = par_draws(torch, harness, batch, 0, 0)
+    step = checked_fn(harness.train_step)
+    with deterministic(torch):
+        harness.train_step(par_state(harness), batch, draws)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain, m_plain = harness.train_step(par_state(harness), batch, draws)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        zero_launches()
+        checked, m_checked = step(par_state(harness), batch, draws)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches["rest/checked"] = k_launches()
+    same = (all(torch.equal(m_plain[k], m_checked[k]) for k in m_plain)
+            and all(torch.equal(plain.params[k], checked.params[k])
+                    and torch.equal(plain.ema_params[k], checked.ema_params[k])
+                    for k in plain.params))
+    assert_all_finite(checked, "the checked step's state")
+    bad = par_state(harness)
+    name = "denoiser.ipa.layer_0.to_q_scalar.weight"
+    with torch.no_grad():
+        bad.params[name][0, 0] = float("nan")
+    try:
+        step(bad, batch, draws)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    try:
+        assert_all_finite(bad, "the state")
+        flagged = None
+    except FloatingPointError as e:
+        flagged = str(e)
+    want = (layer_calls(harness.config.model), 0)
+    print(f"{tag} checked_fn(train_step), production_config() (bf16, batch 32, L={L_MAIN}) "
+          f"under deterministic algorithms: state and metrics bitwise the unwrapped step's "
+          f"{same}; {t2 - t1:.4f} s vs {t1 - t0:.4f} s unwrapped ({(t2 - t1) / (t1 - t0):.1f}x) "
+          f"on {card}; launches K1, K2 {launches['rest/checked']} (expected {want}); "
+          f"assert_all_finite passed on its state; with {name}[0, 0] = NaN it raised: {raised!r}; "
+          f"assert_all_finite: {flagged!r}")
+    if not (same and raised and raised.startswith("nan produced by ") and flagged
+            and name in flagged and launches["rest/checked"] == want):
+        raise RuntimeError(f"{tag} the debug mode failed")
+
+    fan, target = par_fan_setup(torch, "cuda")
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
+    run = lambda: fan.sample(None, target, gen(51), n_designs=N_DESIGNS, **REST_RECIPE)
+    run()  # warm-up
+    torch.cuda.synchronize()
+    fan.model.denoise = named_scope("denoiser")(fan.model.denoise)
+    log_dir = os.path.join(tmp, "rest_trace")
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        with trace(log_dir):
+            out = run()
+        trace_s = time.perf_counter() - t0
+        launches["rest/trace"] = k_launches()
+    finally:
+        del fan.model.denoise
+    path = os.path.join(log_dir, "trace.json")
+    events = json.load(open(path))["traceEvents"]
+    # each scope is a host span and its projection on the card's timeline
+    n_scope = sum(e.get("name") == "denoiser" and e.get("cat") == "user_annotation"
+                  for e in events)
+    n_scope_gpu = sum(e.get("name") == "denoiser" and e.get("cat") == "gpu_user_annotation"
+                      for e in events)
+    n_k1 = sum(K1_LAUNCHES[0] in e.get("name", "") for e in events)
+    t_seq = timestep_schedule(fan.config.diffusion.T, REST_RECIPE["n_steps"])
+    want = (layer_calls(fan.config.model, denoiser_calls(t_seq.tolist(), REST_RECIPE)), 0)
+    per_call = block_and_time(run, iters=3)
+    timer = StepTimer()
+    timer.tick()
+    for _ in range(3):
+        run()
+    timer_s = 1.0 / timer.tick(3)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(3):
+        run()
+    ev[1].record()
+    torch.cuda.synchronize()
+    event_s = ev[0].elapsed_time(ev[1]) / 3e3
+    checks = {"trace_file": os.path.getsize(path) > 0, "scope": n_scope == len(t_seq),
+              "k1_in_trace": n_k1 > 0, "launches": launches["rest/trace"] == want,
+              "finite": bool(torch.isfinite(out.translations).all())}
+    print(f"{tag} trace() around sample({N_DESIGNS} designs, {REST_RECIPE}, bf16): "
+          f"{os.path.getsize(path)} bytes of Chrome trace, {len(events)} events, "
+          f"'denoiser' scopes {n_scope} on the host (expected {len(t_seq)}) and {n_scope_gpu} "
+          f"on the card, {K1_LAUNCHES[0]} events {n_k1}; "
+          f"traced call {trace_s:.3f} s; launches K1, K2 {launches['rest/trace']} (expected "
+          f"{want}); seconds a call: block_and_time {per_call:.4f}, StepTimer {timer_s:.4f}, "
+          f"CUDA events {event_s:.4f} on {card}; checks {checks}")
+    if not all(checks.values()):
+        raise RuntimeError(f"{tag} the profiling tools failed: {checks}")
+    return launches
+
+
+def rest_corpus(torch, card, tmp):
+    """[rest] (d): the compositional corpus (write_combo_corpus,
+    REST_COMBOS_PER instances of each train combination) through
+    `cli.preprocess -k 128` (a subprocess, one worker per core), `cli.train
+    --production --max-steps REST_CLI_STEPS` (K1 counted per step by a
+    StepRecorder), the checkpoint checked, then `cli.sample -n 16` from it
+    on a held-out combination's patch.  Returns {path: (K1, K2)}."""
+    import contextlib
+    import io
+
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.cli import sample as sample_cli
+    from diffab_pytorch_tpu_torch.cli import train as train_cli
+    from diffab_pytorch_tpu_torch.data.synthetic import write_combo_corpus
+    from diffab_pytorch_tpu_torch.train import checkpoint as ckpt
+    from diffab_pytorch_tpu_torch.train.harness import DiffAb
+
+    tag = "[rest] (d)"
+    root = os.path.join(tmp, "combo")
+    t0 = time.perf_counter()
+    man = write_combo_corpus(root, n_per_combo=REST_COMBOS_PER)
+    n = len(man["train_combos"]) * REST_COMBOS_PER + len(man["heldout_combos"]) * man[
+        "n_val_instances"]
+    write_s = time.perf_counter() - t0
+    patches = os.path.join(tmp, "combo_patches")
+    jobs = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "diffab_pytorch_tpu_torch.cli.preprocess",
+                           "--meta", os.path.join(root, "meta.csv"), "--data-dir",
+                           os.path.join(root, "pdb"), "--out-dir", patches, "-j", str(jobs),
+                           "-k", str(L_MAIN)], cwd=HERE, capture_output=True, text=True,
+                          timeout=600)
+    prep_s = time.perf_counter() - t0
+    written = sorted(f for f in os.listdir(patches) if f.endswith(".npz")) \
+        if os.path.isdir(patches) else []
+    if proc.returncode != 0 or len(written) != n:
+        raise RuntimeError(f"{tag} cli.preprocess failed (rc {proc.returncode}, {len(written)} "
+                           f"of {n}):\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    ck = os.path.join(tmp, "combo_ck")
+    rec = StepRecorder(DiffAb.train_step)
+    log = io.StringIO()
+    try:
+        DiffAb.train_step = lambda self, *a: rec(self, *a)
+        zero_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = train_cli.main(["--data-dir", patches, "--production", "--max-steps",
+                                 str(REST_CLI_STEPS), "--checkpoint-dir", ck])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        DiffAb.train_step = rec.fn
+    steps = tuple(sum(c["launches"][i] for c in rec.calls) for i in range(2))
+    launches = {"rest/corpus": steps}
+    pcfg = C.production_config()
+    losses = [float(c["loss"]) for c in rec.calls]
+    patch = os.path.join(patches, "h0_s0_H_L_A.npz")
+    out = os.path.join(tmp, "combo_designs")
+    slog = io.StringIO()
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(slog):
+        src = sample_cli.main(["--patch", patch, "--checkpoint-dir", ck, "-n", "16", "-o", out])
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    launches["rest/corpus_sample"] = k_launches()
+    designs = sorted(f for f in os.listdir(out) if f.endswith(".pdb"))
+    checks = {
+        "train_rc": rc == 0, "steps": len(rec.calls) == REST_CLI_STEPS
+        and ckpt.all_steps(ck) == [REST_CLI_STEPS],
+        "model_config": ckpt.load_model_config(ck) == pcfg.model,
+        "losses_finite": all(map(math.isfinite, losses)),
+        "train_launches": steps == (layer_calls(pcfg.model, REST_CLI_STEPS), 0),
+        "sample_rc": src == 0, "designs": designs == [f"design_{i:04d}.pdb" for i in range(16)],
+        "sample_launches": launches["rest/corpus_sample"] == (
+            layer_calls(pcfg.model, pcfg.diffusion.T), 0),
+    }
+    print(f"{tag} write_combo_corpus(n_per_combo={REST_COMBOS_PER}): {n} complexes in "
+          f"{write_s:.2f} s; cli.preprocess -j {jobs} -k {L_MAIN}: {len(written)} .npz in "
+          f"{prep_s:.2f} s; cli.train --production --max-steps {REST_CLI_STEPS}: {train_s:.2f} s, "
+          f"losses {[round(v, 4) for v in losses]}, launches K1, K2 of the steps {steps}; "
+          f"cli.sample -n 16 on {os.path.basename(patch)} (a held-out combination): "
+          f"{sample_s:.2f} s, launches {launches['rest/corpus_sample']} (card: {card}); "
+          f"checks {checks}")
+    if not all(checks.values()):
+        for line in (log.getvalue() + slog.getvalue()).splitlines()[-20:]:
+            print(f"{tag} {line}")
+        raise RuntimeError(f"{tag} the compositional corpus path failed: {checks}")
+    return launches
+
+
+def rest_phase(torch, card, tmp, train_rate, designs_rate):
+    """[rest]: (a) sample_sharded, (b) steps_per_call, (c) the debug and
+    profiling tools, (d) the compositional corpus through the CLIs.
+    Returns {path: (K1, K2)}."""
+    laps = [time.perf_counter()]
+    launches = rest_sample_sharded(torch, card, tmp, designs_rate)
+    laps.append(time.perf_counter())
+    launches.update(rest_steps_per_call(torch, card, train_rate))
+    laps.append(time.perf_counter())
+    launches.update(rest_tools(torch, card, tmp))
+    laps.append(time.perf_counter())
+    launches.update(rest_corpus(torch, card, tmp))
+    laps.append(time.perf_counter())
+    parts = ("(a) sample_sharded", "(b) steps_per_call", "(c) tools", "(d) corpus")
+    print(f"[rest] phase {laps[-1] - laps[0]:.2f} s: " + ", ".join(
+        f"{p} {b_ - a:.2f} s" for p, a, b_ in zip(parts, laps, laps[1:])))
+    return launches
+
+
 def kernel_times(torch, card, pb, h=8):
     """Per-launch times at L = 128, the main paths' shapes (b = 128, bp = 1
     and b = bp = pb): K1 in bf16 (also host-paced, and its two launches
@@ -3501,7 +3957,10 @@ def main() -> int:
                                                            k2_times)
         launches.update(tp_launches)
 
-    # ---- 16. records ---------------------------------------------------------------
+        # ---- 16. the rest of the JAX package: sample_sharded, steps_per_call, tools, corpus ---
+        launches.update(rest_phase(torch, card, tmp, train_rates[None], designs_per_s))
+
+    # ---- 17. records ---------------------------------------------------------------
     by_path = lambda i: {path: c[i] for path, c in launches.items()}
     kernels = [{
         "name": "ipa_fused_layer",

@@ -23,6 +23,7 @@ THREE_TO_ONE = {
 
 AA_THREE = list(THREE_TO_ONE.keys())  # canonical index order, 0..19
 AA_INDEX = {name: i for i, name in enumerate(AA_THREE)}
+AA_ONE_INDEX = {THREE_TO_ONE[k]: i for i, k in enumerate(AA_THREE)}
 
 
 class AA(enum.IntEnum):

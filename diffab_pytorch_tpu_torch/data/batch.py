@@ -37,6 +37,10 @@ class ProteinBatch:
         return self.seq_idx.shape[0]
 
     @property
+    def n_residues(self) -> int:
+        return self.seq_idx.shape[1]
+
+    @property
     def translations(self) -> torch.Tensor:
         """C-alpha coordinates (b, L, 3), the diffused translation variable."""
         return self.xyz[:, :, ATOM.CA, :]

@@ -180,3 +180,29 @@ def sample_prior(
                             dtype=translations_context.dtype,
                             device=translations_context.device)
     return torch.where(generation_mask[..., None], noise, translations_context)
+
+
+class CoordinateDiffuser:
+    """The reference's class API over the functions above, holding a
+    schedule (cosine with s and beta_max, on `device`: the card unless
+    named, or `sched` as given).  Each draw comes from `generator`, or is
+    injected as `noise`."""
+
+    def __init__(self, T: int, s: float = 0.01, beta_max: float = 0.999,
+                 sched: DiffusionSchedule | None = None, device=None):
+        from diffab_pytorch_tpu_torch.config import resolve_device
+        from diffab_pytorch_tpu_torch.diffusion.schedule import cosine_variance_schedule
+
+        self.sched = sched if sched is not None else cosine_variance_schedule(
+            T, s=s, beta_max=beta_max, device=resolve_device(device))
+
+    def diffuse_from_t0(self, translations_t0, t, generation_mask, return_eps: bool = True,
+                        generator=None, noise=None):
+        x_t, eps = diffuse_from_t0(self.sched, translations_t0, t, generation_mask,
+                                   generator=generator, noise=noise)
+        return (x_t, eps) if return_eps else x_t
+
+    def reverse_step(self, translations_t, eps_hat, t, generation_mask, generator=None,
+                     noise=None):
+        return reverse_step(self.sched, translations_t, eps_hat, t, generation_mask,
+                            generator=generator, noise=noise)

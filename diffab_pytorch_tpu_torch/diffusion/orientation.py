@@ -141,3 +141,31 @@ def sample_prior(
                     normal=normal, dtype=orientations_context.dtype,
                     device=orientations_context.device)
     return torch.where(generation_mask[..., None, None], r, orientations_context)
+
+
+class OrientationDiffuser:
+    """The reference's class API over the functions above, holding the
+    IGSO(3) tables of a cosine schedule (s, beta_max, on `device`: the card
+    unless named) or `tables` as given.  Each draw comes from `generator`,
+    or is injected as `noise`."""
+
+    def __init__(self, T: int, s: float = 0.01, beta_max: float = 0.999,
+                 tables: OrientationDiffusionTables | None = None, device=None):
+        from diffab_pytorch_tpu_torch.config import resolve_device
+        from diffab_pytorch_tpu_torch.diffusion.schedule import cosine_variance_schedule
+
+        if tables is None:
+            tables = make_orientation_tables(cosine_variance_schedule(
+                T, s=s, beta_max=beta_max, device=resolve_device(device)))
+        self.tables = tables
+        self.sched = tables.sched
+
+    def diffuse_from_t0(self, orientations_t0, generation_mask, t, generator=None, noise=None):
+        # the reference's argument order: (orientations, generation_mask, t)
+        return diffuse_from_t0(self.tables, orientations_t0, t, generation_mask,
+                               generator=generator, noise=noise)
+
+    def reverse_step(self, orientations_t, orientations_t0_hat, t, generation_mask,
+                     generator=None, noise=None):
+        return reverse_step(self.tables, orientations_t, orientations_t0_hat, t,
+                            generation_mask, generator=generator, noise=noise)

@@ -200,3 +200,46 @@ def sample_prior(
                                 generator=generator,
                                 device=seq_idx_context.device)
     return torch.where(generation_mask, sampled, seq_idx_context)
+
+
+class SequenceDiffuser:
+    """The reference's class API over the functions above, holding a
+    schedule (cosine with s and beta_max, on `device`: the card unless
+    named, or `sched` as given) and the vocabulary size.  Each draw comes
+    from `generator`, or is injected as `gumbel`."""
+
+    def __init__(self, T: int, s: float = 0.01, beta_max: float = 0.999,
+                 aa_vocab_size: int = AA_VOCAB_SIZE, sched: DiffusionSchedule | None = None,
+                 device=None):
+        from diffab_pytorch_tpu_torch.config import resolve_device
+        from diffab_pytorch_tpu_torch.diffusion.schedule import cosine_variance_schedule
+
+        self.sched = sched if sched is not None else cosine_variance_schedule(
+            T, s=s, beta_max=beta_max, device=resolve_device(device))
+        self.aa_vocab_size = aa_vocab_size
+
+    def forward_prob_single_step(self, seq_idx, t, generation_mask):
+        return forward_prob_single_step(self.sched, seq_idx, t, generation_mask,
+                                        self.aa_vocab_size)
+
+    def forward_prob_from_t0(self, seq_idx_t0, t, generation_mask):
+        return forward_prob_from_t0(self.sched, seq_idx_t0, t, generation_mask,
+                                    self.aa_vocab_size)
+
+    def diffuse_single_step(self, seq_idx, t, generation_mask, generator=None, gumbel=None):
+        return diffuse_single_step(self.sched, seq_idx, t, generation_mask,
+                                   self.aa_vocab_size, generator, gumbel)
+
+    def diffuse_from_t0(self, seq_idx_t0, t, generation_mask, return_posterior: bool = True,
+                        generator=None, gumbel=None):
+        return diffuse_from_t0(self.sched, seq_idx_t0, t, generation_mask, self.aa_vocab_size,
+                               generator, gumbel, return_posterior)
+
+    def posterior_single_step(self, seq_idx_t, seq_idx_t0, t, generation_mask):
+        return posterior_single_step(self.sched, seq_idx_t, seq_idx_t0, t, generation_mask,
+                                     self.aa_vocab_size)
+
+    def reverse_step(self, seq_idx_t, s0_probs, t, generation_mask, generator=None,
+                     gumbel=None):
+        return reverse_step(self.sched, seq_idx_t, s0_probs, t, generation_mask,
+                            generator=generator, gumbel=gumbel)

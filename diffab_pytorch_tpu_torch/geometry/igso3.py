@@ -32,6 +32,10 @@ class IGSO3Table(NamedTuple):
     inv_cdf: torch.Tensor
     use_hist: torch.Tensor
 
+    @property
+    def n_bins(self) -> int:
+        return self.probs.shape[-1]
+
     def to(self, device) -> "IGSO3Table":
         return IGSO3Table(*(t.to(device) for t in self))
 

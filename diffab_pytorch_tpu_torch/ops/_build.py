@@ -26,6 +26,9 @@ NVCC_FLAGS = [
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}
+# callables (kernel name, output tensors) that every wrapper runs after a
+# launch: the debug mode's check of the kernels' outputs (`utils/debug.py`)
+launch_checks: list = []
 
 
 def _nvcc() -> str:
@@ -87,3 +90,9 @@ def load(name: str) -> ctypes.CDLL:
         _finish(name, lib, proc, tmp)
         _loaded[name] = ctypes.CDLL(str(lib))
     return _loaded[name]
+
+
+def launched(name: str, *outputs) -> None:
+    """Run the launch checks on a kernel's outputs (none outside a debug run)."""
+    for check in launch_checks:
+        check(name, outputs)

@@ -168,6 +168,7 @@ def _launch(q_aug, k_aug, v_s, v_p, bias, scale_total):
         msg = lib.ipa_attention_error_string(err).decode()
         raise RuntimeError(f"ipa_attention kernel launch failed: {msg} ({err})")
     ipa_attention_core.launches += 1
+    _build.launched("ipa_attention", out_s, out_p, attn)
     return out_s, out_p, attn
 
 

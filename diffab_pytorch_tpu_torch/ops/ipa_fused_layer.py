@@ -266,6 +266,7 @@ def _launch(x, rot, trans, mask, wts, bias, scale_total):
         msg = lib.ipa_fused_layer_error_string(err).decode()
         raise RuntimeError(f"ipa_fused_layer kernel launch failed: {msg} ({err})")
     fused_ipa_layer_packed.launches += 1
+    _build.launched("ipa_fused_layer", acc, attn)
     return acc, attn
 
 

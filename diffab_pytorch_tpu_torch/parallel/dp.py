@@ -15,6 +15,9 @@ with `to_rank0=True` on rank 0 only (None elsewhere).
   * `sample_fanout_sharded`: n designs of the (replicated) targets, n / world
     on each rank; `score_fanout_sharded`: each rank scores its block of
     design rows.
+  * `sample_sharded`: the batch's b targets, b / world on each rank, one
+    design each (each rank's rows carry their own context, so its pair
+    biases are one per target); `replicate_batch` tiles a batch's rows.
     Rows come device-major (the ranks' blocks in rank order), each block
     design-major over the targets, as the JAX functions return them.
     Gloo has no all_gather for tensors on the card, so on a gloo group
@@ -31,9 +34,7 @@ r > 0 from a fresh generator on the same device seeded with
 0x9E3779B97F4A7C15) mod 2^64 (an odd 64-bit stride, so ranks never share
 a seed).  Rank 0's stream is therefore the single-device stream: a
 one-rank run is, bit for bit, the single-device `train_step` / `fit` /
-`sample` / `score_designs` with the same seed.  (JAX's `sample_sharded`
-and `replicate_batch`, which no entry point calls, are not ported; the
-fan-out supersedes them, as in the JAX `sample()`.)  Give a freshly seeded
+`sample` / `score_designs` with the same seed.  Give a freshly seeded
 generator: ranks r > 0 start from its seed, not from its current state.
 Every draw can still be injected (`draws` of the train step; `init_noise`,
 `step_noise` and `draws` through the keyword arguments, per rank), which
@@ -207,3 +208,27 @@ def score_fanout_sharded(harness: DiffAb, params, batch: ProteinBatch, designs,
                                    rank_generator(generator, shard.rank), **score_kwargs)
     out = [_gather_rows(x, group, 0, to_rank0) for x in scores]
     return None if out[0] is None else DesignScores(*out)
+
+
+def sample_sharded(harness: DiffAb, params, batch: ProteinBatch, generator: torch.Generator,
+                   group=None, *, to_rank0: bool = False, **sample_kwargs):
+    """The batch's b targets sampled with their rows sharded over the group:
+    rank r samples its b / world rows (the block `batch_sharding` gives it,
+    moved to the harness's device) from its rank generator, and the
+    results are gathered in rank order, the trajectories on axis 1.  For n
+    designs of one target prefer `sample_fanout_sharded`, which shares each
+    rank's context over its designs."""
+    world = dist.get_world_size(group)
+    if batch.batch_size % world:
+        raise ValueError(f"batch size {batch.batch_size} not divisible by dp={world}")
+    _check_params(harness, params, group)
+    shard = batch_sharding(group)
+    rows = put_global(batch, shard).to(harness.device)
+    local = harness.sample(params, rows, rank_generator(generator, shard.rank), **sample_kwargs)
+    return _gather_result(local, group, to_rank0)
+
+
+def replicate_batch(batch: ProteinBatch, n: int) -> ProteinBatch:
+    """Each row of the batch repeated n times in place (row i becomes rows
+    i n .. i n + n - 1): a 1-complex batch tiled into n designs."""
+    return batch._map(lambda x: torch.repeat_interleave(x, n, dim=0))

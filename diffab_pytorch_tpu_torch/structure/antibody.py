@@ -25,7 +25,8 @@ from diffab_pytorch_tpu_torch.constants import (
     LIGHT_CHAIN_IDX,
     MAX_N_ATOMS_PER_RESIDUE,
 )
-from diffab_pytorch_tpu_torch.structure.pdb import Residue, parse_pdb_file
+from diffab_pytorch_tpu_torch.structure import geometry
+from diffab_pytorch_tpu_torch.structure.pdb import Residue, parse_pdb, parse_pdb_file
 
 
 @dataclasses.dataclass
@@ -48,6 +49,19 @@ class AntibodyComplex:
     def n_residues(self) -> int:
         return self.xyz.shape[0]
 
+    # protstruc-style getters
+    def get_xyz(self) -> np.ndarray:
+        return self.xyz
+
+    def get_seq_idx(self) -> np.ndarray:
+        return self.seq_idx
+
+    def get_chain_idx(self) -> np.ndarray:
+        return self.chain_idx
+
+    def get_atom_mask(self) -> np.ndarray:
+        return self.atom_mask
+
     def get_residue_mask(self) -> np.ndarray:
         return self.atom_mask[:, 1].copy()  # CA present
 
@@ -64,6 +78,41 @@ class AntibodyComplex:
 
     def get_antigen_mask(self) -> np.ndarray:
         return self.chain_idx >= FIRST_ANTIGEN_CHAIN_IDX
+
+    def get_max_n_residues(self) -> int:
+        return self.n_residues
+
+    def get_max_n_atoms_per_residue(self) -> int:
+        return self.xyz.shape[1]
+
+    def backbone_orientations(self) -> np.ndarray:
+        rot, _ = geometry.backbone_orientations(self.xyz, self.atom_mask)
+        return rot
+
+    def backbone_dihedrals(self):
+        return geometry.backbone_dihedrals(self.xyz, self.atom_mask, self.chain_idx)
+
+    def pairwise_dihedrals(self) -> np.ndarray:
+        return geometry.pairwise_dihedrals(self.xyz, self.atom_mask)
+
+    def pairwise_distance_matrix(self):
+        return geometry.pairwise_distance_matrix(self.xyz, self.atom_mask)
+
+    def residue_masked_select(self, mask: np.ndarray) -> "AntibodyComplex":
+        """The complex of the residues where `mask` holds, in order."""
+        idx = np.nonzero(mask)[0]
+        return AntibodyComplex(
+            xyz=self.xyz[idx],
+            atom_mask=self.atom_mask[idx],
+            seq_idx=self.seq_idx[idx],
+            chain_idx=self.chain_idx[idx],
+            residue_idx=self.residue_idx[idx],
+            residue_number=self.residue_number[idx],
+            icode=self.icode[idx],
+            cdr_idx=self.cdr_idx[idx],
+            anchor_mask=self.anchor_mask[idx],
+            chain_ids=[self.chain_ids[i] for i in idx],
+        )
 
     def get_topk_nearest_residue_mask(
         self, query_xyz: np.ndarray, k: int, mask: Optional[np.ndarray] = None
@@ -202,6 +251,41 @@ def from_pdb(
     """Parse a PDB file and assemble the named chains in one call."""
     return from_chains(
         parse_pdb_file(path),
+        heavy_chain_id,
+        light_chain_id,
+        antigen_chain_ids,
+        keep_fv_only,
+    )
+
+
+def fetch_pdb(pdb_id: str, timeout: float = 30.0) -> str:
+    """PDB text of `pdb_id` from RCSB.  Needs network access: without it,
+    raises ConnectionError saying to download the file and use from_pdb()."""
+    import urllib.error
+    import urllib.request
+
+    url = f"https://files.rcsb.org/download/{pdb_id.lower()}.pdb"
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.read().decode()
+    except (urllib.error.URLError, OSError) as e:
+        raise ConnectionError(
+            f"cannot fetch {pdb_id!r} from RCSB ({e}); this environment may "
+            "have no network egress — download the file manually and use "
+            "from_pdb()"
+        ) from e
+
+
+def from_pdb_id(
+    pdb_id: str,
+    heavy_chain_id: Optional[str] = None,
+    light_chain_id: Optional[str] = None,
+    antigen_chain_ids: Sequence[str] = (),
+    keep_fv_only: bool = False,
+) -> AntibodyComplex:
+    """`fetch_pdb` then assemble the named chains, as `from_pdb` does for a file."""
+    return from_chains(
+        parse_pdb(fetch_pdb(pdb_id)),
         heavy_chain_id,
         light_chain_id,
         antigen_chain_ids,

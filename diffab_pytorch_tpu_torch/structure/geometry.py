@@ -1,6 +1,6 @@
 """Structural geometry on the host (numpy;
-`diffab_pytorch_tpu/structure/geometry.py`): backbone frames and backbone
-dihedrals.  `backbone_geometry`, the featurizer's entry, runs the C++
+`diffab_pytorch_tpu/structure/geometry.py`): backbone frames, backbone
+dihedrals and the pairwise dihedrals and distances.  `backbone_geometry`, the featurizer's entry, runs the C++
 featurizer (`structure/native.py`) unless told `prefer_native=False`; the
 numpy functions here are the reference it is held to.
 
@@ -97,6 +97,40 @@ def backbone_dihedrals(
         mask[idx, 2] = True
 
     return vals, mask
+
+
+def pairwise_dihedrals(xyz: np.ndarray, atom_mask: np.ndarray) -> np.ndarray:
+    """Inter-residue (phi-like, psi-like) angles, (L, L, 2):
+        phi-like[i, j] = dihedral(C_i, N_j, CA_j, C_j)
+        psi-like[i, j] = dihedral(N_i, CA_i, C_i, N_j)
+    0 for a pair where either residue lacks N, CA or C."""
+    n, ca, c = xyz[:, 0], xyz[:, 1], xyz[:, 2]
+    L = xyz.shape[0]
+    ci = np.broadcast_to(c[:, None, :], (L, L, 3))
+    ni = np.broadcast_to(n[:, None, :], (L, L, 3))
+    cai = np.broadcast_to(ca[:, None, :], (L, L, 3))
+    nj = np.broadcast_to(n[None, :, :], (L, L, 3))
+    caj = np.broadcast_to(ca[None, :, :], (L, L, 3))
+    cj = np.broadcast_to(c[None, :, :], (L, L, 3))
+    out = np.stack([dihedral_angle(ci, nj, caj, cj), dihedral_angle(ni, cai, ci, nj)],
+                   axis=-1).astype(np.float32)
+    bb_ok = atom_mask[:, 0] & atom_mask[:, 1] & atom_mask[:, 2]
+    pair_ok = bb_ok[:, None] & bb_ok[None, :]
+    return np.where(pair_ok[..., None], out, 0.0)
+
+
+def pairwise_distance_matrix(
+    xyz: np.ndarray, atom_mask: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """All-atom inter-residue distances (L, L, A, A) float32 and their
+    validity mask (both atoms present).  Offline use only: the models
+    derive squared distances themselves and never build this."""
+    L, A, _ = xyz.shape
+    flat = xyz.reshape(L * A, 3)
+    d = np.linalg.norm(flat[:, None, :] - flat[None, :, :], axis=-1)
+    d = d.reshape(L, A, L, A).transpose(0, 2, 1, 3)
+    mask = atom_mask[:, None, :, None] & atom_mask[None, :, None, :]
+    return d.astype(np.float32), mask
 
 
 def backbone_geometry(

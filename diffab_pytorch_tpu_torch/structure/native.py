@@ -91,6 +91,16 @@ def load() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether the library builds and loads here (a failure's reason is
+    what `load()` raises)."""
+    try:
+        load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def parse_pdb_native(text: str) -> Dict[str, list]:
     """`pdb.parse_pdb` through the C++ parser: {chain: [Residue]} in file
     order."""

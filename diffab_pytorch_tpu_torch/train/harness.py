@@ -327,13 +327,28 @@ class DiffAb:
         return state, {f"train/{k}": v.detach() for k, v in metrics.items()}
 
     def pool_train_step(self, state: TrainState, pool: ProteinBatch, idx: torch.Tensor,
-                        draws: StepDraws):
+                        draws, steps_per_call: int = 1):
         """`train_step` on rows `idx` ((b,) int64 on the pool's device) of a
         device-resident pool (`PatchDataset.device_pool` moved to the
         card): the rows are gathered on the card, so a step moves b
         indices to it instead of the batch's features.  On the same rows
-        with the same draws it is `train_step` exactly."""
-        return self.train_step(state, pool.gather_rows(idx), draws)
+        with the same draws it is `train_step` exactly.
+
+        steps_per_call = k > 1 runs k steps in one call: `idx` is (k, b),
+        `draws` a sequence of k StepDraws, and the metrics come back
+        stacked (k,) per entry.  It is the chain of k one-step calls bit
+        for bit (a host loop; the steps are not fused)."""
+        k = int(steps_per_call)
+        if k == 1:
+            return self.train_step(state, pool.gather_rows(idx), draws)
+        if idx.shape[0] != k or len(draws) != k:
+            raise ValueError(f"steps_per_call={k} takes idx of shape (k, b) and k draws "
+                             f"(got idx {tuple(idx.shape)}, {len(draws)} draws)")
+        metrics = []
+        for idx_t, draws_t in zip(idx, draws):
+            state, m = self.train_step(state, pool.gather_rows(idx_t), draws_t)
+            metrics.append(m)
+        return state, {name: torch.stack([m[name] for m in metrics]) for name in metrics[0]}
 
     @torch.no_grad()
     def eval_step(self, params: Params, batch: ProteinBatch, draws: StepDraws):
@@ -346,6 +361,17 @@ class DiffAb:
     def _load(self, params: Params | None) -> None:
         if params is not None:
             self.model.load_state_dict(params)
+
+    def encode_context(self, params: Params | None, batch: ProteinBatch,
+                       generate_structure: bool = True, generate_sequence: bool = True):
+        """`DiffAbModel.encode_context` with `params` loaded into the model."""
+        self._load(params)
+        return self.model.encode_context(batch, generate_structure, generate_sequence)
+
+    def denoise(self, params: Params | None, *args, **kwargs):
+        """`DiffAbModel.denoise` with `params` loaded into the model."""
+        self._load(params)
+        return self.model.denoise(*args, **kwargs)
 
     def sample(self, params: Params | None, batch: ProteinBatch,
                generator: torch.Generator | None = None, **kwargs):
