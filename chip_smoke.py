@@ -131,14 +131,34 @@ Phases (any failure raises and the script exits non-zero):
      (K2 24), steps/s of both beside [train]'s; (c) checked_fn around one
      production training step (bitwise the unwrapped step; with a NaN
      parameter it raises naming an op; its slowdown), assert_all_finite,
-     trace() with named_scope("denoiser") around one sample() of the
-     25-step recipe (the Chrome trace holds the scope and K1's kernel),
+     trace() with named_scope("denoiser") around one eager sample() of
+     the 25-step recipe (the Chrome trace holds the scope and K1's kernel),
      block_and_time and StepTimer beside CUDA events; (d) the
      compositional corpus (write_combo_corpus, 4 instances of each of 40
      train combinations) through cli.preprocess -k 128, cli.train
      --production --max-steps 4 (K1 counted a step), the checkpoint, and
      cli.sample -n 16 from it on a held-out combination's patch;
-  17. a `kernels` JSON line, the card line, and the final JSON line.
+  17. [graph]: the compiled step bodies.  Every phase above runs
+     on the card's default path, the step bodies replayed as captured
+     CUDA graphs (utils/graphs.py); here each is held against its eager
+     run (graphs=False) from the same seed under deterministic
+     algorithms, bitwise: (a) sample() at [main]'s size in bf16 and
+     float32 (K1 600 a call, the profiler's count the same), the [fast]
+     recipes, [main-256], self-conditioning (early fusion; the split trunk
+     with Heun) at two IPA layers, fuse_ipa_layer=False (the 25-step
+     recipe), and a second call with other weights in the same tensors;
+     (b) make_train_step over 5 steps of [train]'s batch and
+     make_eval_step at both flags and in both dtypes,
+     make_pool_train_step(4) (one replay a call) against 8 train_steps at
+     both flags in bf16, and the update with its scalars on the card
+     against the same update with them as host floats; (c) each path's
+     designs/s or steps/s graphed beside eager (timed in turns), busy ms,
+     idle share and device events of a graphed call where no earlier
+     phase profiles that path and of an eager call at [main] bf16,
+     chord-10, sc early and the training steps, the capture's seconds,
+     the pool's size and the peak memory, and the card's reserved memory
+     across three fit() runs from new states;
+  18. a `kernels` JSON line, the card line, and the final JSON line.
 
 The L = 128 kernel times (phase 7) run where they ran before the long-patch
 and few-step phases existed, so that two versions of this script read them
@@ -650,7 +670,8 @@ class RecordingLogger:
               f"orient {row['train/orientations_loss']:.4f})")
 
 
-def profile_device(torch, fn, wall_s, label, top=12, sum_of=(), return_events=False):
+def profile_device(torch, fn, wall_s, label, top=12, sum_of=(), return_events=False,
+                   count_of=None):
     """Device time by kernel over one call of fn (torch.profiler), and the
     idle share of an unprofiled call of wall_s seconds (None: no idle
     share).  Only device-side events (kernels, copies) are traced and
@@ -658,7 +679,8 @@ def profile_device(torch, fn, wall_s, label, top=12, sum_of=(), return_events=Fa
     reading them back took longer than the profiled call.  sum_of: kernel
     names whose events and ms are also printed as one sum.  Returns the
     device busy ms (None when the profiler reported none), with
-    return_events (busy ms, device events)."""
+    return_events (busy ms, device events), and with `count_of` (a kernel
+    name) also the number of that kernel's events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -693,11 +715,12 @@ def profile_device(torch, fn, wall_s, label, top=12, sum_of=(), return_events=Fa
             mine = [r for r in rows if any(name in r[1] for name in sum_of)]
             print(f"[profile]   {' + '.join(sum_of)}: {sum(r[0] for r in mine) / 1e3:.3f} ms in "
                   f"{sum(r[2] for r in mine)} launches")
+        n = sum(r[2] for r in rows if count_of and count_of in r[1])
         if return_events:
-            return busy_us / 1e3, sum(r[2] for r in rows)
+            return (busy_us / 1e3, sum(r[2] for r in rows)) + ((n,) if count_of else ())
         return busy_us / 1e3
     print(f"[profile] {label}: device time not measured (profiler reported none)")
-    return (None, None) if return_events else None
+    return ((None, None) + ((None,) if count_of else ())) if return_events else None
 
 
 def denoiser_calls(t_seq, opts):
@@ -897,15 +920,15 @@ def training_main_path(torch, card, tag, fuse, L, n_warm, n_timed, batch_size=No
           f"{moved}/{len(init_params)} parameter tensors moved; checks {tchecks}")
     if not all(tchecks.values()):
         raise RuntimeError(f"{tag} training main path check failed: {tchecks}")
-    if profile:
+    if profile:  # one more step of fit()'s: a replay of the graph it captured
         gen = torch.Generator(device="cuda").manual_seed(99)
-        step_state = state
+        step, step_state = harness.make_train_step(), state
 
         def one_step():
             nonlocal step_state
-            step_state, _ = harness.train_step(step_state, pool[0], harness.draw(pool[0], gen))
-        profile_device(torch, one_step, wall_s / n_timed, f"{tag} one training step, {kname}, "
-                       f"L={L}", sum_of=K1_LAUNCHES if fuse is None else ())
+            step_state, _ = step(step_state, pool[0], harness.draw(pool[0], gen))
+        profile_device(torch, one_step, wall_s / n_timed, f"{tag} one graphed training step, "
+                       f"{kname}, L={L}", sum_of=K1_LAUNCHES if fuse is None else ())
     return counts, steps_per_s
 
 
@@ -1338,26 +1361,35 @@ DATA_WINDOW = 7  # steps timed after the first epoch's validation pass
 
 
 class StepRecorder:
-    """Wraps DiffAb.train_step inside a training run without waiting for the
-    card: each call's host entry time, its K1 and K2 launches, its loss and
-    a checksum of its batch (tensors, read after the run)."""
+    """Wraps the step factory that fit() calls (DiffAb.make_train_step, or
+    with pool=True make_pool_train_step) inside a training run, without
+    waiting for the card: each call of the step it makes records a CUDA
+    event at its entry (where the card reaches the step: a replayed step is
+    queued faster than the card runs it, so host times would read the
+    queue), its K1 and K2
+    launches, its loss, its arguments and a checksum of its batch (a pool
+    step's rows gathered for it; tensors, read after the run)."""
 
-    def __init__(self, fn):
-        self.fn, self.calls = fn, []
+    def __init__(self, factory, pool=False):
+        self.factory, self.pool, self.calls = factory, pool, []
 
-    def __call__(self, harness, state, batch, draws):
-        from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
-        from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+    def __call__(self, harness, *args, **kwargs):
+        step = self.factory(harness, *args, **kwargs)
 
-        t0 = time.perf_counter()
-        before = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
-        state, metrics = self.fn(harness, state, batch, draws)
-        self.calls.append(dict(t=t0, loss=metrics["train/loss"], args=(harness, state, batch,
-                                                                         draws),
-                               rows=(batch.xyz.double().sum(), batch.seq_idx.sum()),
-                               launches=(op.fused_ipa_layer_packed.launches - before[0],
-                                         k2.ipa_attention_core.launches - before[1])))
-        return state, metrics
+        def recorded(state, *step_args):
+            import torch
+
+            entry = torch.cuda.Event(enable_timing=True)
+            entry.record()
+            before = k_launches()
+            out, metrics = step(state, *step_args)
+            batch = step_args[0].gather_rows(step_args[1]) if self.pool else step_args[0]
+            self.calls.append(dict(event=entry, loss=metrics["train/loss"],
+                                   args=(harness, state, *step_args),
+                                   rows=(batch.xyz.double().sum(), batch.seq_idx.sum()),
+                                   launches=tuple(b - a for a, b in zip(before, k_launches()))))
+            return out, metrics
+        return recorded
 
 
 def data_corpus(tmp):
@@ -1440,16 +1472,11 @@ def data_train(torch, card, patches, tmp, pool):
     ck = os.path.join(tmp, "ck_pool" if pool else "ck_loader")
     argv = ["--data-dir", patches, "--production", "--max-steps", str(DATA_STEPS),
             "--checkpoint-dir", ck] + (["--device-pool"] if pool else [])
-    rec, pool_rec = StepRecorder(DiffAb.train_step), []
-    real_pool_step = DiffAb.pool_train_step
-
-    def pool_step(self, state, pool_batch, idx, draws):
-        pool_rec.append((pool_batch, idx))
-        return real_pool_step(self, state, pool_batch, idx, draws)
+    factory = "make_pool_train_step" if pool else "make_train_step"
+    rec = StepRecorder(getattr(DiffAb, factory), pool)
     log = io.StringIO()
     try:
-        DiffAb.train_step = lambda self, *a: rec(self, *a)
-        DiffAb.pool_train_step = pool_step
+        setattr(DiffAb, factory, lambda self, *a, **k: rec(self, *a, **k))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
@@ -1460,15 +1487,16 @@ def data_train(torch, card, patches, tmp, pool):
         wall = time.perf_counter() - t0
         total = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
     finally:
-        DiffAb.train_step, DiffAb.pool_train_step = rec.fn, real_pool_step
+        setattr(DiffAb, factory, rec.factory)
     for line in log.getvalue().splitlines():
         if line.startswith(("[train]", "[trainer]")):
             print(f"{tag} {line}")
     calls = rec.calls
-    # steps/s over the steps after the first epoch's validation pass (entry
-    # times of steps 7..13), as [train] times steps after a warm-up
+    # steps/s over the steps after the first epoch's validation pass (steps
+    # 7..13, between the card reaching their entries), as [train] times
+    # steps after a warm-up
     w0 = DATA_STEPS - DATA_WINDOW
-    steps_per_s = (DATA_WINDOW - 1) / (calls[-1]["t"] - calls[w0]["t"])
+    steps_per_s = (DATA_WINDOW - 1) * 1e3 / calls[w0]["event"].elapsed_time(calls[-1]["event"])
     steps = (sum(c["launches"][0] for c in calls), sum(c["launches"][1] for c in calls))
     pcfg = C.production_config()
     n_layers, pb = pcfg.model.n_ipa_layers, pcfg.train.batch_size
@@ -1476,9 +1504,9 @@ def data_train(torch, card, patches, tmp, pool):
     steps_per_epoch = (DATA_FAMILIES * DATA_PER_FAMILY - n_val) // pb
     n_evals = DATA_STEPS // steps_per_epoch  # one validation batch of n_val each
     losses = [float(c["loss"]) for c in calls]
-    pool_batch = pool_rec[0][0] if pool_rec else None
+    pool_batch = calls[0]["args"][2] if pool else None
     pool_mb = (sum(v.nbytes for v in pool_batch.to_numpy().values() if v is not None) / 1e6
-               if pool_rec else 0.0)
+               if pool else 0.0)
     saved = ckpt.load_model_config(ck)
     checks = {
         "rc": rc == 0,
@@ -1494,14 +1522,14 @@ def data_train(torch, card, patches, tmp, pool):
           f"{w0}-{DATA_STEPS - 1} (host clock, card: {card}); peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
           + (f"; pool on the card {pool_mb:.2f} MB ({pool_batch.batch_size} rows, "
-             f"{pool_mb * 1e3 / pool_batch.batch_size:.1f} KB a patch)" if pool_rec else ""))
+             f"{pool_mb * 1e3 / pool_batch.batch_size:.1f} KB a patch)" if pool else ""))
     print(f"{tag}: launches K1, K2: training steps {steps}, whole CLI {total} (expected "
           f"{(n_layers * DATA_STEPS, 0)}, and {n_evals} validation passes: "
           f"{(n_layers * (DATA_STEPS + n_evals), 0)}); losses {[round(v, 6) for v in losses]}")
     print(f"{tag}: checks {checks}")
     if not all(checks.values()):
         raise RuntimeError(f"{tag} failed a check: {checks}")
-    return steps, steps_per_s, ck, calls, pool_rec[-1] if pool_rec else None
+    return steps, steps_per_s, ck, calls
 
 
 def data_fuse_false(torch, patches):
@@ -1691,19 +1719,20 @@ def data_phase(torch, card, tmp=None):
         rates, calls, busy = {}, {}, {}
         for pool in (False, True):
             key = "data_pool" if pool else "data_loader"
-            launches[key], rates[pool], ck, calls[pool], pool_call = data_train(
+            launches[key], rates[pool], ck, calls[pool] = data_train(
                 torch, card, patches, tmp, pool)
-            harness, state, batch, draws = calls[pool][-1]["args"]
+            # the run's own step again: a replay of the graph fit() captured
+            harness, state, *args = calls[pool][-1]["args"]
             if pool:
-                pool_batch, idx = pool_call
-                step = lambda: harness.pool_train_step(state, pool_batch, idx, draws)
+                pool_batch, idx, _ = args
+                run = harness.make_pool_train_step()
             else:
                 ck_loader = ck
-                step = lambda: harness.train_step(state, batch, draws)
+                run = harness.make_train_step()
             busy[pool] = profile_device(
-                torch, step, 1.0 / rates[pool], f"[data] one production training step "
-                f"({'pool_train_step' if pool else 'train_step on a loader batch'}; wall from "
-                f"the loop's rate)")
+                torch, lambda: run(state, *args), 1.0 / rates[pool], f"[data] one production "
+                f"training step ({'the pool step' if pool else 'on a loader batch'}, graphed; "
+                f"wall from the loop's rate)")
         # the data path's own device work (CUDA events, calls queued
         # behind a sleep): a pinned batch's copy (loader), the row gather
         # (pool)
@@ -1952,10 +1981,10 @@ def selfcond_cli(torch, card, patches, tmp):
     argv = ["--data-dir", patches, "--production", "--self-conditioning", "--sc-split-trunk",
             "--sc-onset", "2", "--sc-rate-warmup", "4", "--max-steps", str(SC_CLI_STEPS),
             "--checkpoint-dir", ck]
-    rec = StepRecorder(DiffAb.train_step)
+    rec = StepRecorder(DiffAb.make_train_step)
     log = io.StringIO()
     try:
-        DiffAb.train_step = lambda self, *a: rec(self, *a)
+        DiffAb.make_train_step = lambda self, *a, **k: rec(self, *a, **k)
         torch.cuda.synchronize()
         op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
         t0 = time.perf_counter()
@@ -1965,7 +1994,7 @@ def selfcond_cli(torch, card, patches, tmp):
         wall = time.perf_counter() - t0
         total = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
     finally:
-        DiffAb.train_step = rec.fn
+        DiffAb.make_train_step = rec.factory
     for line in log.getvalue().splitlines():
         if line.startswith(("[train]", "[trainer]")):
             print(f"{tag} {line}")
@@ -3417,10 +3446,11 @@ def rest_tools(torch, card, tmp):
     algorithms): its state and metrics bitwise the unwrapped step's, its
     time beside the unwrapped step's; with one parameter set to NaN it
     raises FloatingPointError naming an op; assert_all_finite on the state.
-    trace() around one sample() of the 25-step recipe (128 designs of
+    trace() around one eager sample() (graphs=False: a replay runs no
+    Python, so no host scope) of the 25-step recipe (128 designs of
     [main]'s target) with named_scope("denoiser") on the model's denoise:
     the Chrome trace holds the scope and K1's kernel; block_and_time and
-    StepTimer on that call beside CUDA events.  Returns {path: (K1, K2)}."""
+    StepTimer on the graphed call beside CUDA events.  Returns {path: (K1, K2)}."""
     from diffab_pytorch_tpu_torch.sampling.sampler import timestep_schedule
     from diffab_pytorch_tpu_torch.utils.debug import assert_all_finite, checked_fn
     from diffab_pytorch_tpu_torch.utils.profiling import (
@@ -3475,16 +3505,19 @@ def rest_tools(torch, card, tmp):
 
     fan, target = par_fan_setup(torch, "cuda")
     gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
-    run = lambda: fan.sample(None, target, gen(51), n_designs=N_DESIGNS, **REST_RECIPE)
-    run()  # warm-up
+    run = lambda graphs=None: fan.sample(None, target, gen(51), n_designs=N_DESIGNS,
+                                         graphs=graphs, **REST_RECIPE)
+    run(), run(False)  # warm-up
     torch.cuda.synchronize()
     fan.model.denoise = named_scope("denoiser")(fan.model.denoise)
     log_dir = os.path.join(tmp, "rest_trace")
     try:
         zero_launches()
         t0 = time.perf_counter()
+        # eager: a replayed graph runs no Python between its kernels, so its
+        # trace holds the kernels but none of the host's scopes
         with trace(log_dir):
-            out = run()
+            out = run(False)
         trace_s = time.perf_counter() - t0
         launches["rest/trace"] = k_launches()
     finally:
@@ -3516,7 +3549,7 @@ def rest_tools(torch, card, tmp):
     checks = {"trace_file": os.path.getsize(path) > 0, "scope": n_scope == len(t_seq),
               "k1_in_trace": n_k1 > 0, "launches": launches["rest/trace"] == want,
               "finite": bool(torch.isfinite(out.translations).all())}
-    print(f"{tag} trace() around sample({N_DESIGNS} designs, {REST_RECIPE}, bf16): "
+    print(f"{tag} trace() around an eager sample({N_DESIGNS} designs, {REST_RECIPE}, bf16): "
           f"{os.path.getsize(path)} bytes of Chrome trace, {len(events)} events, "
           f"'denoiser' scopes {n_scope} on the host (expected {len(t_seq)}) and {n_scope_gpu} "
           f"on the card, {K1_LAUNCHES[0]} events {n_k1}; "
@@ -3567,10 +3600,10 @@ def rest_corpus(torch, card, tmp):
         raise RuntimeError(f"{tag} cli.preprocess failed (rc {proc.returncode}, {len(written)} "
                            f"of {n}):\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
     ck = os.path.join(tmp, "combo_ck")
-    rec = StepRecorder(DiffAb.train_step)
+    rec = StepRecorder(DiffAb.make_train_step)
     log = io.StringIO()
     try:
-        DiffAb.train_step = lambda self, *a: rec(self, *a)
+        DiffAb.make_train_step = lambda self, *a, **k: rec(self, *a, **k)
         zero_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(log):
@@ -3579,7 +3612,7 @@ def rest_corpus(torch, card, tmp):
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
     finally:
-        DiffAb.train_step = rec.fn
+        DiffAb.make_train_step = rec.factory
     steps = tuple(sum(c["launches"][i] for c in rec.calls) for i in range(2))
     launches = {"rest/corpus": steps}
     pcfg = C.production_config()
@@ -3636,6 +3669,464 @@ def rest_phase(torch, card, tmp, train_rate, designs_rate):
     print(f"[rest] phase {laps[-1] - laps[0]:.2f} s: " + ", ".join(
         f"{p} {b_ - a:.2f} s" for p, a, b_ in zip(parts, laps, laps[1:])))
     return launches
+
+
+GRAPH_TRAIN_STEPS = 5  # [graph] (b): training steps held bitwise against train_step
+GRAPH_TIMED = 10  # [graph] (c): timed training steps a path
+GRAPH_UPDATE_STEPS = 3  # [graph] (b): updates held bitwise against the host-float update
+GRAPH_FIT_STEPS = 3  # [graph] (c): steps of each fit() run whose memory is read
+
+
+def last_entry(cache):
+    """The most recently used StepGraphs of a utils.graphs.GraphCache."""
+    return next(reversed(cache.entries.values()))
+
+
+def graph_sample(torch, card, tag, sched, tables, compute_dtype, n_designs, L, model=None,
+                 k1_per_call=None, other_weights=False, profile_eager=True,
+                 profile_graphed=True, **opts):
+    """[graph] (a) and (c) for one sample() configuration (default_config(),
+    its model in `compute_dtype` and changed by `model`, one synthetic
+    L-residue target, default_config()'s schedule and tables), under
+    deterministic algorithms (the sampler's kernels are the default mode's;
+    [main] times the default mode): an eager call (graphs=False), a graphed
+    call (warm-up and capture), two replays and a second eager call, all
+    bitwise the first, the launch counts equal (K1 `k1_per_call`, also in
+    the profiler at L = 128); with `other_weights` a graphed call after new
+    weights are written into the same tensors, bitwise its eager call.
+    Timed in turns (eager, graph, graph, eager); with `profile_graphed` one
+    graphed call profiled, with `profile_eager` one eager call (a profile of
+    a 50k-event eager call takes ~15 s); the capture's seconds, the
+    pool's size and the process's peak memory (allocated: over the first
+    eager call, over the replays; the pool's segments apart).  Returns the
+    readings."""
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
+    from diffab_pytorch_tpu_torch.models.diffab import DiffAbModel
+    from diffab_pytorch_tpu_torch.sampling import sampler
+    from diffab_pytorch_tpu_torch.weights import init_parameters
+
+    t_start = time.perf_counter()
+    mcfg = dataclasses.replace(C.default_config().model, compute_dtype=compute_dtype,
+                               **(model or {}))
+    net = init_parameters(DiffAbModel(mcfg), torch.Generator().manual_seed(0))
+    target = synthetic_batch(0, 1, L, mcfg.n_atoms, n_generate=N_GENERATE, device="cuda")
+    walls = {False: [], None: []}
+
+    def run(graphs, seed=7, timed=False):
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        out = sampler.sample(net, sched, tables, target, n_designs=n_designs, graphs=graphs,
+                             generator=torch.Generator(device="cuda").manual_seed(seed), **opts)
+        torch.cuda.synchronize()
+        if timed:
+            walls[graphs].append(time.perf_counter() - t0)
+        return out, k_launches()
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b) if x is not None)
+
+    peak = {}
+    with deterministic(torch):
+        torch.cuda.reset_peak_memory_stats()
+        e1, k_eager = run(False, timed=True)
+        peak[False] = torch.cuda.max_memory_allocated() / 1e9
+        g1, k_first = run(None)
+        cache = sampler.chain_graphs(net)
+        entry = last_entry(cache)
+        torch.cuda.reset_peak_memory_stats()
+        (g2, k_replay), (g3, _) = run(None, timed=True), run(None, timed=True)
+        peak[None] = torch.cuda.max_memory_allocated() / 1e9
+        e2, _ = run(False, timed=True)
+        checks = {"eager_twice": equal(e1, e2), "graphed_first": equal(g1, e1),
+                  "graphed_replays": equal(g2, e1) and equal(g3, e1),
+                  "launches": k_first == k_replay == k_eager
+                  and (k1_per_call is None or k_replay[0] == k1_per_call)}
+        if other_weights:
+            init_parameters(net, torch.Generator().manual_seed(1))  # new values, same tensors
+            checks["other_weights"] = equal(run(None, 8)[0], run(False, 8)[0])
+    print(f"{tag}: {n_designs} designs, L={L}, {opts or 'the full chain'}, {compute_dtype}; under "
+          f"deterministic algorithms: bitwise {checks} (the second eager call, the graphed call "
+          f"that captured, two replays against the first eager call"
+          + (", a graphed call with other weights in the same tensors against its eager call"
+             if other_weights else "")
+          + f"); launches K1, K2 graphed {k_first} / {k_replay}, eager {k_eager}")
+    if not all(checks.values()):
+        raise RuntimeError(f"{tag} graphed sample() against eager failed: {checks}")
+    wall_e, wall_g = min(walls[False]), min(walls[None])
+    busy_e = ev_e = None
+    if profile_eager:
+        busy_e, ev_e = profile_device(torch, lambda: run(False), wall_e,
+                                      f"{tag} one eager call", top=3, return_events=True)
+    # the profiler can drop a replay's events (never add one): its K1 count
+    # must reach the counter's in one of three profiled calls at L = 128 (a
+    # reading at L = 256, where it dropped more); a run whose profiler
+    # counted nothing fails
+    seen, busy_g, ev_g = [], None, None
+    for _ in range((3 if L == L_MAIN and k1_per_call else 1) if profile_graphed else 0):
+        busy_g, ev_g, k1_prof = profile_device(torch, lambda: run(None), wall_g,
+                                               f"{tag} one graphed call", top=3,
+                                               return_events=True, count_of=K1_LAUNCHES[0])
+        seen.append(k1_prof)
+        if k1_prof == k1_per_call:
+            break
+    if seen and L == L_MAIN and k1_per_call is not None:
+        print(f"{tag}: the profiler's K1 count by profiled call {seen}, the counter "
+              f"{k1_per_call} a call")
+        if k1_per_call not in seen:
+            raise RuntimeError(f"{tag} the profiler saw {seen} K1 launches in "
+                               f"{len(seen)} calls, the counter {k1_per_call} a call")
+    idle = lambda busy, wall: None if busy is None else max(0.0, 1 - busy / (wall * 1e3))
+    out = dict(eager_rate=n_designs / wall_e, graph_rate=n_designs / wall_g,
+               eager_busy=busy_e, graph_busy=busy_g, eager_events=ev_e, graph_events=ev_g,
+               eager_idle=idle(busy_e, wall_e), graph_idle=idle(busy_g, wall_g),
+               capture_s=entry.capture_s, pool_gb=cache.pool_bytes / 1e9, eager_peak_gb=peak[False],
+               graph_peak_gb=peak[None], k1_profiler=seen)
+    print(f"{tag}: designs/s eager {out['eager_rate']:.3f}, graphed {out['graph_rate']:.3f} "
+          f"({out['graph_rate'] / out['eager_rate']:.2f}x; calls eager "
+          f"{', '.join(f'{w:.4f}' for w in walls[False])} s, graphed "
+          f"{', '.join(f'{w:.4f}' for w in walls[None])} s); capture {entry.capture_s:.3f} s, "
+          f"pool {out['pool_gb']:.3f} GB; peak memory eager {peak[False]:.2f} GB, graphed "
+          f"{peak[None]:.2f} GB (card: {card}); {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
+def graph_train(torch, card, tag, compute_dtype, fuse, timed, pool_check):
+    """[graph] (b) and (c) for production_config() training ([train]'s
+    batch: 32 synthetic L=128 patches) in `compute_dtype` at
+    fuse_ipa_layer `fuse`: under deterministic algorithms, from one seeded
+    init, GRAPH_TRAIN_STEPS steps of make_train_step() bitwise the eager
+    train_step's (parameters, moments, EMA, metrics); two calls of
+    make_pool_train_step(steps_per_call=4), each one replay of four bodies
+    after the first call's capture, bitwise eight eager steps; the eval
+    step (the pool steps with `pool_check`). With `timed`, in the default
+    mode: eager and graphed steps/s in turns, the pool step's, a profile of
+    each, the captures' seconds, the pools' sizes and the peak memory.
+    Returns the readings."""
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
+    from diffab_pytorch_tpu_torch.train.harness import DiffAb
+
+    pcfg = C.production_config()
+    hcfg = dataclasses.replace(pcfg, model=dataclasses.replace(
+        pcfg.model, compute_dtype=compute_dtype, fuse_ipa_layer=fuse))
+    harness = DiffAb(hcfg)
+    pb = pcfg.train.batch_size
+    batch = synthetic_batch(100, pb, L_MAIN, pcfg.model.n_atoms, device="cuda")
+    pool = synthetic_batch(101, 2 * pb, L_MAIN, pcfg.model.n_atoms, device="cuda")
+    gen = torch.Generator(device="cuda")
+    draws = [harness.draw(batch, gen.manual_seed(500 + i)) for i in range(8)]
+    idx = torch.randint(0, 2 * pb, (8, pb), device="cuda", generator=gen.manual_seed(9))
+
+    def same(a, b):
+        trees = [(a.params, b.params), (a.opt_state.mu, b.opt_state.mu),
+                 (a.opt_state.nu, b.opt_state.nu), (a.ema_params, b.ema_params)]
+        return (a.step == b.step and a.opt_state.count == b.opt_state.count
+                and all(torch.equal(x[k], y[k]) for x, y in trees for k in x))
+
+    per_step = layer_calls(hcfg.model)
+    want = (per_step, 0) if fuse is None else (0, per_step)
+    with deterministic(torch):
+        eager, ems = harness.init(0), []
+        for d in draws[:GRAPH_TRAIN_STEPS]:
+            eager, m = harness.train_step(eager, batch, d)
+            ems.append(m)
+        step, state, gms, counts = harness.make_train_step(), harness.init(0), [], []
+        for d in draws[:GRAPH_TRAIN_STEPS]:
+            zero_launches()
+            state, m = step(state, batch, d)
+            counts.append(k_launches())
+            gms.append(m)
+        metrics_equal = lambda a, b: all(torch.equal(x[k], y[k]) for x, y in zip(a, b) for k in x)
+        pool_step = harness.make_pool_train_step(steps_per_call=4)
+        if pool_check:
+            eager_pool, graph_pool = harness.init(0), harness.init(0)
+            eager_metrics = []
+            for j in range(8):
+                eager_pool, m = harness.train_step(eager_pool, pool.gather_rows(idx[j]), draws[j])
+                eager_metrics.append(m)
+            pool_counts, pool_metrics = [], []
+            for c in range(2):
+                zero_launches()
+                graph_pool, m = pool_step(graph_pool, pool, idx[4 * c:4 * c + 4],
+                                          draws[4 * c:4 * c + 4])
+                pool_counts.append(k_launches())
+                pool_metrics.append(m)
+            pool_entry = last_entry(harness._step_graphs)
+        ev_step = harness.make_eval_step()
+        v_e = harness.eval_step(state.params, batch, draws[0])
+        v_g = [ev_step(state.params, batch, d) for d in draws[:2]]
+        v_e2 = harness.eval_step(state.params, batch, draws[1])
+    torch.cuda.synchronize()
+    checks = {
+        "train_step": same(state, eager) and metrics_equal(gms, ems),
+        "launches": all(c == want for c in counts),
+        "eval": metrics_equal([v_e, v_e2], v_g),
+    }
+    pool_line = ""
+    if pool_check:
+        stacked = {k: torch.stack([m[k] for m in eager_metrics]) for k in eager_metrics[0]}
+        checks["pool_k4"] = same(graph_pool, eager_pool) and all(
+            torch.equal(torch.cat([m[k] for m in pool_metrics]), stacked[k]) for k in stacked)
+        checks["pool_one_replay"] = (pool_entry.replays == 1 and len(pool_entry.graphs) == 1
+                                     and all(c == tuple(4 * n for n in want)
+                                             for c in pool_counts))
+        pool_line = (f"make_pool_train_step(4) twice bitwise 8 train_steps {checks['pool_k4']} "
+                     f"(one replay a call after the capture {checks['pool_one_replay']}, "
+                     f"launches a call {pool_counts}); ")
+    print(f"{tag}: production_config() {compute_dtype}, fuse_ipa_layer={fuse}, batch {pb}, "
+          f"L={L_MAIN}; under deterministic algorithms: {GRAPH_TRAIN_STEPS} steps of "
+          f"make_train_step bitwise train_step {checks['train_step']} (launches K1, K2 a step "
+          f"{counts}); {pool_line}make_eval_step bitwise eval_step {checks['eval']}")
+    if not all(checks.values()):
+        raise RuntimeError(f"{tag} graphed training against eager failed: {checks}")
+    if not timed:
+        return None
+
+    state = harness.init(0)
+    step = harness.make_train_step()
+    rates, peaks = {"eager": [], "graphed": []}, {}
+    for name in ("eager", "graphed", "graphed", "eager"):
+        fn = harness.train_step if name == "eager" else step
+        for j in range(2):
+            state, _ = fn(state, batch, draws[j])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for j in range(GRAPH_TIMED):
+            state, _ = fn(state, batch, draws[j % 8])
+        torch.cuda.synchronize()
+        rates[name].append(GRAPH_TIMED / (time.perf_counter() - t0))
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+    train_entry = last_entry(harness._step_graphs)
+    state, _ = pool_step(state, pool, idx[:4], draws[:4])  # the default mode's capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in range(3):
+        state, _ = pool_step(state, pool, idx[4 * (c % 2):4 * (c % 2) + 4],
+                             draws[4 * (c % 2):4 * (c % 2) + 4])
+    torch.cuda.synchronize()
+    pool_rate = 12 / (time.perf_counter() - t0)
+    pool_entry = last_entry(harness._step_graphs)
+    best = {k: max(v) for k, v in rates.items()}
+    box = [state]
+
+    def one(fn):
+        def go():
+            box[0], _ = fn(box[0], batch, draws[0])
+        return go
+    busy_e, ev_e = profile_device(torch, one(harness.train_step), 1 / best["eager"],
+                                  f"{tag} one eager training step", top=3, return_events=True)
+    busy_g, ev_g = profile_device(torch, one(step), 1 / best["graphed"],
+                                  f"{tag} one graphed training step", top=3, return_events=True)
+    idle = lambda busy, rate: None if busy is None else max(0.0, 1 - busy * rate / 1e3)
+    out = dict(eager_rate=best["eager"], graph_rate=best["graphed"], pool_rate=pool_rate,
+               eager_busy=busy_e, graph_busy=busy_g, eager_events=ev_e, graph_events=ev_g,
+               eager_idle=idle(busy_e, best["eager"]), graph_idle=idle(busy_g, best["graphed"]),
+               capture_s=train_entry.capture_s, pool_gb=harness._step_graphs.pool_bytes / 1e9,
+               pool_capture_s=pool_entry.capture_s, pool_pool_gb=pool_entry.pool_bytes / 1e9,
+               eager_peak_gb=peaks["eager"], graph_peak_gb=peaks["graphed"])
+    print(f"{tag}: steps/s eager {', '.join(f'{r:.3f}' for r in rates['eager'])}, graphed "
+          f"{', '.join(f'{r:.3f}' for r in rates['graphed'])} "
+          f"({best['graphed'] / best['eager']:.2f}x "
+          f"best to best), steps_per_call=4 {pool_rate:.3f} ({pool_rate / best['graphed']:.2f}x "
+          f"the one-step graph); capture {train_entry.capture_s:.3f} s, k=4 "
+          f"{pool_entry.capture_s:.3f} s (the pool grew {out['pool_pool_gb']:.3f} GB in it); "
+          f"the pool of the harness's captures {out['pool_gb']:.3f} GB; peak memory eager "
+          f"{peaks['eager']:.2f} GB, graphed {peaks['graphed']:.2f} GB (card: {card})")
+    return out
+
+
+def host_float_update(torch, harness, state, grads):
+    """The optimizer update of `DiffAb.apply_gradients` with its learning
+    rate and bias corrections as host floats (optax's arithmetic in
+    `_foreach_*` form, as the update ran before its scalars moved to the
+    card): [graph] (b)'s reference for the update the DP and TP steps run
+    eagerly.  In place on the state's tensors."""
+    t = harness.config.train
+    names = list(state.params)
+    params = [state.params[k] for k in names]
+    mu = [state.opt_state.mu[k] for k in names]
+    nu = [state.opt_state.nu[k] for k in names]
+    g = [grads[k] for k in names]
+    with torch.no_grad():
+        if t.grad_clip_norm > 0:
+            g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            scale = torch.where(g_norm < t.grad_clip_norm, torch.ones_like(g_norm),
+                                t.grad_clip_norm / g_norm)
+            g = torch._foreach_mul(g, scale)
+        b1, b2 = t.betas
+        count = state.opt_state.count + 1
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, g, alpha=1.0 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
+        den = torch._foreach_div(nu, 1.0 - b2 ** count)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, t.adam_eps)
+        u = torch._foreach_div(mu, 1.0 - b1 ** count)
+        torch._foreach_div_(u, den)
+        if t.update_clip_rms > 0:
+            rms = torch._foreach_mul(torch._foreach_norm(u),
+                                     [1.0 / math.sqrt(x.numel()) for x in u])
+            torch._foreach_div_(u, torch._foreach_clamp_min(
+                torch._foreach_div(rms, t.update_clip_rms), 1.0))
+        if t.weight_decay > 0:
+            torch._foreach_add_(u, params, alpha=t.weight_decay)
+        torch._foreach_add_(params, u, alpha=-harness.learning_rate(state.opt_state.count))
+        if state.ema_params is not None:
+            ema = [state.ema_params[k] for k in names]
+            torch._foreach_mul_(ema, t.ema_decay)
+            torch._foreach_add_(ema, params, alpha=1.0 - t.ema_decay)
+
+
+def graph_update_check(torch, card):
+    """[graph] (b): `apply_gradients` (the learning rate and the bias
+    corrections read on the card from `step_scalars`, as the train, pool,
+    DP and TP steps run it) bitwise `host_float_update` over
+    GRAPH_UPDATE_STEPS updates of a production_config() float32 state from
+    update count 3 (warm-up learning rate, bias corrections away from 1),
+    with the gradients of one real step.  Returns whether it held."""
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
+    from diffab_pytorch_tpu_torch.train.harness import OptState, TrainState, DiffAb
+
+    pcfg = C.production_config()
+    harness = DiffAb(dataclasses.replace(pcfg, model=dataclasses.replace(
+        pcfg.model, compute_dtype="float32")))
+    batch = synthetic_batch(100, pcfg.train.batch_size, L_MAIN, pcfg.model.n_atoms,
+                            device="cuda")
+    base = harness.init(0)
+    _, _, grads = harness.loss_and_grads(base.params, batch,
+                                         harness.draw(batch, torch.Generator(
+                                             device="cuda").manual_seed(500)), 0)
+    copy = lambda d: {k: v.detach().clone() for k, v in d.items()}
+    fresh = lambda: TrainState(3, copy(base.params), OptState(3, copy(base.opt_state.mu),
+                                                              copy(base.opt_state.nu)),
+                               copy(base.ema_params))
+    card_state, host_state = fresh(), fresh()
+    lrs = []
+    for _ in range(GRAPH_UPDATE_STEPS):
+        lrs.append(harness.learning_rate(card_state.opt_state.count))
+        card_state = harness.apply_gradients(card_state, grads)
+        host_float_update(torch, harness, host_state, grads)
+        host_state = TrainState(host_state.step + 1, host_state.params,
+                                OptState(host_state.opt_state.count + 1, host_state.opt_state.mu,
+                                         host_state.opt_state.nu), host_state.ema_params)
+    torch.cuda.synchronize()
+    trees = ("params", "mu", "nu", "ema")
+    get = lambda st: (st.params, st.opt_state.mu, st.opt_state.nu, st.ema_params)
+    same = {n: all(torch.equal(a[k], b[k]) for k in a)
+            for n, a, b in zip(trees, get(card_state), get(host_state))}
+    moved = max(float((card_state.params[k] - base.params[k]).abs().max()) for k in grads)
+    print(f"[graph] (b) apply_gradients with its scalars on the card against the host-float "
+          f"update: {GRAPH_UPDATE_STEPS} updates from count 3 at lr "
+          f"{[f'{v:.2e}' for v in lrs]} (parameters moved up to {moved:.2e}), bitwise {same} "
+          f"(card: {card})")
+    return all(same.values()) and moved > 0
+
+
+def graph_fit_memory(torch, card):
+    """[graph] (c): three fit() runs of GRAPH_FIT_STEPS production bf16
+    steps, each from a new init that replaces the last run's state (a new
+    state is a new cache entry, its capture in the harness's one pool):
+    the card's reserved memory after each run and the pool's growth in
+    each.  Fails if the later runs grew the pool by a quarter of the first
+    run's growth, or the card's reserved memory from the second run to
+    the third by a tenth of it (a new pool a run would add all of it)."""
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
+    from diffab_pytorch_tpu_torch.train.harness import DiffAb
+    from diffab_pytorch_tpu_torch.train.trainer import fit
+
+    pcfg = C.production_config()
+    harness = DiffAb(dataclasses.replace(pcfg, train=dataclasses.replace(
+        pcfg.train, log_every=GRAPH_FIT_STEPS)))
+    data = [synthetic_batch(100, pcfg.train.batch_size, L_MAIN, pcfg.model.n_atoms,
+                            device="cuda")]
+    logger = RecordingLogger("[graph] (c) fit memory")
+    reserved, grown, state = [], [], None
+    for run in range(3):
+        before = harness._step_graphs.pool_bytes
+        state = fit(harness, data, max_steps=GRAPH_FIT_STEPS, logger=logger,
+                    state=harness.init(run))
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+        grown.append(harness._step_graphs.pool_bytes - before)
+    ok = grown[1] + grown[2] < 0.25 * grown[0] and reserved[2] - reserved[1] < 0.1 * grown[0]
+    print(f"[graph] (c) three fit() runs of {GRAPH_FIT_STEPS} steps, each from a new state: "
+          f"reserved after each {[round(r / 1e9, 3) for r in reserved]} GB, the pool grew "
+          f"{[round(g / 1e9, 3) for g in grown]} GB, {len(harness._step_graphs.entries)} cached "
+          f"steps (card: {card}); {'ok' if ok else 'FAILED'}")
+    return ok
+
+
+def graph_phase(torch, card):
+    """[graph] (phase 17): the compiled step bodies.  (a) the graphed
+    sample() bitwise the eager one (graphs=False) from the same generator
+    seed under deterministic algorithms: [main] in bf16 and float32 (K1 600
+    a call, the profiler's count agreeing), the [fast] recipes, [main-256],
+    self-conditioning (early fusion; the split trunk with Heun) at two IPA
+    layers, and fuse_ipa_layer=False on the 25-step recipe; (b)
+    make_train_step and make_eval_step bitwise their eager chains at both
+    flags and dtypes, make_pool_train_step(4) at both flags in bf16; (c)
+    each path's rate graphed beside eager (sampling timed under
+    deterministic algorithms, training in the default mode), busy ms, idle
+    share and events of a graphed call of each path not profiled in an
+    earlier phase and of an eager one at [main] bf16, chord-10, sc early and
+    the training steps (an eager call runs the same kernels; profiling the
+    others' eager calls would take ~60 s), capture seconds, pool size and
+    peak memory.  Returns {path: readings}."""
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.diffusion.orientation import make_orientation_tables
+    from diffab_pytorch_tpu_torch.diffusion.schedule import cosine_variance_schedule
+
+    t0 = time.perf_counter()
+    d = C.default_config().diffusion
+    sched = cosine_variance_schedule(d.T, s=d.s, beta_max=d.beta_max, device="cuda")
+    tables = make_orientation_tables(sched)
+    run = lambda label, *args, **kw: graph_sample(torch, card, f"[graph] (a) {label}", sched,
+                                                  tables, *args, **kw)
+    # [main-f32], [main-256] and the [fast] recipes' graphed calls are
+    # profiled in their own phases above, on these shapes
+    out = {"main bfloat16": run("[main] bfloat16", "bfloat16", N_DESIGNS, L_MAIN,
+                                k1_per_call=600, other_weights=True),
+           "main float32": run("[main] float32", "float32", N_DESIGNS, L_MAIN, k1_per_call=600,
+                               profile_eager=False, profile_graphed=False)}
+    for name, n_designs, opts in FAST_RECIPES:
+        out[f"fast {name}"] = run(f"[fast] {name}", "bfloat16", n_designs, L_MAIN,
+                                  profile_eager=name == FAST_RECIPES[0][0],
+                                  profile_graphed=False, **opts)
+    out["main-256"] = run("[main-256]", "bfloat16", N_DESIGNS, 256, k1_per_call=600,
+                          profile_eager=False, profile_graphed=False)
+    small = dict(n_ipa_layers=2)
+    out["sc early"] = run("sc early", "bfloat16", 32, L_MAIN,
+                          model=dict(small, **sc_model_fields("early")), n_steps=25, sc_t_max=60)
+    out["sc split"] = run("sc split", "bfloat16", 32, L_MAIN,
+                          model=dict(small, **sc_model_fields("split")), n_steps=20, sc_t_max=60,
+                          coord_solver="heun", coord_solver_t_min=10, profile_eager=False)
+    out["25-step fuse False"] = run("[fast] 25-step fuse_ipa_layer=False", "bfloat16",
+                                    N_DESIGNS, L_MAIN, model=dict(fuse_ipa_layer=False),
+                                    n_steps=25, profile_eager=False)
+    laps = {"(a)": time.perf_counter() - t0}
+    for dtype in ("bfloat16", "float32"):
+        for fuse in (None, False):
+            bf16 = dtype == "bfloat16"
+            reading = graph_train(torch, card, f"[graph] (b) train {dtype} fuse={fuse}", dtype,
+                                  fuse, timed=bf16, pool_check=bf16)
+            if reading:
+                out[f"train fuse {fuse}"] = reading
+    if not graph_update_check(torch, card):
+        raise RuntimeError("[graph] (b) apply_gradients is not the host-float update bitwise")
+    if not graph_fit_memory(torch, card):
+        raise RuntimeError("[graph] (c) the card's memory grew across fit() runs")
+    laps["(b)-(c) training"] = time.perf_counter() - t0 - laps["(a)"]
+    print(f"[graph] phase {time.perf_counter() - t0:.2f} s: sampling {laps['(a)']:.2f} s, "
+          f"training {laps['(b)-(c) training']:.2f} s")
+    print("[graph] " + json.dumps({k: {n: (round(v, 6) if isinstance(v, float) else v)
+                                       for n, v in r.items()} for k, r in out.items()}))
+    return out
 
 
 def kernel_times(torch, card, pb, h=8):
@@ -3960,7 +4451,10 @@ def main() -> int:
         # ---- 16. the rest of the JAX package: sample_sharded, steps_per_call, tools, corpus ---
         launches.update(rest_phase(torch, card, tmp, train_rates[None], designs_per_s))
 
-    # ---- 17. records ---------------------------------------------------------------
+    # ---- 17. the compiled step bodies: graphed against eager --------------------------
+    graph_phase(torch, card)
+
+    # ---- 18. records ---------------------------------------------------------------
     by_path = lambda i: {path: c[i] for path, c in launches.items()}
     kernels = [{
         "name": "ipa_fused_layer",

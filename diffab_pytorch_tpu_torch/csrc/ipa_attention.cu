@@ -226,8 +226,7 @@ int run(const void* q_aug, const void* k_aug, const void* v_s, const void* v_p,
   if (D.FVP > D.FP || D.total > 232448) return cudaErrorInvalidValue;
   auto kernel = chunked ? attention_chunked_kernel<T, TB> : attention_kernel<T, TB>;
   if (D.total > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, D.total);
+    const cudaError_t err = ptx::allow_dynamic_smem(kernel, D.total);
     if (err != cudaSuccess) return err;
   }
   kernel<<<dim3(h, b, (L + CHUNK - 1) / CHUNK), THREADS, D.total, stream>>>(

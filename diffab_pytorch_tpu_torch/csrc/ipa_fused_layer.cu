@@ -195,8 +195,7 @@ cudaError_t run_attend(const void* opnd, const void* rot, const void* trans,
                        int ds, int p, float scale_total, cudaStream_t stream) {
   const ChunkDims D = chunk_dims<T>(L, h, ds, p);
   auto kernel = attend_kernel<T, TB>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, D.total);
+  cudaError_t err = ptx::allow_dynamic_smem(kernel, D.total);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(h, b, (L + CHUNK - 1) / CHUNK), 256, D.total, stream>>>(
       static_cast<const T*>(opnd), static_cast<const T*>(rot), static_cast<const T*>(trans),
@@ -216,8 +215,7 @@ int run_f32(const void* x, const void* rot, const void* trans, const void* mask,
   tf32x3::Dims D = tf32x3::layer_dims(chunked ? CHUNK : L, d, h, ds, p);
   D.L = L;
   auto heads = chunked ? tf32x3::layer_heads_kernel<true> : tf32x3::layer_heads_kernel<false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(heads, cudaFuncAttributeMaxDynamicSharedMemorySize, D.total);
+  cudaError_t err = ptx::allow_dynamic_smem(heads, D.total);
   if (err != cudaSuccess) return err;
   const int x_vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   heads<<<dim3(h, b, (L + CHUNK - 1) / CHUNK), tf32x3::THREADS, D.total, stream>>>(
@@ -249,8 +247,7 @@ int run_bf16(const void* x, const void* rot, const void* trans, const void* mask
   tc::Dims D = tc::layer_dims(chunked ? CHUNK : L, d, h, ds, p);
   D.L = L;
   auto heads = chunked ? tc::layer_heads_kernel<TB, true> : tc::layer_heads_kernel<TB, false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(heads, cudaFuncAttributeMaxDynamicSharedMemorySize, D.total);
+  cudaError_t err = ptx::allow_dynamic_smem(heads, D.total);
   if (err != cudaSuccess) return err;
   const int x_vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   heads<<<dim3(h, b, (L + CHUNK - 1) / CHUNK), tc::THREADS, D.total, stream>>>(

@@ -1,8 +1,9 @@
 // The PTX wrappers and small device helpers that the port's kernels share
 // (sm_90a): shared-memory addresses, cp.async, ldmatrix, the bf16 and tf32
 // mma.sync shapes, tf32 rounding and splitting, dtype conversions and tile
-// strides.  Every kernel header includes this file; nothing here is
-// defined anywhere else.
+// strides, and one host helper (`allow_dynamic_smem`, the launches' shared
+// memory limit set once per kernel and size).  Every kernel header includes
+// this file; nothing here is defined anywhere else.
 
 #pragma once
 
@@ -10,7 +11,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
 #include <type_traits>
+#include <utility>
 
 namespace ptx {
 
@@ -149,6 +153,26 @@ template <> __device__ __forceinline__ void load_f2<float>(const float* p, float
 template <> __device__ __forceinline__ void load_f2<bf16>(const bf16* p, float& a, float& b) {
   const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
   a = __low2float(v), b = __high2float(v);
+}
+
+// Host side: raise a kernel's dynamic shared-memory limit only where a
+// launch needs more than the kernel was given on this device before.  The
+// attribute call then runs once per kernel and size, in the first (eager)
+// launch, so a launch captured into a CUDA graph later calls no runtime
+// function besides the launch itself.
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kernel, int bytes) {
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, int> given;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  int& have = given[{dev, reinterpret_cast<const void*>(kernel)}];
+  if (bytes <= have) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) have = bytes;
+  return err;
 }
 
 }  // namespace ptx

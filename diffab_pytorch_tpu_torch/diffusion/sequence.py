@@ -10,16 +10,16 @@ The categorical draw is Gumbel-max; the Gumbel tensor can be injected.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from diffab_pytorch_tpu_torch.constants import AA_VOCAB_SIZE
 from diffab_pytorch_tpu_torch.diffusion.schedule import DiffusionSchedule
+from diffab_pytorch_tpu_torch.utils.graphs import one_hot
 
 
 def _clamp_context(probs, seq_idx, generation_mask):
     """Outside the generation mask the distribution is a point mass on the
     input sequence."""
-    onehot = F.one_hot(seq_idx, probs.shape[-1]).to(probs.dtype)
+    onehot = one_hot(seq_idx, probs.shape[-1], probs.dtype)
     return torch.where(generation_mask[..., None], probs, onehot)
 
 
@@ -49,7 +49,7 @@ def forward_prob_single_step(
     """q(s_t | s_{t-1} = seq_idx) = (1 - beta_t) onehot + beta_t / K:
     (b, L) -> (b, L, K), context clamped."""
     beta = sched.beta[t][..., None, None]
-    onehot = F.one_hot(seq_idx, vocab_size).to(sched.beta.dtype)
+    onehot = one_hot(seq_idx, vocab_size, sched.beta.dtype)
     probs = (1.0 - beta) * onehot + beta / vocab_size
     return _clamp_context(probs, seq_idx, generation_mask)
 
@@ -78,7 +78,7 @@ def forward_prob_from_t0(
     """q(s_t | s_0 = seq_idx_t0) = abar_t onehot(s_0) + (1 - abar_t)/K:
     (b, L) -> (b, L, K), context clamped."""
     abar = sched.alpha_bar[t][..., None, None]
-    onehot = F.one_hot(seq_idx_t0, vocab_size).to(sched.alpha_bar.dtype)
+    onehot = one_hot(seq_idx_t0, vocab_size, sched.alpha_bar.dtype)
     probs = abar * onehot + (1.0 - abar) / vocab_size
     return _clamp_context(probs, seq_idx_t0, generation_mask)
 
@@ -95,10 +95,10 @@ def posterior_single_step(
     in the ratio form the sampler's posterior uses."""
     abar_prev = sched.alpha_bar[t - 1][..., None, None]
     beta_ts = 1.0 - sched.alpha_bar[t][..., None, None] / abar_prev
-    onehot_t = F.one_hot(seq_idx_t, vocab_size).to(sched.beta.dtype)
+    onehot_t = one_hot(seq_idx_t, vocab_size, sched.beta.dtype)
     p_single = (1.0 - beta_ts) * onehot_t + beta_ts / vocab_size
     p_single = _clamp_context(p_single, seq_idx_t, generation_mask)
-    onehot_0 = F.one_hot(seq_idx_t0, vocab_size).to(sched.beta.dtype)
+    onehot_0 = one_hot(seq_idx_t0, vocab_size, sched.beta.dtype)
     p_prior = abar_prev * onehot_0 + (1.0 - abar_prev) / vocab_size
     p_prior = _clamp_context(p_prior, seq_idx_t, generation_mask)
     p = p_single * p_prior
@@ -144,7 +144,7 @@ def posterior_from_predicted_t0(
     vocab_size = s0_probs.shape[-1]
     abar_prev = sched.alpha_bar[s][..., None, None]
     beta_ts = 1.0 - sched.alpha_bar[t][..., None, None] / abar_prev
-    onehot = F.one_hot(seq_idx_t, vocab_size).to(sched.beta.dtype)
+    onehot = one_hot(seq_idx_t, vocab_size, sched.beta.dtype)
     p_single = (1.0 - beta_ts) * onehot + beta_ts / vocab_size
     p_single = _clamp_context(p_single, seq_idx_t, generation_mask)
     p_prior = abar_prev * s0_probs + (1.0 - abar_prev) / vocab_size

@@ -16,6 +16,7 @@ from diffab_pytorch_tpu_torch.config import ModelConfig
 from diffab_pytorch_tpu_torch.constants import AA, ATOM
 from diffab_pytorch_tpu_torch.models.encoding import angular_encode, angular_encoding_dim
 from diffab_pytorch_tpu_torch.models.layers import Embedding, Linear
+from diffab_pytorch_tpu_torch.utils.graphs import one_hot
 
 
 def _mask_sequence_to_unk(seq_idx, sequence_context_mask):
@@ -60,7 +61,7 @@ class ResidueEmbedding(nn.Module):
                  + rel[..., 2:3] * o[..., :, 2])
         # where, not multiply: garbage in masked atom slots must not leak
         local = torch.where(atom_mask[..., None], local, torch.zeros((), dtype=dt, device=local.device))
-        onehot = F.one_hot(seq_idx, V).to(dt)
+        onehot = one_hot(seq_idx, V, dt)
         coord_feat = onehot[..., None, None] * local[:, :, None, :, :]
         coord_feat = coord_feat.reshape(*seq_idx.shape, V * cfg.n_atoms * 3)
         if structure_context_mask is not None:

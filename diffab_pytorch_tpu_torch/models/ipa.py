@@ -229,8 +229,7 @@ class InvariantPointAttentionLayer(nn.Module):
                      + pair_bias.to(dt)[:, None]).reshape(b, h, L, L)
         logit = logit * self.scale_total
         if residue_mask is not None:
-            logit = torch.where(residue_mask[:, None, None, :], logit,
-                                torch.tensor(-1e9, dtype=dt, device=x.device))
+            logit = torch.where(residue_mask[:, None, None, :], logit, -1e9)
         attn = torch.softmax(logit, dim=-1)
         outs = [(attn @ heads(v_s, ds)).transpose(1, 2).reshape(b, L, h * ds)]
         if cfg.use_pair_bias:

@@ -9,6 +9,7 @@ is reused.  `build_all` starts one `nvcc` per source, all at once.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -29,6 +30,9 @@ build_logs: dict[str, str] = {}
 # callables (kernel name, output tensors) that every wrapper runs after a
 # launch: the debug mode's check of the kernels' outputs (`utils/debug.py`)
 launch_checks: list = []
+# {counted wrapper: launches} of the CUDA graph being captured, None outside
+# a capture (`utils/graphs.py` opens it with `capturing`)
+_tally: dict | None = None
 
 
 def _nvcc() -> str:
@@ -93,6 +97,42 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def launched(name: str, *outputs) -> None:
-    """Run the launch checks on a kernel's outputs (none outside a debug run)."""
+    """Run the launch checks on a kernel's outputs (none outside a debug run).
+    Inside a capture none runs: a check reads the outputs back, which a
+    capture cannot do, and nothing has run yet."""
+    if _tally is not None:
+        return
     for check in launch_checks:
         check(name, outputs)
+
+
+def count_launch(counted, name: str, *outputs) -> None:
+    """Book one launch of kernel `name` by the wrapper `counted`: outside a
+    capture `counted.launches` += 1, then the launch checks; inside one the
+    launch goes into the graph's tally, which each replay adds to the
+    counts (`replayed`)."""
+    if _tally is not None:
+        _tally[counted] = _tally.get(counted, 0) + 1
+        return
+    counted.launches += 1
+    launched(name, *outputs)
+
+
+@contextlib.contextmanager
+def capturing():
+    """While a CUDA graph is captured: yields the {wrapper: launches} tally
+    that `launched` fills."""
+    global _tally
+    if _tally is not None:
+        raise RuntimeError("a graph capture is already in progress")
+    _tally = {}
+    try:
+        yield _tally
+    finally:
+        _tally = None
+
+
+def replayed(tally: dict) -> None:
+    """Count the launches of one replay of a graph captured with `tally`."""
+    for counted, n in tally.items():
+        counted.launches += n

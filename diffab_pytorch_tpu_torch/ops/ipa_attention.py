@@ -18,7 +18,8 @@ weighted sums: bfloat16 on `mma.sync` bf16 tiles, float32 as 3xTF32
 the keys: the rows' max and sum, then the weights and sums).
 
 On a CPU tensor `ipa_attention_core` runs `ipa_attention_core_reference`;
-on a CUDA tensor it launches the kernel (counted in `.launches`) or
+on a CUDA tensor it launches the kernel (counted in `.launches`, a launch
+captured in a CUDA graph once per replay: `_build.count_launch`) or
 raises.  Under autograd the launch sits in a `torch.autograd.Function`
 whose backward differentiates the plain version, as `_bwd_raw`
 differentiates `_attention_core_raw_jnp`.
@@ -167,8 +168,7 @@ def _launch(q_aug, k_aug, v_s, v_p, bias, scale_total):
     if err:
         msg = lib.ipa_attention_error_string(err).decode()
         raise RuntimeError(f"ipa_attention kernel launch failed: {msg} ({err})")
-    ipa_attention_core.launches += 1
-    _build.launched("ipa_attention", out_s, out_p, attn)
+    _build.count_launch(ipa_attention_core, "ipa_attention", out_s, out_p, attn)
     return out_s, out_p, attn
 
 

@@ -19,6 +19,9 @@ once per `sample()` call.
 
 On a CPU tensor the wrapper runs `fused_ipa_layer_packed_reference`; on a
 CUDA tensor it launches the kernel in `csrc/ipa_fused_layer.cu` or raises.
+Each launch is counted in `fused_ipa_layer_packed.launches`
+(`_build.count_launch`): inside a CUDA graph capture the launch is booked to
+the graph, and every replay adds it to the count.
 Patches longer than 128 residues run in chunks of 128 rows and keys, with
 the augmented operands in a device scratch the wrapper allocates
 (`scratch_elems`).
@@ -265,8 +268,7 @@ def _launch(x, rot, trans, mask, wts, bias, scale_total):
     if err:
         msg = lib.ipa_fused_layer_error_string(err).decode()
         raise RuntimeError(f"ipa_fused_layer kernel launch failed: {msg} ({err})")
-    fused_ipa_layer_packed.launches += 1
-    _build.launched("ipa_fused_layer", acc, attn)
+    _build.count_launch(fused_ipa_layer_packed, "ipa_fused_layer", acc, attn)
     return acc, attn
 
 

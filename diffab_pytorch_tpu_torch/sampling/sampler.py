@@ -22,13 +22,25 @@ renoising, on one chain loop.
 
 With n_designs = n every batch row gets n designs that share one copy of
 its context (embeddings, pair tensor, bias logits); output row i n + d is
-design d of target i.  The JAX `lax.scan` is a Python loop here.  Every
-draw can be injected (`init_noise` and `step_noise`), so tests feed this
-sampler the numbers the JAX key schedule draws.
+design d of target i.  Every draw can be injected (`init_noise` and
+`step_noise`), so tests feed this sampler the numbers the JAX key schedule
+draws.
+
+The JAX `lax.scan` body is `_reverse_body`: one step over buffers that
+hold the carry (written back in place), the call's constants and the
+step's noise, with t and s read on the device from the step index.  On a
+CUDA device `sample()` replays the body as a captured CUDA graph
+(`utils/graphs.py`) once per element of t_seq, from a cache per model
+(`chain_graphs`) into whose buffers each call copies its state and
+constants; the first step of a new capture runs eagerly as its warm-up.
+Before each replay the step's draws are made from the generator, or
+copied from `step_noise`, into the noise buffers.  With graphs=False,
+under `utils.graphs.disabled()` and on the CPU the same body runs eagerly.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -43,6 +55,7 @@ from diffab_pytorch_tpu_torch.geometry import so3
 from diffab_pytorch_tpu_torch.geometry.igso3 import AxisAngleNoise
 from diffab_pytorch_tpu_torch.models.diffab import DiffAbModel
 from diffab_pytorch_tpu_torch.models.ipa import precompute_pair_biases
+from diffab_pytorch_tpu_torch.utils import graphs as graphs_lib
 
 
 def _anchor_indices(residue_idx, chain_idx, residue_mask, generation_mask):
@@ -230,6 +243,164 @@ def hoist_denoiser_constants(model: DiffAbModel, pair_emb) -> dict:
     return out
 
 
+_CHAINS: "weakref.WeakKeyDictionary[DiffAbModel, graphs_lib.GraphCache]" = (
+    weakref.WeakKeyDictionary())
+
+
+def chain_graphs(model: DiffAbModel) -> graphs_lib.GraphCache:
+    """The captured reverse chains of `model`'s `sample()` calls (dropped
+    with the model)."""
+    return _CHAINS.setdefault(model, graphs_lib.GraphCache())
+
+
+_CARRY = ("i", "sc_x", "sc_p", "sc_flag", "ab2_x0", "ab2_lam", "ab2_have")
+
+
+def _chain_buffers(model: DiffAbModel, c: dict, n_traj: int) -> dict:
+    """The buffers the reverse body writes, next to a call's inputs `c`:
+    the step index, the step's noise, the carry (reset each call by
+    `_reset_carry`) and a trajectory of n_traj steps."""
+    x, seq, dev = c["x"], c["seq"], c["x"].device
+    shape, vocab, f32 = tuple(seq.shape), model.cfg.aa_vocab_size, c["sched"].beta.dtype
+    sigma = c["tables"].igso3.sigmas.dtype
+    out = dict(i=torch.empty((1,), dtype=torch.long, device=dev),
+               noise=StepNoise(gumbel=torch.empty(shape + (vocab,), dtype=f32, device=dev),
+                               coord=torch.empty_like(x),
+                               orientation=AxisAngleNoise(*(
+                                   torch.empty(shape + tail, dtype=sigma, device=dev)
+                                   for tail in ((3,), (), ())))))
+    if model.cfg.self_conditioning:  # the estimate carried from step to step
+        out.update(sc_x=torch.empty_like(x),
+                   sc_p=torch.empty(shape + (vocab,), dtype=x.dtype, device=dev),
+                   sc_flag=torch.empty((shape[0],), dtype=torch.float32, device=dev))
+    if "lam_tab" in c:  # AB2's previous estimate
+        out.update(ab2_x0=torch.empty_like(x), ab2_lam=torch.empty((1,), dtype=f32, device=dev),
+                   ab2_have=torch.empty((1,), dtype=torch.bool, device=dev))
+    if n_traj:
+        out["traj"] = tuple(torch.empty((n_traj,) + tuple(v.shape), dtype=v.dtype, device=dev)
+                            for v in (seq, x, c["r"]))
+    return out
+
+
+def _reset_carry(c: dict) -> None:
+    """A chain's start: step 0, no self-conditioning or AB2 estimate yet."""
+    for k in _CARRY:
+        if k in c:
+            c[k].zero_()
+
+
+def _draw_step(noise: StepNoise, generator: torch.Generator) -> None:
+    """One reverse step's random numbers, drawn in place into `noise`."""
+    g = noise.gumbel.uniform_(generator=generator)
+    g.clamp_(min=torch.finfo(g.dtype).tiny).log_().neg_().log_().neg_()
+    noise.coord.normal_(generator=generator)
+    noise.orientation.axis.normal_(generator=generator)
+    noise.orientation.uniform.uniform_(generator=generator)
+    noise.orientation.normal.normal_(generator=generator)
+
+
+def _load_step(noise: StepNoise, given: StepNoise) -> None:
+    """Copy an injected step draw into the step's noise buffers."""
+    for buf, value in zip((noise.gumbel, noise.coord, *noise.orientation),
+                          (given.gumbel, given.coord, *given.orientation)):
+        buf.copy_(value)
+
+
+def _reverse_body(model, opts: dict):
+    """The reverse chain's step body, JAX's `body(carry, t_pair)`: from the
+    buffers `c` (the carry: state, step index and, where used, the
+    self-conditioning estimate, AB2's previous estimate and the trajectory;
+    the call's constants, schedule and tables; the step's noise) one jump
+    t -> s, written back into the carry in place.  t and s are read on the
+    device from the schedule at the step index, and every switch on t is a
+    device select or multiply, as in JAX; only Heun's corrector is chosen on
+    the host (the `heun_active` argument), since t_seq is known before the
+    loop."""
+    noise_scale, noise_t_max = opts["noise_scale"], opts["noise_t_max"]
+    sc_t_max, ddim_t_min = opts["sc_t_max"], opts["coord_ddim_t_min"]
+    solver, solver_t_min = opts["coord_solver"], opts["coord_solver_t_min"]
+    sc_on = model.cfg.self_conditioning
+
+    def body(c, heun_active: bool = False):
+        sched, tables = c["sched"], c["tables"]
+        bn = c["seq"].shape[0]
+        t = c["t_seq"].index_select(0, c["i"])  # (1,)
+        s_t = c["s_seq"].index_select(0, c["i"])
+        tvec, svec = t.expand(bn), s_t.expand(bn)
+        seq_t, x_t, r_t, noise = c["seq"], c["x"], c["r"], c["noise"]
+        x0_clip, gen = c["x0_clip"], c["gen"]
+        sc = {}
+        if sc_on:
+            flag = c["sc_flag"]
+            if sc_t_max is not None:
+                flag = flag * (t <= sc_t_max).to(flag.dtype)
+            sc = dict(sc_translations_x0=c["sc_x"], sc_seq_probs=c["sc_p"], sc_mask=flag)
+
+        def denoise(seq, x, r, tv):
+            return model.denoise(seq, x, r, c["res_emb"], c["pair_emb"], sched.beta[tv], gen,
+                                 c["res_mask"], **c["hoisted"], **sc)
+
+        den = denoise(seq_t, x_t, r_t, tvec)
+        seq_next = sequence.reverse_step(sched, seq_t, den["seq_posterior"], tvec,
+                                         c["seq_gen"], s=svec, gumbel=noise.gumbel)
+        ns_t = noise_scale  # noiseless above noise_t_max
+        if noise_t_max is not None:
+            ns_t = noise_scale * (tvec <= noise_t_max).to(x_t.dtype)[:, None, None]
+        r_next = orientation.reverse_step(
+            tables, r_t, den["orientations_t0"], tvec, c["struct_gen"],
+            noise_scale=opts["orientation_noise_scale"], s=svec,
+            mode=opts["orientation_reverse"], noise=noise.orientation)
+        eps, z = den["translations_eps"], noise.coord  # one draw for every arm
+        if solver == "none":
+            step = lambda mode: coordinate.reverse_step(
+                sched, x_t, eps, tvec, c["struct_gen"], x0_clip=x0_clip, noise_scale=ns_t,
+                s=svec, mode=mode, noise=z)
+            x_next = step("posterior")
+            if ddim_t_min is not None:  # a per-step select, as JAX's where
+                x_next = torch.where((tvec > ddim_t_min)[:, None, None], step("ddim"), x_next)
+        else:
+            x0_hat = coordinate.predicted_x0(sched, x_t, eps, tvec)
+            clip_b = coordinate._per_sample(x0_clip)
+            if clip_b is not None:
+                x0_hat = torch.clamp(x0_hat, -clip_b, clip_b)
+            x0_use = x0_hat
+            if solver == "ab2":
+                # D = (1 + c) x0_t - c x0_prev, c = h / (2 h_prev); first-order
+                # on the first step, at s = 0 and at t <= coord_solver_t_min
+                lam_t = c["lam_tab"].index_select(0, t)
+                lam_s = c["lam_tab"].index_select(0, s_t)
+                coef = (lam_s - lam_t) / (2.0 * torch.clamp(lam_t - c["ab2_lam"], min=1e-6))
+                active = (t > solver_t_min) & (s_t >= 1) & c["ab2_have"]
+                coef = torch.where(active, coef, torch.zeros_like(coef))
+                x0_use = (1.0 + coef) * x0_hat - coef * c["ab2_x0"]
+                c["ab2_x0"].copy_(x0_hat)
+                c["ab2_lam"].copy_(lam_t)
+                c["ab2_have"].fill_(True)
+            elif heun_active:  # the denoiser again at the predicted landing point
+                x_pred = coordinate.reverse_step_from_x0(
+                    sched, x_t, x0_hat, tvec, c["struct_gen"], x0_clip=x0_clip,
+                    noise_scale=0.0, s=svec, noise=z)
+                d2 = denoise(seq_next, x_pred, r_next, svec)
+                x0_2 = coordinate.predicted_x0(sched, x_pred, d2["translations_eps"], svec)
+                x0_use = 0.5 * (x0_hat + x0_2)
+            x_next = coordinate.reverse_step_from_x0(
+                sched, x_t, x0_use, tvec, c["struct_gen"], x0_clip=x0_clip, noise_scale=ns_t,
+                s=svec, noise=z)
+        if sc_on:
+            c["sc_x"].copy_(coordinate.predicted_x0(sched, x_t, eps, tvec))
+            c["sc_p"].copy_(den["seq_posterior"])
+            c["sc_flag"].fill_(1.0)
+        if "traj" in c:
+            for buf, value in zip(c["traj"], (seq_next, x_next, r_next)):
+                buf.index_copy_(0, c["i"], value[None])
+        seq_t.copy_(seq_next)
+        x_t.copy_(x_next)
+        r_t.copy_(r_next)
+        c["i"].add_(1)
+
+    return body
+
+
 def sample(
     model: DiffAbModel,
     sched: DiffusionSchedule,
@@ -260,6 +431,7 @@ def sample(
     chord_orientations: bool = False,
     init_noise: InitNoise | None = None,
     step_noise: Callable[[int], StepNoise] | None = None,
+    graphs: bool | None = None,
 ) -> SampleResult:
     """Run the reverse chain; the options are the JAX `sample()`'s (see its
     docstring for each recipe's rationale).  Runs on the card unless
@@ -269,7 +441,9 @@ def sample(
     StepNoise).  x0_clip: "auto" (1.5 x the largest |coordinate| of any
     context residue, per target), a float, or None.  sc_t_max: with a
     self-conditioned model, feed the estimate only at steps t <= sc_t_max
-    (None: every step after the first)."""
+    (None: every step after the first).  graphs: replay the step body as a
+    captured CUDA graph (default: on a CUDA device, outside
+    `utils.graphs.disabled()`); False runs the same body eagerly."""
     device = resolve_device(device)
     T = sched.T
     t_start = T if t_start is None else int(t_start)
@@ -293,6 +467,7 @@ def sample(
         raise ValueError("n_fine_tail composes only with step_schedule='uniform'")
     if orientation_reverse not in ("renoise", "posterior"):
         raise ValueError(f"unknown orientation reverse mode: {orientation_reverse!r}")
+    use_graphs = graphs_lib.use_graphs(device, graphs)
     t_seq = timestep_schedule(t_start, n_steps, step_schedule, step_schedule_p, n_fine_tail)
     s_seq = np.append(t_seq[1:], 0)
 
@@ -319,100 +494,55 @@ def sample(
         gen, seq_gen, struct_gen = rep(gen), rep(seq_gen), rep(struct_gen)
         if isinstance(x0_clip, torch.Tensor):
             x0_clip = rep(x0_clip)
-        bn = batch.batch_size * n
 
         res_emb, pair_emb = model.encode_context(batch, generate_structure,
                                                  generate_sequence)
-        hoisted = hoist_denoiser_constants(model, pair_emb)
-
         seq_t, x_t, r_t = _initial_state(
             model, sched, tables, batch, rep, t_start, init, chord_orientations, seq_ctx,
             x_ctx, r_ctx, res_mask, seq_gen, struct_gen, generator, init_noise or InitNoise())
 
-        def denoise(seq, x, r, tvec, **sc):
-            return model.denoise(seq, x, r, res_emb, pair_emb, sched.beta[tvec], gen,
-                                 res_mask, **hoisted, **sc)
-
-        sc_on = model.cfg.self_conditioning
-        if sc_on:  # the estimate carried from step to step; none yet
-            sc_x = torch.zeros_like(x_t)
-            sc_p = torch.zeros(seq_t.shape + (model.cfg.aa_vocab_size,), dtype=x_t.dtype,
-                               device=device)
-            sc_flag = torch.zeros((bn,), dtype=torch.float32, device=device)
-
+        # what the step body reads, as JAX's scan closure and initial carry:
+        # this call's state, constants, schedule and tables
+        inputs = dict(seq=seq_t, x=x_t, r=r_t, sched=sched, tables=tables, res_emb=res_emb,
+                      pair_emb=pair_emb, hoisted=hoist_denoiser_constants(model, pair_emb),
+                      gen=gen, res_mask=res_mask, seq_gen=seq_gen, struct_gen=struct_gen,
+                      x0_clip=x0_clip,
+                      t_seq=torch.as_tensor(t_seq.copy(), dtype=torch.long, device=device),
+                      s_seq=torch.as_tensor(s_seq, dtype=torch.long, device=device))
         if coord_solver == "ab2":
             # log-SNR lambda(t) = 0.5 log(abar / (1 - abar)), index 0 clamped
             abar_f = torch.clamp(sched.alpha_bar, 1e-12, 1.0 - 1e-12)
-            lam_tab = 0.5 * (torch.log(abar_f) - torch.log1p(-abar_f))
-            ab2_prev = None  # (x0 estimate, lambda) of the previous step
-        clip_b = coordinate._per_sample(x0_clip)
-        trajectory = []
+            inputs["lam_tab"] = 0.5 * (torch.log(abar_f) - torch.log1p(-abar_f))
+        n_traj = len(t_seq) if return_trajectory else 0
+        buffers = lambda: _chain_buffers(model, inputs, n_traj)
+        opts = dict(noise_scale=noise_scale, noise_t_max=noise_t_max, sc_t_max=sc_t_max,
+                    coord_ddim_t_min=coord_ddim_t_min, coord_solver=coord_solver,
+                    coord_solver_t_min=coord_solver_t_min,
+                    orientation_noise_scale=orientation_noise_scale,
+                    orientation_reverse=orientation_reverse)
+        body = _reverse_body(model, opts)
+        if use_graphs:
+            key = (graphs_lib.signature(inputs), n_traj, graphs_lib.mode(), repr(model.cfg),
+                   tuple(sorted(opts.items())),
+                   graphs_lib.addresses([*model.parameters(), *model.buffers()]))
+            chain = chain_graphs(model).get(key, inputs, buffers)
+            c = chain.inputs
+            run = lambda variant: chain.run(variant, lambda inputs: body(inputs, *variant))
+        else:
+            c = {**inputs, **buffers()}
+            run = lambda variant: body(c, *variant)
+        _reset_carry(c)
         for t, s_t in zip(t_seq.tolist(), s_seq.tolist()):
-            tvec = torch.full((bn,), t, dtype=torch.long, device=device)
-            svec = torch.full((bn,), s_t, dtype=torch.long, device=device)
-            noise = None if step_noise is None else step_noise(t)
-            sc = {}
-            if sc_on:
-                flag = sc_flag if sc_t_max is None else sc_flag * float(t <= sc_t_max)
-                sc = dict(sc_translations_x0=sc_x, sc_seq_probs=sc_p, sc_mask=flag)
-            den = denoise(seq_t, x_t, r_t, tvec, **sc)
-            seq_next = sequence.reverse_step(
-                sched, seq_t, den["seq_posterior"], tvec, seq_gen, s=svec,
-                generator=generator, gumbel=None if noise is None else noise.gumbel)
-            # noiseless above noise_t_max
-            ns_t = noise_scale if noise_t_max is None else noise_scale * float(t <= noise_t_max)
-            r_next = orientation.reverse_step(
-                tables, r_t, den["orientations_t0"], tvec, struct_gen,
-                noise_scale=orientation_noise_scale, s=svec, mode=orientation_reverse,
-                generator=generator, noise=None if noise is None else noise.orientation)
-            # one coordinate draw for every arm of the step
-            z = (torch.randn(x_t.shape, generator=generator, dtype=x_t.dtype, device=device)
-                 if noise is None else noise.coord)
-            eps = den["translations_eps"]
-            if coord_solver == "none":
-                mode = ("ddim" if coord_ddim_t_min is not None and t > coord_ddim_t_min
-                        else "posterior")
-                x_next = coordinate.reverse_step(sched, x_t, eps, tvec, struct_gen,
-                                                 x0_clip=x0_clip, noise_scale=ns_t, s=svec,
-                                                 mode=mode, noise=z)
+            if step_noise is None:
+                _draw_step(c["noise"], generator)
             else:
-                x0_hat = coordinate.predicted_x0(sched, x_t, eps, tvec)
-                if clip_b is not None:
-                    x0_hat = torch.clamp(x0_hat, -clip_b, clip_b)
-                active = t > coord_solver_t_min and s_t >= 1
-                if coord_solver == "ab2":
-                    lam_t, lam_s = lam_tab[t], lam_tab[s_t]
-                    x0_use = x0_hat
-                    if active and ab2_prev is not None:
-                        # D = (1 + c) x0_t - c x0_prev, c = h / (2 h_prev)
-                        x0_prev, lam_prev = ab2_prev
-                        c = (lam_s - lam_t) / (2.0 * torch.clamp(lam_t - lam_prev, min=1e-6))
-                        x0_use = (1.0 + c) * x0_hat - c * x0_prev
-                    ab2_prev = (x0_hat, lam_t)
-                else:  # heun: the denoiser again at the predicted landing point
-                    x0_use = x0_hat
-                    if active:
-                        x_pred = coordinate.reverse_step_from_x0(
-                            sched, x_t, x0_hat, tvec, struct_gen, x0_clip=x0_clip,
-                            noise_scale=0.0, s=svec, noise=z)
-                        d2 = denoise(seq_next, x_pred, r_next, svec, **sc)
-                        x0_2 = coordinate.predicted_x0(sched, x_pred, d2["translations_eps"],
-                                                       svec)
-                        x0_use = 0.5 * (x0_hat + x0_2)
-                x_next = coordinate.reverse_step_from_x0(
-                    sched, x_t, x0_use, tvec, struct_gen, x0_clip=x0_clip, noise_scale=ns_t,
-                    s=svec, noise=z)
-            if sc_on:
-                sc_x = coordinate.predicted_x0(sched, x_t, eps, tvec)
-                sc_p = den["seq_posterior"]
-                sc_flag = torch.ones((bn,), dtype=torch.float32, device=device)
-            seq_t, x_t, r_t = seq_next, x_next, r_next
-            if return_trajectory:
-                trajectory.append((seq_t, x_t, r_t))
-    if not return_trajectory:
-        return SampleResult(seq_idx=seq_t, translations=x_t, orientations=r_t)
-    seq_tr, x_tr, r_tr = (torch.stack(parts) for parts in zip(*trajectory))
-    return SampleResult(seq_t, x_t, r_t, seq_tr, x_tr, r_tr)
+                _load_step(c["noise"], step_noise(t))
+            heun = coord_solver == "heun" and t > coord_solver_t_min and s_t >= 1
+            run((heun,))
+        out = [c[k].clone() if use_graphs else c[k] for k in ("seq", "x", "r")]
+        if return_trajectory:
+            out += [v.clone() if use_graphs else v for v in c["traj"]]
+    return SampleResult(*out)
 
 
 def optimize(model, sched, tables, batch, t_restart: int, **kwargs) -> SampleResult:

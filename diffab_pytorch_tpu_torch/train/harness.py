@@ -49,6 +49,7 @@ from diffab_pytorch_tpu_torch.diffusion.schedule import cosine_variance_schedule
 from diffab_pytorch_tpu_torch.geometry.igso3 import AxisAngleNoise
 from diffab_pytorch_tpu_torch.models.diffab import DiffAbModel
 from diffab_pytorch_tpu_torch.train.losses import diffab_losses
+from diffab_pytorch_tpu_torch.utils import graphs as graphs_lib
 from diffab_pytorch_tpu_torch.weights import init_parameters
 
 Params = Dict[str, torch.Tensor]
@@ -104,6 +105,59 @@ def _local_norms(names: list[str], tensors: list[torch.Tensor]):
     return torch._foreach_norm(tensors), [t.numel() for t in tensors]
 
 
+def _advanced(state: TrainState, k: int) -> TrainState:
+    """The state k steps on; its tensors are the same, updated in place."""
+    opt = state.opt_state
+    return TrainState(step=state.step + k, params=state.params,
+                      opt_state=OptState(opt.count + k, opt.mu, opt.nu),
+                      ema_params=state.ema_params)
+
+
+def _fields(batch: ProteinBatch) -> dict:
+    return {f.name: getattr(batch, f.name) for f in dataclasses.fields(batch)}
+
+
+def _owned(metrics: dict) -> dict:
+    """A step's metrics copied out of the buffers the next replay
+    overwrites, in one copy."""
+    names = list(metrics)
+    return dict(zip(names, torch.stack([metrics[n] for n in names]).unbind()))
+
+
+def _pool_steps(harness: "DiffAb", state: TrainState, pool: ProteinBatch, idx, draws, k: int,
+                scalars: torch.Tensor):
+    """k steps of `train_step_impl` on rows idx[j] of the pool with draws[j]
+    and scalars[j] (k = 1: idx (b,), one StepDraws); metrics stacked (k,)
+    for k > 1."""
+    if k == 1:
+        return harness.train_step_impl(state, pool.gather_rows(idx), draws, scalars[0])
+    if idx.shape[0] != k or len(draws) != k:
+        raise ValueError(f"steps_per_call={k} takes idx of shape (k, b) and k draws "
+                         f"(got idx {tuple(idx.shape)}, {len(draws)} draws)")
+    metrics = []
+    for j in range(k):
+        state, m = harness.train_step_impl(state, pool.gather_rows(idx[j]), draws[j],
+                                           scalars[j])
+        metrics.append(m)
+    return state, {name: torch.stack([m[name] for m in metrics]) for name in metrics[0]}
+
+
+def _run_captured(harness: "DiffAb", kind, params: Params, inputs: dict, body, state=None,
+                  extra=()):
+    """One step body over `inputs` as a replay (or, the first time, the
+    warm-up and the capture) from the harness's cache, keyed by the kind of
+    step, the model, the inputs' signature and the addresses of what the
+    body reads in place: the parameters, the state's other tensors (updated
+    in place), the model's buffers and `extra`."""
+    tensors = [*params.values(), *harness.model.buffers(), *extra]
+    if state is not None:
+        opt = state.opt_state
+        tensors += [*opt.mu.values(), *opt.nu.values(), *(state.ema_params or {}).values()]
+    key = (kind, id(harness.model), graphs_lib.signature(inputs), graphs_lib.mode(),
+           graphs_lib.addresses(tensors))
+    return harness._step_graphs.get(key, inputs).run((), body)
+
+
 class DiffAb:
     """Model, schedule, IGSO(3) tables and optimizer settings of one
     training configuration, on the card unless `device` names another."""
@@ -127,6 +181,10 @@ class DiffAb:
         self.orientation_tables = make_orientation_tables(
             self.sched, n_bins=d.igso3_n_bins, n_terms=d.igso3_n_terms,
             sigma_threshold=d.igso3_sigma_threshold)
+        # the captured steps of every make_*_step of this harness, so that a
+        # second fit() (or a profiled step) replays the first one's graphs;
+        # a new state's step is a new entry, which the oldest makes room for
+        self._step_graphs = graphs_lib.GraphCache()
 
     # ------------------------------------------------------------------
     def init(self, seed: int | torch.Generator) -> TrainState:
@@ -196,10 +254,11 @@ class DiffAb:
         return t.sc_rate * min(max(prog, 0.0), 1.0)
 
     def loss_fn(self, params: Params, batch: ProteinBatch, draws: StepDraws,
-                step: int | None = None):
+                step: int | None = None, sc_rate=None):
         """One loss evaluation (JAX `DiffAb.loss_fn`): mode dropout, noise,
         encode, denoise (twice for a self-conditioned model, whose schedule
-        reads `step`), losses.  Returns (loss, metrics)."""
+        reads `step`, or takes `sc_rate`, a device scalar, where given),
+        losses.  Returns (loss, metrics)."""
         p = self.config.train.mode_dropout
         struct_visible = seq_visible = seq_gen = struct_gen = None
         if p > 0.0:
@@ -214,7 +273,7 @@ class DiffAb:
         if self.config.model.self_conditioning:
             if draws.sc_u is None:
                 raise ValueError("a self-conditioned model's StepDraws need sc_u")
-            sc_mask = draws.sc_u < self.sc_rate_at(step)
+            sc_mask = draws.sc_u < (self.sc_rate_at(step) if sc_rate is None else sc_rate)
             if struct_visible is not None:
                 # no structure estimate where the geometry is given
                 sv = struct_visible[:, None] if sc_mask.ndim == 2 else struct_visible
@@ -242,10 +301,11 @@ class DiffAb:
         return losses["loss"], losses
 
     def loss_and_grads(self, params: Params, batch: ProteinBatch, draws: StepDraws,
-                       step: int | None = None):
+                       step: int | None = None, sc_rate=None):
         """(loss, metrics, gradients by parameter name); a parameter the loss
         does not reach gets zeros, as under jax.grad."""
-        loss, metrics = self.loss_fn(params, batch, draws, step)
+        loss, metrics = (self.loss_fn(params, batch, draws, step) if sc_rate is None
+                         else self.loss_fn(params, batch, draws, sc_rate=sc_rate))
         names = list(params)
         grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True,
                                     materialize_grads=True)
@@ -269,16 +329,41 @@ class DiffAb:
             return -t.lr * (1.0 - min(max(count, 0), warm) / warm) + t.lr
         return t.lr
 
+    def step_scalars(self, count: int, step: int | None, k: int = 1) -> torch.Tensor:
+        """The per-step scalars of k steps from update count `count` and
+        training step `step`, as a (k, 4) float32 tensor on the harness's
+        device, row j [learning rate at count + j, 1 / (1 - b1^(count + j +
+        1)), 1 / (1 - b2^(count + j + 1)), sc_rate_at(step + j)]: computed on
+        the host in double, as optax's schedule and bias corrections, and
+        written to the card in one copy that does not wait for it, where the
+        steps read them (a captured step reads them there on every
+        replay)."""
+        t = self.config.train
+        b1, b2 = t.betas
+        rows = [[self.learning_rate(count + j), 1.0 / (1.0 - b1 ** (count + j + 1)),
+                 1.0 / (1.0 - b2 ** (count + j + 1)),
+                 self.sc_rate_at(None if step is None else step + j)] for j in range(k)]
+        host = torch.tensor(rows, dtype=torch.float32)
+        if self.device.type == "cuda":  # from pageable memory the copy would wait for the card
+            return host.pin_memory().to(self.device, non_blocking=True)
+        return host.to(self.device)
+
     @torch.no_grad()
-    def apply_gradients(self, state: TrainState, grads: Params, leaf_norms=None) -> TrainState:
+    def apply_gradients(self, state: TrainState, grads: Params, leaf_norms=None,
+                        scalars: torch.Tensor | None = None) -> TrainState:
         """The optimizer update and the EMA blend, in place on the state's
         tensors; returns the state at step + 1.  Each stage runs on all
         parameters at once (`torch._foreach_*`), so the update is a few
         dozen launches rather than a dozen per parameter.  `leaf_norms(names,
         tensors) -> (norms, element counts)` gives the norms of the full
         leaves for a state that holds parts of them (default: the tensors'
-        own, `_local_norms`)."""
+        own, `_local_norms`).  `scalars`: this step's row of `step_scalars`
+        (default: made from the state's count); the learning rate and the
+        bias corrections are read from it on the card."""
         t = self.config.train
+        if scalars is None:
+            scalars = self.step_scalars(state.opt_state.count, state.step)[0]
+        lr, inv_bc1, inv_bc2 = scalars[0], scalars[1], scalars[2]
         leaf_norms = leaf_norms or _local_norms
         names = list(state.params)
         params = [state.params[k] for k in names]
@@ -291,16 +376,16 @@ class DiffAb:
                                 t.grad_clip_norm / g_norm)
             g = torch._foreach_mul(g, scale)
         b1, b2 = t.betas
-        count = state.opt_state.count + 1
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, g, alpha=1.0 - b1)
         torch._foreach_mul_(nu, b2)
         torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
         # optax: (mu / (1 - b1^n)) / (sqrt(nu / (1 - b2^n)) + eps)
-        den = torch._foreach_div(nu, 1.0 - b2 ** count)
+        # times the reciprocal, as CUDA's `_foreach_div` by a host float computes
+        den = torch._foreach_mul(nu, inv_bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, t.adam_eps)
-        u = torch._foreach_div(mu, 1.0 - b1 ** count)
+        u = torch._foreach_mul(mu, inv_bc1)
         torch._foreach_div_(u, den)
         if t.update_clip_rms > 0:
             norms, numels = leaf_norms(names, u)
@@ -309,22 +394,37 @@ class DiffAb:
                 torch._foreach_div(rms, t.update_clip_rms), 1.0))
         if t.weight_decay > 0:
             torch._foreach_add_(u, params, alpha=t.weight_decay)
-        torch._foreach_add_(params, u, alpha=-self.learning_rate(state.opt_state.count))
+        # params + (-lr) u with lr read on the card: on the card bit for bit
+        # `_foreach_add_(params, u, alpha=-lr)` with lr a host float (with
+        # value=-1 against lr it is not)
+        torch._foreach_addcmul_(params, u, [-lr] * len(u))
         if state.ema_params is not None:
             ema = [state.ema_params[k] for k in names]
             torch._foreach_mul_(ema, t.ema_decay)
             torch._foreach_add_(ema, params, alpha=1.0 - t.ema_decay)
-        return TrainState(step=state.step + 1, params=state.params,
-                          opt_state=OptState(count, state.opt_state.mu, state.opt_state.nu),
-                          ema_params=state.ema_params)
+        return _advanced(state, 1)
+
+    def train_step_impl(self, state: TrainState, batch: ProteinBatch, draws: StepDraws,
+                        scalars: torch.Tensor, step: int | None = None):
+        """The step body (JAX's `train_step_impl`): loss and gradients on the
+        pre-update parameters, then the update, in place on the state's
+        tensors.  `scalars`: this step's row of `step_scalars`, where the
+        update reads its learning rate and bias corrections and the
+        self-conditioning schedule its rate, unless the eager caller gives
+        the training `step` the schedule reads instead (a captured body
+        reads the rate, since its step changes from replay to replay).
+        Returns (state, {"train/...": 0-dim tensor})."""
+        _, metrics, grads = self.loss_and_grads(state.params, batch, draws, step,
+                                                None if step is not None else scalars[3])
+        state = self.apply_gradients(state, grads, scalars=scalars)
+        return state, {f"train/{k}": v.detach() for k, v in metrics.items()}
 
     def train_step(self, state: TrainState, batch: ProteinBatch, draws: StepDraws):
-        """Loss and gradients on the pre-update parameters, then the update;
-        the self-conditioning schedule reads state.step.  Returns (state,
-        {"train/...": 0-dim tensor}); reading a metric waits for the card."""
-        _, metrics, grads = self.loss_and_grads(state.params, batch, draws, state.step)
-        state = self.apply_gradients(state, grads)
-        return state, {f"train/{k}": v.detach() for k, v in metrics.items()}
+        """`train_step_impl` run eagerly: one step, the self-conditioning
+        schedule at state.step.  Returns (state, {"train/...": 0-dim
+        tensor}); reading a metric waits for the card."""
+        return self.train_step_impl(state, batch, draws, self.step_scalars(
+            state.opt_state.count, state.step)[0], state.step)
 
     def pool_train_step(self, state: TrainState, pool: ProteinBatch, idx: torch.Tensor,
                         draws, steps_per_call: int = 1):
@@ -336,19 +436,86 @@ class DiffAb:
 
         steps_per_call = k > 1 runs k steps in one call: `idx` is (k, b),
         `draws` a sequence of k StepDraws, and the metrics come back
-        stacked (k,) per entry.  It is the chain of k one-step calls bit
-        for bit (a host loop; the steps are not fused)."""
+        stacked (k,) per entry.  Eagerly, the chain of k one-step calls bit
+        for bit; `make_pool_train_step` replays the k steps as one graph."""
         k = int(steps_per_call)
-        if k == 1:
-            return self.train_step(state, pool.gather_rows(idx), draws)
-        if idx.shape[0] != k or len(draws) != k:
-            raise ValueError(f"steps_per_call={k} takes idx of shape (k, b) and k draws "
-                             f"(got idx {tuple(idx.shape)}, {len(draws)} draws)")
-        metrics = []
-        for idx_t, draws_t in zip(idx, draws):
-            state, m = self.train_step(state, pool.gather_rows(idx_t), draws_t)
-            metrics.append(m)
-        return state, {name: torch.stack([m[name] for m in metrics]) for name in metrics[0]}
+        scalars = self.step_scalars(state.opt_state.count, state.step, k)
+        return _pool_steps(self, state, pool, idx, draws, k, scalars)
+
+    def make_train_step(self):
+        """The single-device train step (state, batch, draws) -> (state,
+        metrics), JAX's jitted `train_step_impl` with the state donated: on
+        a CUDA device one replay of a captured graph of `train_step_impl`
+        (forward, backward, clipping, the update and the EMA), the batch and
+        draws copied into its static inputs and the state updated in place;
+        elsewhere, and for a call under `utils.graphs.disabled()`,
+        `train_step`."""
+        if self.device.type != "cuda":
+            return self.train_step
+
+        def step(state: TrainState, batch: ProteinBatch, draws: StepDraws):
+            if not graphs_lib.use_graphs(self.device):
+                return self.train_step(state, batch, draws)
+            inputs = dict(batch=_fields(batch), draws=draws,
+                          scalars=self.step_scalars(state.opt_state.count, state.step)[0])
+
+            def body(c):
+                _, m = self.train_step_impl(state, ProteinBatch(**c["batch"]), c["draws"],
+                                            c["scalars"])
+                return m
+            metrics = _run_captured(self, "train", state.params, inputs, body, state)
+            return _advanced(state, 1), _owned(metrics)
+
+        return step
+
+    def make_pool_train_step(self, steps_per_call: int = 1):
+        """The train step over a device-resident pool (state, pool, idx,
+        draws) -> (state, metrics), JAX's jitted pool step: `idx` (b,) and
+        one StepDraws, or with steps_per_call = k > 1 idx (k, b), k
+        StepDraws and metrics stacked (k,) per entry.  On a CUDA device the
+        k steps are captured as one graph and each call is one replay (as
+        JAX's `lax.scan` over the k steps is one dispatch), the pool read
+        where it lies and the indices, draws and per-step scalars copied
+        into the graph's inputs; elsewhere, and for a call under
+        `utils.graphs.disabled()`, `pool_train_step`."""
+        k = int(steps_per_call)
+
+        def eager(state: TrainState, pool: ProteinBatch, idx: torch.Tensor, draws):
+            return self.pool_train_step(state, pool, idx, draws, *([k] if k > 1 else []))
+        if self.device.type != "cuda":
+            return eager
+
+        def step(state: TrainState, pool: ProteinBatch, idx: torch.Tensor, draws):
+            if not graphs_lib.use_graphs(self.device):
+                return eager(state, pool, idx, draws)
+            inputs = dict(idx=idx, draws=draws,
+                          scalars=self.step_scalars(state.opt_state.count, state.step, k))
+            body = lambda c: _pool_steps(self, state, pool, c["idx"], c["draws"], k,
+                                         c["scalars"])[1]
+            metrics = _run_captured(self, ("pool", k), state.params, inputs, body, state,
+                                    extra=[v for v in _fields(pool).values() if v is not None])
+            return _advanced(state, k), _owned(metrics)
+
+        return step
+
+    def make_eval_step(self):
+        """The validation step (params, batch, draws) -> metrics, JAX's
+        jitted eval step: on a CUDA device a replay of a captured graph of
+        the loss without gradients (self-conditioning at the full rate);
+        elsewhere, and for a call under `utils.graphs.disabled()`,
+        `eval_step`."""
+        if self.device.type != "cuda":
+            return self.eval_step
+
+        def step(params: Params, batch: ProteinBatch, draws: StepDraws):
+            if not graphs_lib.use_graphs(self.device):
+                return self.eval_step(params, batch, draws)
+            inputs = dict(batch=_fields(batch), draws=draws)
+            body = lambda c: self.eval_step(params, ProteinBatch(**c["batch"]), c["draws"])
+            with torch.no_grad():
+                return _owned(_run_captured(self, "eval", params, inputs, body))
+
+        return step
 
     @torch.no_grad()
     def eval_step(self, params: Params, batch: ProteinBatch, draws: StepDraws):

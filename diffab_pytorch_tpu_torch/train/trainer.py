@@ -5,12 +5,15 @@ the divergence guard.
 `fit` takes a `PatchDataset`, as the JAX `fit` does: its shuffled host
 batches go through `PrefetchLoader` to the card, or, with
 device_pool=True, the whole dataset is put on the card once and each step
-gathers its rows there (`DiffAb.pool_train_step`).  It also takes any
+gathers its rows there (`DiffAb.make_pool_train_step`).  It also takes any
 iterable of ProteinBatch: a list is replayed for `epochs` epochs, a
 one-shot iterator runs once.  Every input goes through one loop body.
 Each step's random numbers come from a generator on the harness's device
 seeded with (seed, step), so the loader path, the pool path and a resumed
-run draw the same numbers at the same step.  Each step trains at its
+run draw the same numbers at the same step.  On a CUDA device the single-device
+steps (train, pool and validation) replay captured graphs
+(`DiffAb.make_train_step`, `make_pool_train_step`, `make_eval_step`); each
+batch is copied into the step's static inputs.  Each step trains at its
 state's step, which the self-conditioning schedule reads; validation runs
 at the schedule's full rate.
 
@@ -98,7 +101,7 @@ def fit(
     at every epoch boundary: every len(train_data) // batch_size steps for
     a dataset, every len(train_data) for a list of batches.
     `train_step(state, batch, draws) -> (state, metrics)` replaces
-    `harness.train_step`; it cannot be combined with device_pool, whose
+    `harness.make_train_step()`; it cannot be combined with device_pool, whose
     step gathers the rows itself.  `dp_group`: train data-parallel over
     that process group (each batch's rows split over its ranks; the
     default step is then `make_dp_train_step(harness, dp_group)`).  `mesh`:
@@ -144,7 +147,7 @@ def fit(
         train_step = make_sharded_train_step(harness, mesh)
     elif train_step is None and dp_group is not None:
         train_step = make_dp_train_step(harness, dp_group)
-    step_fn = train_step or harness.train_step
+    step_fn = train_step or harness.make_train_step()
     loader = None
     if device_pool:
         if train_step is not None or not isinstance(train_data, PatchDataset):
@@ -156,6 +159,7 @@ def fit(
             raise ValueError(f"dataset ({n_rows} usable samples) smaller than "
                              f"batch_size={cfg.batch_size}")
         pool = host_pool.to(dev)
+        pool_step = harness.make_pool_train_step()
         n_res = pool.seq_idx.shape[1]
         total = epochs * max(1, n_rows // cfg.batch_size) - state.step
         source = itertools.islice(train_data.epoch_indices(
@@ -166,7 +170,7 @@ def fit(
             if dev.type == "cuda":  # from pageable memory the copy would wait for the card
                 idx = idx.pin_memory().to(dev, non_blocking=True)
             draws = harness.draw_for(len(rows), n_res, generator, dev)
-            return harness.pool_train_step(state, pool, idx, draws)
+            return pool_step(state, pool, idx, draws)
     else:
         if isinstance(train_data, PatchDataset):
             loader = PrefetchLoader(train_data.batches(
@@ -196,6 +200,9 @@ def fit(
     near_best = lambda v: np.isfinite(v) and v <= 3.0 * best_loss + 1.0
     t_last = time.time()
 
+    eval_step = (eval_harness.make_eval_step() if eval_harness is harness
+                 else eval_harness.eval_step)
+
     def run_eval(params):
         if val_data is None or not evaluates:
             return
@@ -206,7 +213,7 @@ def fit(
         ms = []
         for i, vb in enumerate(batches):
             vb = vb.to(dev)
-            ms.append(eval_harness.eval_step(
+            ms.append(eval_step(
                 params, vb, harness.draw(vb, _step_generator(gen, seed + 1 + i, state.step))))
         if ms:
             logger.log(state.step, {k: float(np.mean([float(m[k]) for m in ms]))

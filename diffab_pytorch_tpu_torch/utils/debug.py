@@ -19,8 +19,9 @@ and views are not checked.  The CUDA kernels are launched through ctypes,
 which the mode does not see: their wrappers report each launch's outputs
 (`ops._build.launched`) and the mode checks them there, naming the kernel.
 Each check reads its result back to the host, so a checked call runs
-slower; its results are the unchecked call's bit for bit.  Wrap only debug
-runs:
+slower; its results are the unchecked call's bit for bit.  The whole call
+runs eagerly (`utils.graphs.disabled()`): the mode cannot see the ops a
+CUDA graph replays.  Wrap only debug runs:
 
     step = checked_fn(harness.train_step)
     state, metrics = step(state, batch, draws)   # raises on NaN / Inf / OOB
@@ -36,6 +37,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
 
 from diffab_pytorch_tpu_torch.ops import _build
+from diffab_pytorch_tpu_torch.utils import graphs
 
 CHECKS = frozenset({"float", "index", "div"})
 
@@ -154,7 +156,7 @@ def checked_fn(fn: Callable, checks=CHECKS) -> Callable:
         if "float" in checks:
             _build.launch_checks.append(kernel_check)
         try:
-            with mode:
+            with graphs.disabled(), mode:
                 return fn(*args, **kwargs)
         finally:
             if "float" in checks:

@@ -27,13 +27,6 @@ RENAMES = {
     ("ops/ipa_pallas.py", "fused_ipa_layer"): (_LAYER, "fused_ipa_layer"),
     ("ops/ipa_pallas.py", "fused_ipa_attention"): (_ATTENTION, "fused_ipa_attention"),
     ("ops/ipa_pallas.py", "fused_ipa_attention_raw"): (_ATTENTION, "fused_ipa_attention_raw"),
-    # jitted closures built by a factory in JAX are plain methods in torch,
-    # which has no separate trace step
-    ("train/harness.py", "DiffAb.make_train_step"): ("train/harness.py", "DiffAb.train_step"),
-    ("train/harness.py", "DiffAb.train_step_impl"): ("train/harness.py", "DiffAb.train_step"),
-    ("train/harness.py", "DiffAb.make_pool_train_step"):
-        ("train/harness.py", "DiffAb.pool_train_step"),
-    ("train/harness.py", "DiffAb.make_eval_step"): ("train/harness.py", "DiffAb.eval_step"),
     # flax builds submodules in setup(); an nn.Module in its constructor
     ("models/diffab.py", "DiffAbModel.setup"): ("models/diffab.py", "DiffAbModel.__init__"),
     # helpers that torch has as ops
