@@ -1,0 +1,8 @@
+"""device_idle.sample: percent of the traced slice's wall time in which no
+operation ran on the device."""
+
+from benchmark.lib.readers import idle_share
+
+
+def read(rec):
+    return idle_share(rec)
