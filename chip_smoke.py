@@ -3682,6 +3682,14 @@ def last_entry(cache):
     return next(reversed(cache.entries.values()))
 
 
+def capture_seconds():
+    """Seconds spent in CUDA graph captures so far (the `graphs.capture_s`
+    counter of utils/profiling.py)."""
+    from diffab_pytorch_tpu_torch.utils import profiling
+
+    return profiling.counters().get("graphs.capture_s", 0.0)
+
+
 def graph_sample(torch, card, tag, sched, tables, compute_dtype, n_designs, L, model=None,
                  k1_per_call=None, other_weights=False, profile_eager=True,
                  profile_graphed=True, **opts):
@@ -3732,9 +3740,10 @@ def graph_sample(torch, card, tag, sched, tables, compute_dtype, n_designs, L, m
         torch.cuda.reset_peak_memory_stats()
         e1, k_eager = run(False, timed=True)
         peak[False] = torch.cuda.max_memory_allocated() / 1e9
+        captured0 = capture_seconds()
         g1, k_first = run(None)
+        capture_s = capture_seconds() - captured0
         cache = sampler.chain_graphs(net)
-        entry = last_entry(cache)
         torch.cuda.reset_peak_memory_stats()
         (g2, k_replay), (g3, _) = run(None, timed=True), run(None, timed=True)
         peak[None] = torch.cuda.max_memory_allocated() / 1e9
@@ -3781,12 +3790,12 @@ def graph_sample(torch, card, tag, sched, tables, compute_dtype, n_designs, L, m
     out = dict(eager_rate=n_designs / wall_e, graph_rate=n_designs / wall_g,
                eager_busy=busy_e, graph_busy=busy_g, eager_events=ev_e, graph_events=ev_g,
                eager_idle=idle(busy_e, wall_e), graph_idle=idle(busy_g, wall_g),
-               capture_s=entry.capture_s, pool_gb=cache.pool_bytes / 1e9, eager_peak_gb=peak[False],
+               capture_s=capture_s, pool_gb=cache.pool_bytes / 1e9, eager_peak_gb=peak[False],
                graph_peak_gb=peak[None], k1_profiler=seen)
     print(f"{tag}: designs/s eager {out['eager_rate']:.3f}, graphed {out['graph_rate']:.3f} "
           f"({out['graph_rate'] / out['eager_rate']:.2f}x; calls eager "
           f"{', '.join(f'{w:.4f}' for w in walls[False])} s, graphed "
-          f"{', '.join(f'{w:.4f}' for w in walls[None])} s); capture {entry.capture_s:.3f} s, "
+          f"{', '.join(f'{w:.4f}' for w in walls[None])} s); capture {capture_s:.3f} s, "
           f"pool {out['pool_gb']:.3f} GB; peak memory eager {peak[False]:.2f} GB, graphed "
           f"{peak[None]:.2f} GB (card: {card}); {time.perf_counter() - t_start:.1f} s")
     return out
@@ -3887,6 +3896,7 @@ def graph_train(torch, card, tag, compute_dtype, fuse, timed, pool_check):
     state = harness.init(0)
     step = harness.make_train_step()
     rates, peaks = {"eager": [], "graphed": []}, {}
+    captured0 = capture_seconds()
     for name in ("eager", "graphed", "graphed", "eager"):
         fn = harness.train_step if name == "eager" else step
         for j in range(2):
@@ -3899,8 +3909,10 @@ def graph_train(torch, card, tag, compute_dtype, fuse, timed, pool_check):
         torch.cuda.synchronize()
         rates[name].append(GRAPH_TIMED / (time.perf_counter() - t0))
         peaks[name] = torch.cuda.max_memory_allocated() / 1e9
-    train_entry = last_entry(harness._step_graphs)
+    train_capture_s = capture_seconds() - captured0
+    captured0 = capture_seconds()
     state, _ = pool_step(state, pool, idx[:4], draws[:4])  # the default mode's capture
+    pool_capture_s = capture_seconds() - captured0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for c in range(3):
@@ -3924,15 +3936,15 @@ def graph_train(torch, card, tag, compute_dtype, fuse, timed, pool_check):
     out = dict(eager_rate=best["eager"], graph_rate=best["graphed"], pool_rate=pool_rate,
                eager_busy=busy_e, graph_busy=busy_g, eager_events=ev_e, graph_events=ev_g,
                eager_idle=idle(busy_e, best["eager"]), graph_idle=idle(busy_g, best["graphed"]),
-               capture_s=train_entry.capture_s, pool_gb=harness._step_graphs.pool_bytes / 1e9,
-               pool_capture_s=pool_entry.capture_s, pool_pool_gb=pool_entry.pool_bytes / 1e9,
+               capture_s=train_capture_s, pool_gb=harness._step_graphs.pool_bytes / 1e9,
+               pool_capture_s=pool_capture_s, pool_pool_gb=pool_entry.pool_bytes / 1e9,
                eager_peak_gb=peaks["eager"], graph_peak_gb=peaks["graphed"])
     print(f"{tag}: steps/s eager {', '.join(f'{r:.3f}' for r in rates['eager'])}, graphed "
           f"{', '.join(f'{r:.3f}' for r in rates['graphed'])} "
           f"({best['graphed'] / best['eager']:.2f}x "
           f"best to best), steps_per_call=4 {pool_rate:.3f} ({pool_rate / best['graphed']:.2f}x "
-          f"the one-step graph); capture {train_entry.capture_s:.3f} s, k=4 "
-          f"{pool_entry.capture_s:.3f} s (the pool grew {out['pool_pool_gb']:.3f} GB in it); "
+          f"the one-step graph); capture {train_capture_s:.3f} s, k=4 "
+          f"{pool_capture_s:.3f} s (the pool grew {out['pool_pool_gb']:.3f} GB in it); "
           f"the pool of the harness's captures {out['pool_gb']:.3f} GB; peak memory eager "
           f"{peaks['eager']:.2f} GB, graphed {peaks['graphed']:.2f} GB (card: {card})")
     return out

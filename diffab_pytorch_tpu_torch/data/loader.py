@@ -13,12 +13,16 @@ reads it.  A worker exception is raised to the consumer.  On the CPU the
 batches pass through as they are.  With `sharding` = (rank, world), each
 batch is cut to the rank-th of world equal blocks of its rows (the block
 `parallel.mesh.batch_sharding(group)` names) before it is pinned, so only
-those rows are pinned and copied.
+those rows are pinned and copied.  The worker's time for each batch
+(assembly, pinning and issuing the copy) is a span, `loader.batch`, and
+goes into the counters `loader.batches` and `loader.batch_s`
+(`utils/profiling.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -26,21 +30,21 @@ from typing import Iterable
 
 import torch
 
+from diffab_pytorch_tpu_torch.utils.profiling import count, span
+
 _END = object()
 
 
 class PrefetchLoader:
     """Iterate (batch on `device`, info) over a host iterator of
     (ProteinBatch, info) pairs (or bare batches, info None).
-    `batch_seconds`: the worker's time for each batch (assembly, pinning
-    and issuing the copy).  `sharding`: (rank, world); each batch becomes
-    rank's block of its rows."""
+    `sharding`: (rank, world); each batch becomes rank's block of its
+    rows."""
 
     def __init__(self, batch_iter: Iterable, device, prefetch: int = 2,
                  sharding: tuple[int, int] | None = None):
         self.device = torch.device(device)
         self.sharding = sharding
-        self.batch_seconds: list[float] = []
         self._iter = batch_iter
         self._q: queue.Queue = queue.Queue(maxsize=max(1, prefetch))
         self._stop = threading.Event()
@@ -76,21 +80,31 @@ class PrefetchLoader:
             event.record(self._stream)
         return out, event
 
+    def _next(self, it):
+        """The next (batch, info, event) on the device, or _END."""
+        t0 = time.perf_counter()
+        item = next(it, _END)
+        if item is _END:
+            return _END
+        batch, info = item if isinstance(item, tuple) else (item, None)
+        if self.sharding is not None:
+            batch = self._rows(batch)
+        batch, event = self._to_device(batch)
+        count("loader.batches")
+        count("loader.batch_s", time.perf_counter() - t0)
+        return batch, info, event
+
     def _worker(self) -> None:
         try:
             it = iter(self._iter)
-            while not self._stop.is_set():
-                t0 = time.perf_counter()
-                try:
-                    item = next(it)
-                except StopIteration:
+            for n in itertools.count():
+                if self._stop.is_set():
                     break
-                batch, info = item if isinstance(item, tuple) else (item, None)
-                if self.sharding is not None:
-                    batch = self._rows(batch)
-                batch, event = self._to_device(batch)
-                self.batch_seconds.append(time.perf_counter() - t0)
-                if not self._put((batch, info, event)):
+                with span("loader.batch", call=n):
+                    item = self._next(it)
+                if item is _END:
+                    break
+                if not self._put(item):
                     return
         except Exception as e:  # surfaced to the consumer by __next__
             self._put(e)

@@ -36,6 +36,11 @@ constants; the first step of a new capture runs eagerly as its warm-up.
 Before each replay the step's draws are made from the generator, or
 copied from `step_noise`, into the noise buffers.  With graphs=False,
 under `utils.graphs.disabled()` and on the CPU the same body runs eagerly.
+
+Spans (`utils/profiling.py`, recorded while a profiler records): `sample`
+around the call; inside it `sample.prepare` (entry to the first step),
+`sample.step` per step (its draws, `sample.draw`, and its replay or eager
+body) and `sample.out` (the output copies).  None opens inside the body.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from diffab_pytorch_tpu_torch.geometry.igso3 import AxisAngleNoise
 from diffab_pytorch_tpu_torch.models.diffab import DiffAbModel
 from diffab_pytorch_tpu_torch.models.ipa import precompute_pair_biases
 from diffab_pytorch_tpu_torch.utils import graphs as graphs_lib
+from diffab_pytorch_tpu_torch.utils.profiling import named_scope, span
 
 
 def _anchor_indices(residue_idx, chain_idx, residue_mask, generation_mask):
@@ -401,6 +407,7 @@ def _reverse_body(model, opts: dict):
     return body
 
 
+@named_scope("sample")
 def sample(
     model: DiffAbModel,
     sched: DiffusionSchedule,
@@ -444,104 +451,113 @@ def sample(
     (None: every step after the first).  graphs: replay the step body as a
     captured CUDA graph (default: on a CUDA device, outside
     `utils.graphs.disabled()`); False runs the same body eagerly."""
-    device = resolve_device(device)
-    T = sched.T
-    t_start = T if t_start is None else int(t_start)
-    if not 1 <= t_start <= T:
-        raise ValueError(f"t_start must be in [1, {T}], got {t_start}")
-    if not (generate_structure or generate_sequence):
-        raise ValueError("nothing to generate: both modalities are fixed")
-    n = int(n_designs)
-    if n < 1:
-        raise ValueError(f"n_designs must be >= 1, got {n}")
-    if coord_solver not in ("none", "ab2", "heun"):
-        raise ValueError(f"coord_solver must be 'none', 'ab2' or 'heun', got {coord_solver!r}")
-    if coord_solver != "none" and coord_ddim_t_min is not None:
-        raise ValueError("coord_ddim_t_min composes only with coord_solver='none' "
-                         "(the solvers already choose the step form)")
-    if init not in ("prior", "chord"):
-        raise ValueError(f"init must be 'prior' or 'chord', got {init!r}")
-    if step_schedule not in ("uniform", "hight"):
-        raise ValueError(f"step_schedule must be 'uniform' or 'hight', got {step_schedule!r}")
-    if n_fine_tail is not None and step_schedule != "uniform":
-        raise ValueError("n_fine_tail composes only with step_schedule='uniform'")
-    if orientation_reverse not in ("renoise", "posterior"):
-        raise ValueError(f"unknown orientation reverse mode: {orientation_reverse!r}")
-    use_graphs = graphs_lib.use_graphs(device, graphs)
-    t_seq = timestep_schedule(t_start, n_steps, step_schedule, step_schedule_p, n_fine_tail)
-    s_seq = np.append(t_seq[1:], 0)
-
-    model = model.to(device)
-    sched, tables, batch = sched.to(device), tables.to(device), batch.to(device)
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-
     with torch.no_grad():
-        gen = batch.generation_mask & batch.residue_mask
-        seq_gen = gen if generate_sequence else torch.zeros_like(gen)
-        struct_gen = gen if generate_structure else torch.zeros_like(gen)
-        if isinstance(x0_clip, str):
-            if x0_clip != "auto":
-                raise ValueError(f"x0_clip must be 'auto', a float, or None; got {x0_clip!r}")
-            ctx = batch.residue_mask & ~batch.generation_mask
-            extent = torch.where(ctx[..., None], batch.translations.abs(),
-                                 torch.zeros((), device=device)).amax(dim=(1, 2))
-            x0_clip = 1.5 * torch.clamp(extent, min=1.0)
+        with span("sample.prepare"):
+            device = resolve_device(device)
+            T = sched.T
+            t_start = T if t_start is None else int(t_start)
+            if not 1 <= t_start <= T:
+                raise ValueError(f"t_start must be in [1, {T}], got {t_start}")
+            if not (generate_structure or generate_sequence):
+                raise ValueError("nothing to generate: both modalities are fixed")
+            n = int(n_designs)
+            if n < 1:
+                raise ValueError(f"n_designs must be >= 1, got {n}")
+            if coord_solver not in ("none", "ab2", "heun"):
+                raise ValueError(
+                    f"coord_solver must be 'none', 'ab2' or 'heun', got {coord_solver!r}")
+            if coord_solver != "none" and coord_ddim_t_min is not None:
+                raise ValueError("coord_ddim_t_min composes only with coord_solver='none' "
+                                 "(the solvers already choose the step form)")
+            if init not in ("prior", "chord"):
+                raise ValueError(f"init must be 'prior' or 'chord', got {init!r}")
+            if step_schedule not in ("uniform", "hight"):
+                raise ValueError(
+                    f"step_schedule must be 'uniform' or 'hight', got {step_schedule!r}")
+            if n_fine_tail is not None and step_schedule != "uniform":
+                raise ValueError("n_fine_tail composes only with step_schedule='uniform'")
+            if orientation_reverse not in ("renoise", "posterior"):
+                raise ValueError(f"unknown orientation reverse mode: {orientation_reverse!r}")
+            use_graphs = graphs_lib.use_graphs(device, graphs)
+            t_seq = timestep_schedule(t_start, n_steps, step_schedule, step_schedule_p,
+                                      n_fine_tail)
+            s_seq = np.append(t_seq[1:], 0)
 
-        rep = lambda a: torch.repeat_interleave(a, n, dim=0)
-        seq_ctx, x_ctx = rep(batch.seq_idx), rep(batch.translations)
-        r_ctx, res_mask = rep(batch.orientations), rep(batch.residue_mask)
-        gen, seq_gen, struct_gen = rep(gen), rep(seq_gen), rep(struct_gen)
-        if isinstance(x0_clip, torch.Tensor):
-            x0_clip = rep(x0_clip)
+            model = model.to(device)
+            sched, tables, batch = sched.to(device), tables.to(device), batch.to(device)
+            if generator is None:
+                generator = torch.Generator(device=device).manual_seed(0)
 
-        res_emb, pair_emb = model.encode_context(batch, generate_structure,
-                                                 generate_sequence)
-        seq_t, x_t, r_t = _initial_state(
-            model, sched, tables, batch, rep, t_start, init, chord_orientations, seq_ctx,
-            x_ctx, r_ctx, res_mask, seq_gen, struct_gen, generator, init_noise or InitNoise())
+            gen = batch.generation_mask & batch.residue_mask
+            seq_gen = gen if generate_sequence else torch.zeros_like(gen)
+            struct_gen = gen if generate_structure else torch.zeros_like(gen)
+            if isinstance(x0_clip, str):
+                if x0_clip != "auto":
+                    raise ValueError(f"x0_clip must be 'auto', a float, or None; got {x0_clip!r}")
+                ctx = batch.residue_mask & ~batch.generation_mask
+                extent = torch.where(ctx[..., None], batch.translations.abs(),
+                                     torch.zeros((), device=device)).amax(dim=(1, 2))
+                x0_clip = 1.5 * torch.clamp(extent, min=1.0)
 
-        # what the step body reads, as JAX's scan closure and initial carry:
-        # this call's state, constants, schedule and tables
-        inputs = dict(seq=seq_t, x=x_t, r=r_t, sched=sched, tables=tables, res_emb=res_emb,
-                      pair_emb=pair_emb, hoisted=hoist_denoiser_constants(model, pair_emb),
-                      gen=gen, res_mask=res_mask, seq_gen=seq_gen, struct_gen=struct_gen,
-                      x0_clip=x0_clip,
-                      t_seq=torch.as_tensor(t_seq.copy(), dtype=torch.long, device=device),
-                      s_seq=torch.as_tensor(s_seq, dtype=torch.long, device=device))
-        if coord_solver == "ab2":
-            # log-SNR lambda(t) = 0.5 log(abar / (1 - abar)), index 0 clamped
-            abar_f = torch.clamp(sched.alpha_bar, 1e-12, 1.0 - 1e-12)
-            inputs["lam_tab"] = 0.5 * (torch.log(abar_f) - torch.log1p(-abar_f))
-        n_traj = len(t_seq) if return_trajectory else 0
-        buffers = lambda: _chain_buffers(model, inputs, n_traj)
-        opts = dict(noise_scale=noise_scale, noise_t_max=noise_t_max, sc_t_max=sc_t_max,
-                    coord_ddim_t_min=coord_ddim_t_min, coord_solver=coord_solver,
-                    coord_solver_t_min=coord_solver_t_min,
-                    orientation_noise_scale=orientation_noise_scale,
-                    orientation_reverse=orientation_reverse)
-        body = _reverse_body(model, opts)
-        if use_graphs:
-            key = (graphs_lib.signature(inputs), n_traj, graphs_lib.mode(), repr(model.cfg),
-                   tuple(sorted(opts.items())),
-                   graphs_lib.addresses([*model.parameters(), *model.buffers()]))
-            chain = chain_graphs(model).get(key, inputs, buffers)
-            c = chain.inputs
-            run = lambda variant: chain.run(variant, lambda inputs: body(inputs, *variant))
-        else:
-            c = {**inputs, **buffers()}
-            run = lambda variant: body(c, *variant)
-        _reset_carry(c)
-        for t, s_t in zip(t_seq.tolist(), s_seq.tolist()):
-            if step_noise is None:
-                _draw_step(c["noise"], generator)
+            rep = lambda a: torch.repeat_interleave(a, n, dim=0)
+            seq_ctx, x_ctx = rep(batch.seq_idx), rep(batch.translations)
+            r_ctx, res_mask = rep(batch.orientations), rep(batch.residue_mask)
+            gen, seq_gen, struct_gen = rep(gen), rep(seq_gen), rep(struct_gen)
+            if isinstance(x0_clip, torch.Tensor):
+                x0_clip = rep(x0_clip)
+
+            res_emb, pair_emb = model.encode_context(batch, generate_structure,
+                                                     generate_sequence)
+            seq_t, x_t, r_t = _initial_state(
+                model, sched, tables, batch, rep, t_start, init, chord_orientations, seq_ctx,
+                x_ctx, r_ctx, res_mask, seq_gen, struct_gen, generator,
+                init_noise or InitNoise())
+
+            # what the step body reads, as JAX's scan closure and initial
+            # carry: this call's state, constants, schedule and tables
+            inputs = dict(seq=seq_t, x=x_t, r=r_t, sched=sched, tables=tables, res_emb=res_emb,
+                          pair_emb=pair_emb, hoisted=hoist_denoiser_constants(model, pair_emb),
+                          gen=gen, res_mask=res_mask, seq_gen=seq_gen, struct_gen=struct_gen,
+                          x0_clip=x0_clip,
+                          t_seq=torch.as_tensor(t_seq.copy(), dtype=torch.long, device=device),
+                          s_seq=torch.as_tensor(s_seq, dtype=torch.long, device=device))
+            if coord_solver == "ab2":
+                # log-SNR lambda(t) = 0.5 log(abar / (1 - abar)), index 0 clamped
+                abar_f = torch.clamp(sched.alpha_bar, 1e-12, 1.0 - 1e-12)
+                inputs["lam_tab"] = 0.5 * (torch.log(abar_f) - torch.log1p(-abar_f))
+            n_traj = len(t_seq) if return_trajectory else 0
+            buffers = lambda: _chain_buffers(model, inputs, n_traj)
+            opts = dict(noise_scale=noise_scale, noise_t_max=noise_t_max, sc_t_max=sc_t_max,
+                        coord_ddim_t_min=coord_ddim_t_min, coord_solver=coord_solver,
+                        coord_solver_t_min=coord_solver_t_min,
+                        orientation_noise_scale=orientation_noise_scale,
+                        orientation_reverse=orientation_reverse)
+            body = _reverse_body(model, opts)
+            if use_graphs:
+                key = (graphs_lib.signature(inputs), n_traj, graphs_lib.mode(),
+                       repr(model.cfg), tuple(sorted(opts.items())),
+                       graphs_lib.addresses([*model.parameters(), *model.buffers()]))
+                chain = chain_graphs(model).get(key, inputs, buffers)
+                c = chain.inputs
+                run = lambda variant: chain.run(variant,
+                                                lambda inputs: body(inputs, *variant))
             else:
-                _load_step(c["noise"], step_noise(t))
-            heun = coord_solver == "heun" and t > coord_solver_t_min and s_t >= 1
-            run((heun,))
-        out = [c[k].clone() if use_graphs else c[k] for k in ("seq", "x", "r")]
-        if return_trajectory:
-            out += [v.clone() if use_graphs else v for v in c["traj"]]
+                c = {**inputs, **buffers()}
+                run = lambda variant: body(c, *variant)
+            _reset_carry(c)
+        for t, s_t in zip(t_seq.tolist(), s_seq.tolist()):
+            with span("sample.step"):
+                with span("sample.draw"):
+                    if step_noise is None:
+                        _draw_step(c["noise"], generator)
+                    else:
+                        _load_step(c["noise"], step_noise(t))
+                heun = coord_solver == "heun" and t > coord_solver_t_min and s_t >= 1
+                run((heun,))
+        with span("sample.out"):
+            out = [c[k].clone() if use_graphs else c[k] for k in ("seq", "x", "r")]
+            if return_trajectory:
+                out += [v.clone() if use_graphs else v for v in c["traj"]]
     return SampleResult(*out)
 
 

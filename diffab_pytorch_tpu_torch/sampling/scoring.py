@@ -22,7 +22,9 @@ once, shared by the target's n designs inside attention as in
 `sample(n_designs=n)`: the IPA kernels run at b = n x targets with
 bp = targets.  A self-conditioned model is scored cold (no estimate), as
 the JAX scorer does.  Every draw can be injected (`ScoreDraws`), so tests feed
-this scorer the numbers the JAX key schedule draws.
+this scorer the numbers the JAX key schedule draws.  Spans
+(`utils/profiling.py`): `score` around the call, `score.prepare` up to the
+grid, `score.point` per grid point.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from diffab_pytorch_tpu_torch.geometry.igso3 import AxisAngleNoise
 from diffab_pytorch_tpu_torch.models.diffab import DiffAbModel
 from diffab_pytorch_tpu_torch.sampling.sampler import SampleResult, hoist_denoiser_constants
 from diffab_pytorch_tpu_torch.train.losses import orientation_discrepancy
+from diffab_pytorch_tpu_torch.utils.profiling import named_scope, span
 
 
 class DesignScores(NamedTuple):
@@ -85,6 +88,7 @@ def default_t_grid(T: int) -> np.ndarray:
     return np.unique(np.round(np.linspace(1, max(T // 4, 1), num=8)).astype(np.int64))
 
 
+@named_scope("score")
 def score_designs(
     model: DiffAbModel,
     sched: DiffusionSchedule,
@@ -115,73 +119,78 @@ def score_designs(
     fixed modality was not generated, is the same in every design and is
     part of the context.  Runs on the card unless `device` names another;
     the model, schedule, tables, batch and designs are moved there."""
-    device = resolve_device(device)
-    b = batch.batch_size
-    bn = designs.seq_idx.shape[0]
-    if bn % b:
-        raise ValueError(f"designs rows {bn} not a multiple of batch {b}")
-    n = bn // b
-    if not (generate_structure or generate_sequence):
-        raise ValueError("nothing was generated: both modalities are fixed")
-    T = sched.T
-    if t_grid is None:
-        t_grid = default_t_grid(T)
-    n_draws = max(1, int(n_draws))
-    t_arr = [int(t) for t in t_grid for _ in range(n_draws)]
-    if not all(1 <= t <= T for t in t_arr):
-        raise ValueError(f"t_grid values must be in [1, {T}]")
-    if draws is not None and draws.gumbel.shape[0] != len(t_arr):
-        raise ValueError(f"draws hold {draws.gumbel.shape[0]} grid points, the grid has "
-                         f"{len(t_arr)}")
-
-    model = model.to(device)
-    sched, tables, batch = sched.to(device), tables.to(device), batch.to(device)
-    seq_d = designs.seq_idx.to(device)
-    x_d = designs.translations.to(device)
-    r_d = designs.orientations.to(device)
-    if draws is not None:
-        draws = draws.to(device)
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-
     with torch.no_grad():
-        gen = batch.generation_mask & batch.residue_mask
-        seq_gen = gen if generate_sequence else torch.zeros_like(gen)
-        struct_gen = gen if generate_structure else torch.zeros_like(gen)
-        rep = (lambda a: torch.repeat_interleave(a, n, dim=0)) if n > 1 else (lambda a: a)
-        gen, seq_gen, struct_gen = rep(gen), rep(seq_gen), rep(struct_gen)
-        res_mask = rep(batch.residue_mask)
+        with span("score.prepare"):
+            device = resolve_device(device)
+            b = batch.batch_size
+            bn = designs.seq_idx.shape[0]
+            if bn % b:
+                raise ValueError(f"designs rows {bn} not a multiple of batch {b}")
+            n = bn // b
+            if not (generate_structure or generate_sequence):
+                raise ValueError("nothing was generated: both modalities are fixed")
+            T = sched.T
+            if t_grid is None:
+                t_grid = default_t_grid(T)
+            n_draws = max(1, int(n_draws))
+            t_arr = [int(t) for t in t_grid for _ in range(n_draws)]
+            if not all(1 <= t <= T for t in t_arr):
+                raise ValueError(f"t_grid values must be in [1, {T}]")
+            if draws is not None and draws.gumbel.shape[0] != len(t_arr):
+                raise ValueError(f"draws hold {draws.gumbel.shape[0]} grid points, the grid has "
+                                 f"{len(t_arr)}")
 
-        # the context once per target, the bias logits once per layer
-        res_emb, pair_emb = model.encode_context(batch, generate_structure, generate_sequence)
-        hoisted = hoist_denoiser_constants(model, pair_emb)
-        r_d32 = r_d.to(torch.float32)
+            model = model.to(device)
+            sched, tables, batch = sched.to(device), tables.to(device), batch.to(device)
+            seq_d = designs.seq_idx.to(device)
+            x_d = designs.translations.to(device)
+            r_d = designs.orientations.to(device)
+            if draws is not None:
+                draws = draws.to(device)
+            if generator is None:
+                generator = torch.Generator(device=device).manual_seed(0)
 
-        zero = torch.zeros((bn,), dtype=torch.float32, device=device)
-        seq_s, trans_s, orient_s = zero, zero.clone(), zero.clone()
+            gen = batch.generation_mask & batch.residue_mask
+            seq_gen = gen if generate_sequence else torch.zeros_like(gen)
+            struct_gen = gen if generate_structure else torch.zeros_like(gen)
+            rep = (lambda a: torch.repeat_interleave(a, n, dim=0)) if n > 1 else (lambda a: a)
+            gen, seq_gen, struct_gen = rep(gen), rep(seq_gen), rep(struct_gen)
+            res_mask = rep(batch.residue_mask)
+
+            # the context once per target, the bias logits once per layer
+            res_emb, pair_emb = model.encode_context(batch, generate_structure,
+                                                     generate_sequence)
+            hoisted = hoist_denoiser_constants(model, pair_emb)
+            r_d32 = r_d.to(torch.float32)
+
+            zero = torch.zeros((bn,), dtype=torch.float32, device=device)
+            seq_s, trans_s, orient_s = zero, zero.clone(), zero.clone()
+
         for i, t in enumerate(t_arr):
-            gumbel, coord_noise, rot_noise = (None, None, None) if draws is None else draws.point(i)
-            tvec = torch.full((bn,), t, dtype=torch.long, device=device)
-            seq_t = sequence.diffuse_from_t0(sched, seq_d, tvec, seq_gen, model.cfg.aa_vocab_size,
-                                             generator=generator, gumbel=gumbel,
-                                             return_posterior=False)
-            x_t, eps = coordinate.diffuse_from_t0(sched, x_d, tvec, struct_gen,
-                                                  generator=generator, noise=coord_noise)
-            r_t = orientation.diffuse_from_t0(tables, r_d, tvec, struct_gen,
-                                              generator=generator, noise=rot_noise)
-            # a self-conditioned model scores cold: no estimate
-            den = model.denoise(seq_t, x_t, r_t, res_emb, pair_emb, sched.beta[tvec], gen,
-                                res_mask, **hoisted)
+            with span("score.point"):
+                gumbel, coord_noise, rot_noise = ((None, None, None) if draws is None
+                                                  else draws.point(i))
+                tvec = torch.full((bn,), t, dtype=torch.long, device=device)
+                seq_t = sequence.diffuse_from_t0(sched, seq_d, tvec, seq_gen,
+                                                 model.cfg.aa_vocab_size, generator=generator,
+                                                 gumbel=gumbel, return_posterior=False)
+                x_t, eps = coordinate.diffuse_from_t0(sched, x_d, tvec, struct_gen,
+                                                      generator=generator, noise=coord_noise)
+                r_t = orientation.diffuse_from_t0(tables, r_d, tvec, struct_gen,
+                                                  generator=generator, noise=rot_noise)
+                # a self-conditioned model scores cold: no estimate
+                den = model.denoise(seq_t, x_t, r_t, res_emb, pair_emb, sched.beta[tvec], gen,
+                                    res_mask, **hoisted)
 
-            log_p0 = torch.log_softmax(den["seq_logits"].to(torch.float32), dim=-1)
-            ce = -torch.gather(log_p0, -1, seq_d[..., None])[..., 0]
-            seq_s = seq_s + _masked_row_mean(ce, seq_gen)
-            eps_err = torch.sum((den["translations_eps"].to(torch.float32)
-                                 - eps.to(torch.float32)) ** 2, dim=-1)
-            trans_s = trans_s + _masked_row_mean(eps_err, struct_gen)
-            orient_err = 9.0 * orientation_discrepancy(
-                den["orientations_t0"].to(torch.float32), r_d32)
-            orient_s = orient_s + _masked_row_mean(orient_err, struct_gen)
+                log_p0 = torch.log_softmax(den["seq_logits"].to(torch.float32), dim=-1)
+                ce = -torch.gather(log_p0, -1, seq_d[..., None])[..., 0]
+                seq_s = seq_s + _masked_row_mean(ce, seq_gen)
+                eps_err = torch.sum((den["translations_eps"].to(torch.float32)
+                                     - eps.to(torch.float32)) ** 2, dim=-1)
+                trans_s = trans_s + _masked_row_mean(eps_err, struct_gen)
+                orient_err = 9.0 * orientation_discrepancy(
+                    den["orientations_t0"].to(torch.float32), r_d32)
+                orient_s = orient_s + _masked_row_mean(orient_err, struct_gen)
 
         steps = float(len(t_arr))
         seq_s, trans_s, orient_s = seq_s / steps, trans_s / steps, orient_s / steps

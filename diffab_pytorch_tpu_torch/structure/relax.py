@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from diffab_pytorch_tpu_torch.evaluation.metrics import CA_CA_RANGE, CLASH_DIST, chain_graph
+from diffab_pytorch_tpu_torch.utils.profiling import named_scope
 
 # Repair targets sit inside the validity windows, so repaired geometry
 # passes with margin; the chain window still admits cis-peptides (~2.95 A).
@@ -40,6 +41,7 @@ def _shares(g_a, g_b):
     return wa / tot, wb / tot
 
 
+@named_scope("relax")
 def relax_ca(
     translations: torch.Tensor,  # (b, L, 3) CA positions, model units
     residue_mask: torch.Tensor,  # (b, L)

@@ -59,8 +59,10 @@ from diffab_pytorch_tpu_torch.parallel.tp import (
 from diffab_pytorch_tpu_torch.train import checkpoint as ckpt_lib
 from diffab_pytorch_tpu_torch.train.harness import DiffAb, OptState, TrainState
 from diffab_pytorch_tpu_torch.utils.logging import MetricLogger, is_primary
+from diffab_pytorch_tpu_torch.utils.profiling import counters, span
 
 Data = Union[PatchDataset, Iterable[ProteinBatch]]
+_END = object()
 
 
 def _copy_state(state: TrainState) -> TrainState:
@@ -115,6 +117,7 @@ def fit(
     logger = logger or MetricLogger(print_every=cfg.log_every)
     gen = torch.Generator(device=dev)
     primary = is_primary()
+    loader0 = counters()  # the loader's counters before its batches
     shard, rank = None, 0
     eval_harness, evaluates = harness, primary
     if mesh is not None:
@@ -165,11 +168,13 @@ def fit(
         source = itertools.islice(train_data.epoch_indices(
             cfg.batch_size, n_rows=n_rows, shuffle=True, seed=seed), max(total, 0))
 
-        def run_step(state, rows, generator):
+        def draw(rows, generator):
             idx = torch.from_numpy(rows.astype(np.int64))
             if dev.type == "cuda":  # from pageable memory the copy would wait for the card
                 idx = idx.pin_memory().to(dev, non_blocking=True)
-            draws = harness.draw_for(len(rows), n_res, generator, dev)
+            return idx, harness.draw_for(len(rows), n_res, generator, dev)
+
+        def run_step(state, idx, draws):
             return pool_step(state, pool, idx, draws)
     else:
         if isinstance(train_data, PatchDataset):
@@ -181,9 +186,11 @@ def fit(
             if shard is not None:
                 source = (put_global(batch, shard) for batch in source)
 
-        def run_step(state, batch, generator):
+        def draw(batch, generator):
             batch = batch.to(dev)
-            return step_fn(state, batch, harness.draw(batch, generator))
+            return batch, harness.draw(batch, generator)
+
+        run_step = step_fn
     if isinstance(train_data, PatchDataset):
         steps_per_epoch = max(1, len(train_data) // cfg.batch_size)
     else:
@@ -219,27 +226,37 @@ def fit(
             logger.log(state.step, {k: float(np.mean([float(m[k]) for m in ms]))
                                     for k in ms[0]})
 
+    # spans (`utils/profiling.py`) of each step, whose call is the step
+    # trained: the wait on the source, the draws, the step, the logging point
+    source = iter(source)
     try:
-        for item in source:
-            if max_steps is not None and state.step >= max_steps:
+        while True:
+            trained = state.step
+            with span("fit.loader_wait", call=trained):
+                item = next(source, _END)
+            if item is _END or (max_steps is not None and trained >= max_steps):
                 break
-            state, metrics = run_step(state, item,
-                                      _step_generator(gen, seed, state.step, rank))
+            with span("fit.draw", call=trained):
+                data, draws = draw(item, _step_generator(gen, seed, trained, rank))
+            with span("fit.step", call=trained):
+                state, metrics = run_step(state, data, draws)
             step = state.step
             if step % cfg.log_every == 0:
-                now = time.time()
-                metrics = dict(metrics, steps_per_sec=cfg.log_every / max(now - t_last, 1e-9))
-                t_last = now
-                logger.log(step, metrics)
-                loss = float(metrics["train/loss"])
-                if near_best(loss):
-                    best_loss = min(best_loss, loss)
-                    last_ok_step = step
-                    if pending is not None:
-                        state_good, step_good = pending
-                    pending = (_copy_state(state), step)
-                else:
-                    pending = None
+                with span("fit.log", call=trained):
+                    now = time.time()
+                    metrics = dict(metrics,
+                                   steps_per_sec=cfg.log_every / max(now - t_last, 1e-9))
+                    t_last = now
+                    logger.log(step, metrics)
+                    loss = float(metrics["train/loss"])
+                    if near_best(loss):
+                        best_loss = min(best_loss, loss)
+                        last_ok_step = step
+                        if pending is not None:
+                            state_good, step_good = pending
+                        pending = (_copy_state(state), step)
+                    else:
+                        pending = None
             if saves and step % cfg.checkpoint_every == 0:
                 if last_ok_step >= step - cfg.log_every:
                     ckpt_lib.save_checkpoint(checkpoint_dir, state, mesh=mesh)
@@ -251,10 +268,11 @@ def fit(
     finally:
         if loader is not None:
             loader.close()
-            if loader.batch_seconds:
-                ms = np.array(loader.batch_seconds) * 1e3
-                print(f"[trainer] loader: {len(ms)} batches, host ms per batch: mean "
-                      f"{ms.mean():.2f}, median {np.median(ms):.2f}")
+            now = counters()
+            n = now.get("loader.batches", 0) - loader0.get("loader.batches", 0)
+            if n:
+                ms = 1e3 * (now["loader.batch_s"] - loader0.get("loader.batch_s", 0.0)) / n
+                print(f"[trainer] loader: {n} batches, host ms per batch: mean {ms:.2f}")
 
     if state.step > last_ok_step + cfg.log_every:
         print(f"[trainer] final state diverged (best {best_loss:.4g}, validated "

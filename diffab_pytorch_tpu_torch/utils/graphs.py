@@ -10,7 +10,9 @@ itself), then captures it, and replays the capture on every later step and
 call.  All the captures of one `GraphCache` (a body's variants, such as
 Heun's step with and without its corrector, and the bodies of other keys)
 share one memory pool.  The wrappers of the CUDA kernels count
-each replay's launches (`ops._build.count_launch`).
+each replay's launches (`ops._build.count_launch`).  Each capture is a
+span, `graphs.capture`, and its seconds go into the counter
+`graphs.capture_s` (`utils/profiling.py`); no span opens inside a body.
 
 `GraphCache` keys the captures by what JAX would retrace on: the structure,
 shapes and dtypes of the inputs and the static flags, and also by the
@@ -51,6 +53,7 @@ from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from diffab_pytorch_tpu_torch.ops import _build
+from diffab_pytorch_tpu_torch.utils.profiling import count, span
 
 _disabled = 0
 
@@ -174,7 +177,6 @@ class StepGraphs:
         self.device = _tensor_leaves(self.inputs)[0].device
         self.cache = cache
         self.graphs: dict = {}  # variant -> (graph, launch tally, captured outputs)
-        self.capture_s = 0.0  # seconds spent capturing
         self.pool_bytes = 0  # device memory the pool grew by in this entry's captures
         self.replays = 0
 
@@ -204,17 +206,21 @@ class StepGraphs:
         current.wait_stream(side)
         for t in _tensor_leaves(outputs):
             t.record_stream(current)
+        # entering the capture synchronises the card anyway; waiting here
+        # keeps the eager warm-up's drain out of the capture's seconds
+        torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with _build.capturing() as tally, torch.cuda.graph(
-                graph, pool=self.cache.pool(), capture_error_mode="thread_local"):
-            reserved = torch.cuda.memory_reserved(self.device)
-            captured = body(self.inputs)
-            grown = torch.cuda.memory_reserved(self.device) - reserved
+        with span("graphs.capture"):
+            graph = torch.cuda.CUDAGraph()
+            with _build.capturing() as tally, torch.cuda.graph(
+                    graph, pool=self.cache.pool(), capture_error_mode="thread_local"):
+                reserved = torch.cuda.memory_reserved(self.device)
+                captured = body(self.inputs)
+                grown = torch.cuda.memory_reserved(self.device) - reserved
         self.pool_bytes += grown
         self.cache.pool_bytes += grown
         self.graphs[variant] = (graph, dict(tally), captured)
-        self.capture_s += time.perf_counter() - t0
+        count("graphs.capture_s", time.perf_counter() - t0)
         return outputs
 
 

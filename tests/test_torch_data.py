@@ -49,6 +49,7 @@ from diffab_pytorch_tpu_torch.structure.patch import load_patch
 from diffab_pytorch_tpu_torch.train import checkpoint as ckpt
 from diffab_pytorch_tpu_torch.train.harness import DiffAb
 from diffab_pytorch_tpu_torch.train.trainer import fit
+from diffab_pytorch_tpu_torch.utils import profiling as tprofiling
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 HOSTILE = os.path.join(FIXTURES, "ab2_hostile.pdb")
@@ -375,9 +376,11 @@ def test_pool_train_step_is_the_train_step_on_its_rows(patch_dir):
 def test_prefetch_loader_yields_the_host_batches(patch_dir):
     ds = tdataset.PatchDataset.from_dir(patch_dir)
     plain = list(ds.batches(2, seed=1, epochs=2))
+    batches0 = tprofiling.counters().get("loader.batches", 0)
     loader = PrefetchLoader(ds.batches(2, seed=1, epochs=2), "cpu", prefetch=2)
     got = list(loader)
-    assert len(got) == len(plain) == 4 and len(loader.batch_seconds) == 4
+    assert len(got) == len(plain) == 4
+    assert tprofiling.counters()["loader.batches"] - batches0 == 4
     for (a, ai), (b, bi) in zip(got, plain):
         assert_same_batch(a, b)
         np.testing.assert_array_equal(ai.center, bi.center)
