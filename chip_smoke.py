@@ -205,8 +205,13 @@ FAST_RECIPES = (
 
 # K1's bf16 kernels (csrc/ipa_fused_layer_bf16.cuh), by profiler name
 K1_LAUNCHES = ("layer_heads_kernel", "out_proj_kernel")
-K1_DESIGN = ("two launches on head-major weights, every product on the tensor cores "
-             "(mma.sync, cp.async). 1: one block of 8 warps per (head, design): the head's Q/K/V "
+K1_DESIGN = ("two launches on head-major weights, every product on the tensor cores. bf16 "
+             "with at least two (head, design) items per SM (L <= 128, ds = 32, P = 8): launch 1 "
+             "persistent, one block per SM walking head-major items, a producer warp loading "
+             "x, frames and the resident W_h by cp.async and mbarriers, two consumer "
+             "warpgroups each on its own item with wgmma products (projection, logits, "
+             "P [v_s|v_p]) and operands, softmax and features in registers. Otherwise "
+             "(mma.sync, cp.async) 1: one block of 8 warps per (head, design): the head's Q/K/V "
              "projection kept on chip, frames and augmented operands in shared memory, each "
              "warp's 16 x L logits and float32 softmax in registers, P [v_s|v_p] from register "
              "fragments, inverse frames and norms, per-head features out. 2: the output "
@@ -969,11 +974,14 @@ def sampling_main_path(torch, card, compute_dtype, n_calls, tag, L=L_MAIN,
         return sample(model, sched, tables, target, n_designs=n_designs,
                       generator=torch.Generator(device="cuda").manual_seed(seed), **opts)
 
+    if tag == "[main]" and compute_dtype == "bfloat16":
+        check_persistent_path(torch, tag)
     t0 = time.perf_counter()
     run(10)
     torch.cuda.synchronize()
     print(f"{tag} warm-up sample() {time.perf_counter() - t0:.2f} s")
     op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
+    paths0 = k1_paths()
     call_s = []
     for i in range(n_calls):
         torch.cuda.synchronize()
@@ -982,6 +990,7 @@ def sampling_main_path(torch, card, compute_dtype, n_calls, tag, L=L_MAIN,
         torch.cuda.synchronize()
         call_s.append(time.perf_counter() - t0)
     launches = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+    paths = k1_paths_since(paths0)
     t_seq = timestep_schedule(opts.get("t_start", dcfg.T), opts.get("n_steps"),
                               opts.get("step_schedule", "uniform"),
                               opts.get("step_schedule_p", 0.5), opts.get("n_fine_tail"))
@@ -992,10 +1001,19 @@ def sampling_main_path(torch, card, compute_dtype, n_calls, tag, L=L_MAIN,
           f"{len(t_seq)} steps {opts}) in {mcfg.compute_dtype}: "
           f"{', '.join(f'{c:.4f}' for c in call_s)} s; median {n_designs / wall:.2f} designs/s "
           f"on {card}; ipa_fused_layer launches {launches[0]} ({launches[0] / n_calls:g} per "
-          f"call), ipa_attention launches {launches[1]} (expected {expected[0]}, {expected[1]})")
+          f"call), ipa_attention launches {launches[1]} (expected {expected[0]}, {expected[1]}); "
+          f"K1 launch-1 paths {paths}")
     if launches != expected:
         raise RuntimeError(f"main path launched (fused layer, attention core) {launches} times, "
                            f"expected {expected}")
+    heads = mcfg.n_head
+    if op.takes_persistent(torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32,
+                           n_designs, L, mcfg.d_residue_emb, heads, mcfg.d_scalar_per_head,
+                           mcfg.n_query_point_per_head, op._sm_count(torch.device("cuda"))):
+        items = launches[0] * n_designs * heads
+        if paths["items"] != items or paths["fallback_calls"]:
+            raise RuntimeError(f"{tag}: K1's launches did not all take the persistent launch 1: "
+                               f"{paths}, expected {items} items")
     ctx = ~target.generation_mask[0]
     checks = {
         "finite": bool(torch.isfinite(out.translations).all()
@@ -2141,6 +2159,65 @@ def k_launches():
     from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
 
     return op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches
+
+
+K1_PATHS = ("ipa_layer.items", "ipa_layer.items_overlapped", "ipa_layer.fallback_calls")
+
+
+def k1_paths():
+    """The port's counters of K1's bf16 launch-1 paths so far (items and
+    overlapped items of the persistent kernel, calls of the per-item one)."""
+    from diffab_pytorch_tpu_torch.utils import profiling
+
+    c = profiling.counters()
+    return tuple(c.get(n, 0) for n in K1_PATHS)
+
+
+def k1_paths_since(before):
+    return dict(zip(("items", "overlapped", "fallback_calls"),
+                    (a - b for a, b in zip(k1_paths(), before))))
+
+
+# (b, bp, L, d, h, bias dtype, masked keys, seed) of check_persistent_path
+PERSISTENT_CASES = (
+    (N_DESIGNS, 1, L_MAIN, 128, 8, "bfloat16", 0, 60),  # the main sampling call
+    (N_DESIGNS, 1, 77, 128, 8, "float32", 9, 61),  # odd L: element-wise frames and stores
+    (N_DESIGNS, N_DESIGNS, L_MAIN, 128, 8, "bfloat16", 0, 62),  # a bias a design
+    (N_DESIGNS, N_DESIGNS, 77, 128, 8, "float32", 9, 63),
+    (N_DESIGNS, 1, L_MAIN, 128, 4, "bfloat16", 0, 64),  # a tp rank's 4 heads: 512 items
+    (N_DESIGNS, 1, L_MAIN, 64, 8, "bfloat16", 0, 65),  # a narrower x row
+)
+
+
+def check_persistent_path(torch, tag):
+    """K1's persistent launch 1 against the plain version on the card
+    (PERSISTENT_CASES: the main sampling shape, b = 128, bp = 1, L = 128,
+    bf16 bias; L = 77, odd, with element-wise frame loads and attn stores, a
+    float32 bias and 9 padded keys; both again with a bias for each design,
+    b = bp = 128; 4 heads; d = 64), with check_layer's bf16 tolerances; each
+    call must have taken the persistent path (the counters: b h items, all
+    but one per SM overlapped, no call of the per-item kernel).  Returns the
+    largest error."""
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+
+    worst = 0.0
+    n_sm = op._sm_count(torch.device("cuda"))
+    with torch.no_grad():
+        for b, bp, L, d, h, bias_dtype, n_masked, seed in PERSISTENT_CASES:
+            a = layer_inputs(torch, b, bp, L, d, h, 32, 8, torch.bfloat16,
+                             getattr(torch, bias_dtype), seed, n_masked)
+            before = k1_paths()
+            worst = max(worst, check_layer(
+                torch, f"{tag} persistent launch 1 (b={b} bp={bp} L={L} d={d} h={h} bias "
+                f"{bias_dtype})", a, bf16=True))
+            got = k1_paths_since(before)
+            items = b * h
+            want = dict(items=items, overlapped=items - min(items, n_sm), fallback_calls=0)
+            print(f"{tag} K1 paths of that call: {got} (expected {want}, {n_sm} SMs)")
+            if got != want:
+                raise RuntimeError(f"{tag} K1 at b={b} bp={bp} L={L} d={d} h={h} did not take "
+                                   f"the persistent launch 1: {got}")
+    return worst
 
 
 def zero_launches():
@@ -3574,6 +3651,7 @@ def rest_corpus(torch, card, tmp):
     from diffab_pytorch_tpu_torch import config as C
     from diffab_pytorch_tpu_torch.cli import sample as sample_cli
     from diffab_pytorch_tpu_torch.cli import train as train_cli
+    from diffab_pytorch_tpu_torch.data import loader as loader_mod
     from diffab_pytorch_tpu_torch.data.synthetic import write_combo_corpus
     from diffab_pytorch_tpu_torch.train import checkpoint as ckpt
     from diffab_pytorch_tpu_torch.train.harness import DiffAb
@@ -3602,8 +3680,19 @@ def rest_corpus(torch, card, tmp):
     ck = os.path.join(tmp, "combo_ck")
     rec = StepRecorder(DiffAb.make_train_step)
     log = io.StringIO()
+    # the worst case for the loader's copy stream: the next default-priority
+    # stream of PyTorch's pool is the one graph captures run on
+    capture, taken = align_stream_pool(torch)
+    loaders = []
+    init = loader_mod.PrefetchLoader.__init__
+
+    def recorded(self, *a, **k):
+        init(self, *a, **k)
+        loaders.append(self._stream)
+
     try:
         DiffAb.make_train_step = lambda self, *a, **k: rec(self, *a, **k)
+        loader_mod.PrefetchLoader.__init__ = recorded
         zero_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(log):
@@ -3613,6 +3702,11 @@ def rest_corpus(torch, card, tmp):
         train_s = time.perf_counter() - t0
     finally:
         DiffAb.make_train_step = rec.factory
+        loader_mod.PrefetchLoader.__init__ = init
+    print(f"{tag} stream pool advanced by {taken} so that its next default-priority stream is "
+          f"the graph capture stream; cli.train's loaders' copy streams: priorities "
+          f"{[s.priority for s in loaders]}, the capture stream among them "
+          f"{any(s == capture for s in loaders)}")
     steps = tuple(sum(c["launches"][i] for c in rec.calls) for i in range(2))
     launches = {"rest/corpus": steps}
     pcfg = C.production_config()
@@ -3634,6 +3728,7 @@ def rest_corpus(torch, card, tmp):
         "model_config": ckpt.load_model_config(ck) == pcfg.model,
         "losses_finite": all(map(math.isfinite, losses)),
         "train_launches": steps == (layer_calls(pcfg.model, REST_CLI_STEPS), 0),
+        "loader_stream": bool(loaders) and not any(s == capture for s in loaders),
         "sample_rc": src == 0, "designs": designs == [f"design_{i:04d}.pdb" for i in range(16)],
         "sample_launches": launches["rest/corpus_sample"] == (
             layer_calls(pcfg.model, pcfg.diffusion.T), 0),
@@ -3650,6 +3745,24 @@ def rest_corpus(torch, card, tmp):
             print(f"{tag} {line}")
         raise RuntimeError(f"{tag} the compositional corpus path failed: {checks}")
     return launches
+
+
+def align_stream_pool(torch):
+    """Take streams from PyTorch's pool of default-priority streams (32,
+    handed out round-robin; `torch.cuda.Stream()` takes the next) until the
+    next one is `torch.cuda.graph`'s capture stream, made here if no capture
+    has made it yet.  Returns (the capture stream, streams taken)."""
+    capture = torch.cuda.graph.default_capture_stream
+    if capture is None:
+        capture = torch.cuda.graph.default_capture_stream = torch.cuda.Stream()
+    for taken in range(1, 33):
+        if torch.cuda.Stream() == capture:
+            break
+    else:
+        raise RuntimeError("the graph capture stream is not in the default-priority pool")
+    for _ in range(31):
+        torch.cuda.Stream()
+    return capture, taken + 31
 
 
 def rest_phase(torch, card, tmp, train_rate, designs_rate):
@@ -3721,15 +3834,19 @@ def graph_sample(torch, card, tag, sched, tables, compute_dtype, n_designs, L, m
     target = synthetic_batch(0, 1, L, mcfg.n_atoms, n_generate=N_GENERATE, device="cuda")
     walls = {False: [], None: []}
 
+    paths = {}  # K1's launch-1 path counters of the last call, eager (False) / graphed (None)
+
     def run(graphs, seed=7, timed=False):
         torch.cuda.synchronize()
         zero_launches()
+        before = k1_paths()
         t0 = time.perf_counter()
         out = sampler.sample(net, sched, tables, target, n_designs=n_designs, graphs=graphs,
                              generator=torch.Generator(device="cuda").manual_seed(seed), **opts)
         torch.cuda.synchronize()
         if timed:
             walls[graphs].append(time.perf_counter() - t0)
+        paths[graphs] = k1_paths_since(before)
         return out, k_launches()
 
     def equal(a, b):
@@ -3746,12 +3863,14 @@ def graph_sample(torch, card, tag, sched, tables, compute_dtype, n_designs, L, m
         cache = sampler.chain_graphs(net)
         torch.cuda.reset_peak_memory_stats()
         (g2, k_replay), (g3, _) = run(None, timed=True), run(None, timed=True)
+        paths_replay = paths[None]
         peak[None] = torch.cuda.max_memory_allocated() / 1e9
         e2, _ = run(False, timed=True)
         checks = {"eager_twice": equal(e1, e2), "graphed_first": equal(g1, e1),
                   "graphed_replays": equal(g2, e1) and equal(g3, e1),
                   "launches": k_first == k_replay == k_eager
-                  and (k1_per_call is None or k_replay[0] == k1_per_call)}
+                  and (k1_per_call is None or k_replay[0] == k1_per_call),
+                  "k1_paths": paths_replay == paths[False]}
         if other_weights:
             init_parameters(net, torch.Generator().manual_seed(1))  # new values, same tensors
             checks["other_weights"] = equal(run(None, 8)[0], run(False, 8)[0])
@@ -3760,7 +3879,8 @@ def graph_sample(torch, card, tag, sched, tables, compute_dtype, n_designs, L, m
           f"that captured, two replays against the first eager call"
           + (", a graphed call with other weights in the same tensors against its eager call"
              if other_weights else "")
-          + f"); launches K1, K2 graphed {k_first} / {k_replay}, eager {k_eager}")
+          + f"); launches K1, K2 graphed {k_first} / {k_replay}, eager {k_eager}; K1 launch-1 "
+          f"paths a replay {paths_replay}, an eager call {paths[False]}")
     if not all(checks.values()):
         raise RuntimeError(f"{tag} graphed sample() against eager failed: {checks}")
     wall_e, wall_g = min(walls[False]), min(walls[None])
@@ -4102,6 +4222,7 @@ def graph_phase(torch, card):
                                                   tables, *args, **kw)
     # [main-f32], [main-256] and the [fast] recipes' graphed calls are
     # profiled in their own phases above, on these shapes
+    check_persistent_path(torch, "[graph]")
     out = {"main bfloat16": run("[main] bfloat16", "bfloat16", N_DESIGNS, L_MAIN,
                                 k1_per_call=600, other_weights=True),
            "main float32": run("[main] float32", "float32", N_DESIGNS, L_MAIN, k1_per_call=600,
@@ -4186,8 +4307,11 @@ def kernel_times(torch, card, pb, h=8):
             print(f"[time] ipa_fused_layer{heads} {label} shape, its launches: not measured "
                   f"(the profiler reported no device time)")
             continue
-        print(f"[time] ipa_fused_layer{heads} {label} shape, profiler over 20 queued calls "
-              f"({tl['calls_seen']} seen): " + ", ".join(
+        path = ("persistent" if op.takes_persistent(torch.bfloat16, b, L_MAIN, 128, h, 32, 8,
+                                                     op._sm_count(torch.device("cuda")))
+                else "one block per (head, design)")
+        print(f"[time] ipa_fused_layer{heads} {label} shape, launch 1 {path}, profiler over 20 "
+              f"queued calls ({tl['calls_seen']} seen): " + ", ".join(
             f"{n} {'not measured' if tl[n] is None else f'{tl[n]:.4f} ms'}"
             for n in K1_LAUNCHES)
             + f"; {tl['events_per_call']:.2f} device events per call, {tl['kernels_ms']:.4f} ms "

@@ -35,6 +35,14 @@
 //      tensor-core GEMM.
 //   bfloat16 (ipa_fused_layer_bf16.cuh): mma.sync m16n8k16, bf16 operands
 //     and f32 accumulation, which gives exactly the rounding points above.
+//     With at least two (head, design) items per SM at L <= 128 and the
+//     default head widths (ds = 32, P = 8), launch 1 is instead
+//     tc_pp::persistent_layer_heads_kernel (ipa_fused_layer_persistent.cuh):
+//     one block per SM walks the items, a producer warp loads ahead, two
+//     consumer warpgroups take an item each, products on wgmma and every
+//     phase between them in registers; the same rounding points and
+//     outputs.  The wrapper chooses (ops/ipa_fused_layer.py
+//     takes_persistent) and passes the number of blocks.
 //   float32 (ipa_fused_layer_f32.cuh): 3xTF32 on mma.sync m16n8k8, every
 //     product (projection, logits, weighted sums, output GEMM) as three
 //     tf32 products of split operands, float32-exact to the 1e-4 checks;
@@ -79,7 +87,9 @@
 //
 // Limits: ds + 3 P <= 64; for these every L, d and h fit the shared
 // memory a block may use (227 KB): at most ~167 KB for bf16 and ~120 KB
-// for float32 (layer_dims of each header, chunk_dims).
+// for float32 (layer_dims of each header, chunk_dims).  The persistent
+// launch 1 takes d up to 128 (persistent_dims: 226,432 bytes at d = 128);
+// wider rows take the per-item kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,6 +98,7 @@
 #include "ipa_attention_tc.cuh"
 #include "ipa_fused_layer_bf16.cuh"
 #include "ipa_fused_layer_f32.cuh"
+#include "ipa_fused_layer_persistent.cuh"
 
 #include <initializer_list>
 
@@ -238,24 +249,44 @@ int run_f32(const void* x, const void* rot, const void* trans, const void* mask,
   return cudaGetLastError();
 }
 
+// persistent_blocks > 0: launch 1 is tc_pp::persistent_layer_heads_kernel on
+// that many blocks (the wrapper's choice, ops/ipa_fused_layer.py
+// takes_persistent); 0: tc::layer_heads_kernel, one block per (head, design)
 template <typename TB>
 int run_bf16(const void* x, const void* rot, const void* trans, const void* mask,
              const void* w_qkv, const void* w_out, const float* g, const void* bias,
              void* feat, void* acc, void* attn, void* opnd, int b, int bp, int L, int d, int h,
-             int ds, int p, float scale_total, float nk_scale, cudaStream_t stream) {
+             int ds, int p, float scale_total, float nk_scale, int persistent_blocks,
+             cudaStream_t stream) {
   const bool chunked = L > ipa_tc::MAX_L;
   tc::Dims D = tc::layer_dims(chunked ? CHUNK : L, d, h, ds, p);
   D.L = L;
-  auto heads = chunked ? tc::layer_heads_kernel<TB, true> : tc::layer_heads_kernel<TB, false>;
-  cudaError_t err = ptx::allow_dynamic_smem(heads, D.total);
-  if (err != cudaSuccess) return err;
-  const int x_vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  heads<<<dim3(h, b, (L + CHUNK - 1) / CHUNK), tc::THREADS, D.total, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(rot),
-      static_cast<const bf16*>(trans), static_cast<const bf16*>(mask),
-      static_cast<const bf16*>(w_qkv), g, static_cast<const TB*>(bias),
-      static_cast<bf16*>(feat), static_cast<bf16*>(attn), D, b / bp, scale_total, nk_scale,
-      x_vec, static_cast<bf16*>(opnd));
+  cudaError_t err;
+  if (persistent_blocks > 0) {
+    const tc_pp::Dims P = tc_pp::persistent_dims(L, d, h);
+    auto heads = tc_pp::persistent_layer_heads_kernel<TB>;
+    if ((err = ptx::allow_dynamic_smem(heads, P.total)) != cudaSuccess) return err;
+    bool frames_vec = L % 8 == 0;
+    for (const void* t : {rot, trans, mask})
+      frames_vec = frames_vec && reinterpret_cast<uintptr_t>(t) % 16 == 0;
+    heads<<<persistent_blocks, tc_pp::THREADS, P.total, stream>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(rot),
+        static_cast<const bf16*>(trans), static_cast<const bf16*>(mask),
+        static_cast<const bf16*>(w_qkv), g, static_cast<const TB*>(bias),
+        static_cast<bf16*>(feat), static_cast<bf16*>(attn), P, b, b / bp, scale_total,
+        nk_scale, frames_vec);
+  } else {
+    auto heads =
+        chunked ? tc::layer_heads_kernel<TB, true> : tc::layer_heads_kernel<TB, false>;
+    if ((err = ptx::allow_dynamic_smem(heads, D.total)) != cudaSuccess) return err;
+    const int x_vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    heads<<<dim3(h, b, (L + CHUNK - 1) / CHUNK), tc::THREADS, D.total, stream>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(rot),
+        static_cast<const bf16*>(trans), static_cast<const bf16*>(mask),
+        static_cast<const bf16*>(w_qkv), g, static_cast<const TB*>(bias),
+        static_cast<bf16*>(feat), static_cast<bf16*>(attn), D, b / bp, scale_total, nk_scale,
+        x_vec, static_cast<bf16*>(opnd));
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (chunked && (err = run_attend<bf16, TB>(opnd, rot, trans, bias, feat, attn, b, bp, L, h,
                                              ds, p, scale_total, stream)) != cudaSuccess)
@@ -274,6 +305,14 @@ bool shape_ok(int b, int bp, int L, int d, int h, int ds, int p) {
          ds + 3 * p <= ipa_tc::MAX_FV;
 }
 
+// the shapes tc_pp::persistent_layer_heads_kernel takes (ipa_fused_layer.py
+// takes_persistent adds the count of items against the card's SMs)
+bool persistent_ok(int L, int d, int h, int ds, int p, const void* x) {
+  return L <= ipa_tc::MAX_L && ds == tc_pp::DS && p == tc_pp::P && d % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         tc_pp::persistent_dims(L, d, h).total <= tc_pp::SMEM_LIMIT;
+}
+
 }  // namespace
 
 extern "C" {
@@ -284,13 +323,17 @@ extern "C" {
 // operands, ipa_fused_layer_scratch_elems elements of the compute dtype
 // (unread otherwise).  Returns a cudaError_t (0 on success);
 // cudaErrorInvalidValue for shapes the kernel does not take.
+// persistent_blocks > 0 runs launch 1 as the persistent kernel on that many
+// blocks (bf16 and its shapes only), 0 as one block per (head, design).
 int ipa_fused_layer_forward(int dtype, int bias_dtype, const void* x, const void* rot,
                             const void* trans, const void* mask, const void* w_qkv,
                             const void* w_out, const float* g, const void* bias, void* feat,
                             void* acc, void* attn, void* opnd, int b, int bp, int L, int d,
                             int h, int ds, int p, float scale_total, float nk_scale,
-                            void* stream) {
+                            int persistent_blocks, void* stream) {
   if (!shape_ok(b, bp, L, d, h, ds, p)) return cudaErrorInvalidValue;
+  if (persistent_blocks > 0 && (dtype != 1 || !persistent_ok(L, d, h, ds, p, x)))
+    return cudaErrorInvalidValue;
   const bool chunked = L > ipa_tc::MAX_L;
   for (const void* t : {w_qkv, w_out, static_cast<const void*>(feat), chunked ? opnd : w_qkv})
     if (reinterpret_cast<uintptr_t>(t) % 16) return cudaErrorMisalignedAddress;  // cp.async
@@ -309,10 +352,10 @@ int ipa_fused_layer_forward(int dtype, int bias_dtype, const void* x, const void
     return cudaErrorInvalidValue;
   if (bias_dtype == 1)
     return run_bf16<bf16>(x, rot, trans, mask, w_qkv, w_out, g, bias, feat, acc, attn, opnd,
-                          b, bp, L, d, h, ds, p, scale_total, nk_scale, s);
+                          b, bp, L, d, h, ds, p, scale_total, nk_scale, persistent_blocks, s);
   if (bias_dtype == 0)
     return run_bf16<float>(x, rot, trans, mask, w_qkv, w_out, g, bias, feat, acc, attn, opnd,
-                           b, bp, L, d, h, ds, p, scale_total, nk_scale, s);
+                           b, bp, L, d, h, ds, p, scale_total, nk_scale, persistent_blocks, s);
   return cudaErrorInvalidValue;
 }
 

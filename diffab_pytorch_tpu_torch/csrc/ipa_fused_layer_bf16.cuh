@@ -33,7 +33,9 @@
 // logits, softmax, attn store, weighted sums, epilogue) with barriers
 // between them, and only 16 warps per SM (two blocks of 8) are there to
 // hide the waits on loads and shared memory.  More warps in flight need
-// less shared memory and fewer registers per block than this layout.
+// less shared memory and fewer registers per block than this layout.  With
+// many items a call, ipa_fused_layer_persistent.cuh's kernel takes launch 1
+// instead (two items in flight per SM, wgmma, the phases in registers).
 //
 // Weight layouts (ops/ipa_fused_layer.py pack_layer_weights, the one
 // head-major layout that both product routes read):

@@ -3,7 +3,8 @@ copies (`diffab_pytorch_tpu/data/loader.py`).
 
 A worker thread pulls host batches (CPU tensors, `PatchDataset.batches`)
 from the iterator, puts them in page-locked memory and issues their copy
-to the card with non_blocking=True on a CUDA stream of its own, up to
+to the card with non_blocking=True on a CUDA stream of its own (a
+high-priority one, which no graph capture uses), up to
 `prefetch` batches ahead of the consumer, so that assembly and copy
 overlap the current step.  Each batch carries an event recorded after its
 copy: the consumer's stream waits on it before the batch is used, and
@@ -49,8 +50,13 @@ class PrefetchLoader:
         self._q: queue.Queue = queue.Queue(maxsize=max(1, prefetch))
         self._stop = threading.Event()
         self._done = False
-        self._stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
-                        else None)
+        # a high-priority stream: PyTorch hands out its streams round-robin
+        # from a pool of 32 per priority, and a graph capture (`torch.cuda.graph`
+        # captures on a default-priority stream of that pool) must never share
+        # the worker's stream, or the worker's copies and events would join
+        # the capture and the consumer's wait on them fail
+        self._stream = (torch.cuda.Stream(self.device, priority=-1)
+                        if self.device.type == "cuda" else None)
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 

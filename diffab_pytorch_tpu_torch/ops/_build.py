@@ -30,8 +30,9 @@ build_logs: dict[str, str] = {}
 # callables (kernel name, output tensors) that every wrapper runs after a
 # launch: the debug mode's check of the kernels' outputs (`utils/debug.py`)
 launch_checks: list = []
-# {counted wrapper: launches} of the CUDA graph being captured, None outside
-# a capture (`utils/graphs.py` opens it with `capturing`)
+# {counted wrapper: launches, counter name: value} of the CUDA graph being
+# captured, None outside a capture (`utils/graphs.py` opens it with
+# `capturing`)
 _tally: dict | None = None
 
 
@@ -118,10 +119,23 @@ def count_launch(counted, name: str, *outputs) -> None:
     launched(name, *outputs)
 
 
+def count(name: str, value: float = 1) -> None:
+    """Book `value` to the port's counter `name` (`utils/profiling.py
+    count`) for a launch, as `count_launch` books the launch: outside a
+    capture at once; inside one into the graph's tally, which each replay
+    adds to the counter (`replayed`)."""
+    if _tally is not None:
+        _tally[name] = _tally.get(name, 0) + value
+        return
+    from diffab_pytorch_tpu_torch.utils import profiling
+
+    profiling.count(name, value)
+
+
 @contextlib.contextmanager
 def capturing():
-    """While a CUDA graph is captured: yields the {wrapper: launches} tally
-    that `launched` fills."""
+    """While a CUDA graph is captured: yields the {wrapper: launches,
+    counter name: value} tally that `count_launch` and `count` fill."""
     global _tally
     if _tally is not None:
         raise RuntimeError("a graph capture is already in progress")
@@ -133,6 +147,10 @@ def capturing():
 
 
 def replayed(tally: dict) -> None:
-    """Count the launches of one replay of a graph captured with `tally`."""
+    """Count the launches and counters of one replay of a graph captured
+    with `tally`."""
     for counted, n in tally.items():
-        counted.launches += n
+        if isinstance(counted, str):
+            count(counted, n)
+        else:
+            counted.launches += n

@@ -25,6 +25,11 @@ the graph, and every replay adds it to the count.
 Patches longer than 128 residues run in chunks of 128 rows and keys, with
 the augmented operands in a device scratch the wrapper allocates
 (`scratch_elems`).
+In bf16 with many (head, design) items, launch 1 is a persistent kernel of
+one block per SM (`takes_persistent`, `csrc/ipa_fused_layer_persistent.cuh`);
+each such launch books `ipa_layer.items` and `ipa_layer.items_overlapped`
+to the port's counters (`utils/profiling.py`), and each other bf16 call up
+to 128 residues `ipa_layer.fallback_calls`, graph replays included.
 Under autograd the launch sits in a `torch.autograd.Function` whose
 backward differentiates the plain version on the saved inputs, as
 `_bwd_layer` differentiates `_layer_core_jnp`; the weights are packed
@@ -88,6 +93,56 @@ def check_kernel_shape(L: int, d: int, h: int, ds: int, p: int) -> None:
                          f"ds={ds}, P={p}")
     if ds + 3 * p > 64:
         raise ValueError(f"the kernel takes ds + 3P <= 64, got ds + 3P = {ds + 3 * p}")
+
+
+# The persistent launch 1 (csrc/ipa_fused_layer_persistent.cuh): built for
+# ds = 32 scalar columns and P = 8 points a head (each q / k / v part and its
+# three augmented columns in 64, each point's coordinates in one thread); its
+# two items' shared memory fits a block's up to d = 128 (226,432 bytes,
+# `tc_pp::persistent_dims`; the kernel's entry refuses wider rows)
+PERSISTENT_WIDTHS = (32, 8)
+PERSISTENT_MAX_D = 128
+_sm_counts: dict = {}
+
+
+def takes_persistent(dtype: torch.dtype, b: int, L: int, d: int, h: int, ds: int, p: int,
+                     n_sm: int, x_aligned: bool = True) -> bool:
+    """Whether launch 1 is the persistent kernel: bf16, L <= 128, the head
+    widths it is built for, 16-byte rows of x (d % 8 == 0, x aligned) up to
+    d = 128, and at least two (head, design) items per SM, so that every
+    block holds two in flight.  Otherwise it is one block per item.  The
+    count is a floor, not the crossover: on an H100 at 256 items (training's
+    b = 32) the persistent kernel took 0.024 ms against 0.041 (PERF.md
+    section 6)."""
+    return (dtype == torch.bfloat16 and L <= 128 and (ds, p) == PERSISTENT_WIDTHS
+            and d % 8 == 0 and d <= PERSISTENT_MAX_D and x_aligned and b * h >= 2 * n_sm)
+
+
+def persistent_counts(items: int, grid: int) -> tuple:
+    """(ipa_layer.items, ipa_layer.items_overlapped) of one persistent
+    launch: each block walks a contiguous range of the items
+    (`tc_pp::block_items`), and every item but each block's first has a
+    predecessor in its block."""
+    return items, items - min(items, grid)
+
+
+def book_path(persistent_blocks: int, items: int) -> None:
+    """Book one bf16 call up to 128 residues to the port's counters, as its
+    launch is booked (through a graph's tally inside a capture)."""
+    if persistent_blocks:
+        n, overlapped = persistent_counts(items, persistent_blocks)
+        _build.count("ipa_layer.items", n)
+        _build.count("ipa_layer.items_overlapped", overlapped)
+    else:
+        _build.count("ipa_layer.fallback_calls")
+
+
+def _sm_count(dev: torch.device) -> int:
+    """The card's SMs, read once per device."""
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _sm_counts:
+        _sm_counts[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _sm_counts[i]
 
 
 def scratch_elems(dtype: torch.dtype, b: int, L: int, h: int, ds: int, p: int) -> int:
@@ -234,7 +289,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("ipa_fused_layer")
     if lib.ipa_fused_layer_forward.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ipa_fused_layer_forward.argtypes = [i, i] + [p] * 12 + [i] * 7 + [f, f, p]
+        lib.ipa_fused_layer_forward.argtypes = [i, i] + [p] * 12 + [i] * 7 + [f, f, i, p]
         lib.ipa_fused_layer_forward.restype = ctypes.c_int
         lib.ipa_fused_layer_scratch_elems.argtypes = [i] * 6
         lib.ipa_fused_layer_scratch_elems.restype = ctypes.c_longlong
@@ -260,15 +315,23 @@ def _launch(x, rot, trans, mask, wts, bias, scale_total):
             raise RuntimeError("operand scratch size disagrees with the kernel's")
         scratch = torch.empty(n_scratch, dtype=dt, device=dev)
         ptrs[-1] = scratch.data_ptr()
+    persistent = 0
+    if dt == torch.bfloat16 and L <= 128:
+        n_sm = _sm_count(dev)
+        if takes_persistent(dt, b, L, d, h, ds, p, n_sm, x.data_ptr() % 16 == 0):
+            persistent = n_sm
     with torch.cuda.device(dev):
         err = lib.ipa_fused_layer_forward(
             _DTYPE_CODE[dt], _DTYPE_CODE[bias.dtype], *ptrs,
             b, bias.shape[0], L, d, h, ds, p, float(scale_total),
-            float(-_NEG_INF / float(scale_total)), torch.cuda.current_stream(dev).cuda_stream)
+            float(-_NEG_INF / float(scale_total)), persistent,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         msg = lib.ipa_fused_layer_error_string(err).decode()
         raise RuntimeError(f"ipa_fused_layer kernel launch failed: {msg} ({err})")
     _build.count_launch(fused_ipa_layer_packed, "ipa_fused_layer", acc, attn)
+    if dt == torch.bfloat16 and L <= 128:
+        book_path(persistent, b * h)
     return acc, attn
 
 

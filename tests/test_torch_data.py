@@ -398,6 +398,25 @@ def test_prefetch_loader_yields_the_host_batches(patch_dir):
         sharded.close()
 
 
+def test_prefetch_loader_copies_on_a_high_priority_stream(monkeypatch):
+    """On a card the loader's copy stream is a high-priority one: PyTorch
+    hands out default-priority streams round-robin from a pool of 32, and
+    `torch.cuda.graph` captures on one of them, so a default-priority copy
+    stream can be the capture stream, and the worker's copies and events
+    then join a capture."""
+    made = []
+
+    def stream(device, priority=0):
+        made.append((torch.device(device), priority))
+        return object()
+
+    monkeypatch.setattr(torch.cuda, "Stream", stream)
+    loader = PrefetchLoader(iter([]), "cuda")
+    assert list(loader) == []
+    loader.close()
+    assert made == [(torch.device("cuda"), -1)]
+
+
 def test_prefetch_loader_raises_the_worker_error_and_closes():
     def failing():
         yield "first"

@@ -289,3 +289,90 @@ def test_shape_gate_accepts_the_port_shapes(shape):
 def test_shape_gate_rejects_what_the_kernel_does_not_take(shape):
     with pytest.raises(ValueError):
         k1.check_kernel_shape(*shape)
+
+
+# ---- the persistent launch 1 (csrc/ipa_fused_layer_persistent.cuh) ------------------
+# The production sampling call: b = 128 designs of one target, h = 8 heads, on
+# an H100's 132 SMs
+H100_SMS = 132
+
+
+def test_persistent_counts_of_the_production_call():
+    """b = 128, h = 8 on 132 blocks: 1,024 items in ranges of 7 or 8, so 892
+    items that have a predecessor in their block: 87.109375%."""
+    items, overlapped = k1.persistent_counts(128 * 8, H100_SMS)
+    assert (items, overlapped) == (1024, 892)
+    assert 100 * overlapped / items == pytest.approx(87.109375)
+
+
+@pytest.mark.parametrize("items,grid,overlapped", [(264, 132, 132), (1024, 264, 760),
+                                                   (131, 132, 0), (2048, 132, 1916)])
+def test_persistent_counts_are_items_less_one_per_block(items, grid, overlapped):
+    assert k1.persistent_counts(items, grid) == (items, overlapped)
+
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("case,expected", [
+    # the production design chain: 1,024 items
+    (dict(b=128, L=128), True),
+    # its shorter patches (rows pad to 128)
+    (dict(b=128, L=77), True),
+    (dict(b=128, L=1), True),
+    # the training step at b = bp = 32 and sample_sharded's b = 8: too few items
+    (dict(b=32, L=128), False),
+    (dict(b=8, L=128), False),
+    # tp ranks: h = 4 at b = 128 has 512 items, h = 2 only 256
+    (dict(b=128, L=128, h=4), True),
+    (dict(b=128, L=128, h=2), False),
+    # exactly two items per SM, and one fewer
+    (dict(b=33, L=128), True),
+    (dict(b=33, L=128, n_sm=133), False),
+    # beyond 128 residues: the chunked path
+    (dict(b=128, L=129), False),
+    # float32: the 3xTF32 route
+    (dict(b=128, L=128, dtype=torch.float32), False),
+    # other head widths, the widest ds + 3P = 64 among them
+    (dict(b=128, L=128, ds=8, p=4), False),
+    (dict(b=128, L=128, ds=1, p=21), False),
+    # widths of x: d % 8, x's alignment, and the shared-memory budget (d <= 128)
+    (dict(b=128, L=128, d=30), False),
+    (dict(b=128, L=128, x_aligned=False), False),
+    (dict(b=128, L=128, d=136), False),
+    (dict(b=128, L=128, d=64), True),
+    (dict(b=128, L=128, d=120), True),
+])
+def test_persistent_dispatch_rule(case, expected):
+    kw = dict(dtype=BF16, b=128, L=128, d=128, h=8, ds=32, p=8, n_sm=H100_SMS, x_aligned=True)
+    kw.update(case)
+    got = k1.takes_persistent(kw["dtype"], kw["b"], kw["L"], kw["d"], kw["h"], kw["ds"],
+                              kw["p"], kw["n_sm"], kw["x_aligned"])
+    assert got is expected
+
+
+def test_counters_book_through_graph_tallies_and_replays():
+    """Each bf16 call up to 128 rows books its path to the port's counters as
+    its launch is booked: outside a capture at once, inside one into the
+    graph's tally (nothing counted yet), and once more at every replay."""
+    from diffab_pytorch_tpu_torch.ops import _build
+    from diffab_pytorch_tpu_torch.utils import profiling
+
+    names = ("ipa_layer.items", "ipa_layer.items_overlapped", "ipa_layer.fallback_calls")
+    read = lambda: tuple(profiling.counters().get(n, 0) for n in names)
+    start = read()
+    delta = lambda: tuple(a - b for a, b in zip(read(), start))
+    k1.book_path(H100_SMS, 1024)  # a faked persistent launch
+    assert delta() == (1024, 892, 0)
+    k1.book_path(0, 256)  # a faked launch of the per-item kernel
+    assert delta() == (1024, 892, 1)
+    with _build.capturing() as tally:
+        k1.book_path(H100_SMS, 1024)
+        k1.book_path(H100_SMS, 1024)
+        k1.book_path(0, 256)
+    assert delta() == (1024, 892, 1)
+    assert tally == {"ipa_layer.items": 2048, "ipa_layer.items_overlapped": 1784,
+                     "ipa_layer.fallback_calls": 1}
+    for _ in range(3):
+        _build.replayed(tally)
+    assert delta() == (1024 + 3 * 2048, 892 + 3 * 1784, 1 + 3)
