@@ -158,7 +158,14 @@ Phases (any failure raises and the script exits non-zero):
      chord-10, sc early and the training steps, the capture's seconds,
      the pool's size and the peak memory, and the card's reserved memory
      across three fit() runs from new states;
-  18. a `kernels` JSON line, the card line, and the final JSON line.
+  18. [ga]: the official DiffAb network (official_config()): K1 with
+     direction rows against its plain version (b = 100, h = 12, L = 256 in
+     both dtypes; L = 77; b = 128, L = 128 in bf16 off the persistent
+     path) and through its autograd Function, sample() graphed bitwise
+     eager with 600 GA blocks a call, and sample(), score_designs, fit(),
+     `cli.train --official` and `cli.sample --official` on the card
+     (`python3 chip_smoke.py --ga` runs the build and this phase alone);
+  19. a `kernels` JSON line, the card line, and the final JSON line.
 
 The L = 128 kernel times (phase 7) run where they ran before the long-patch
 and few-step phases existed, so that two versions of this script read them
@@ -330,9 +337,11 @@ def device_timeline(torch, fn, iters, names):
     return out
 
 
-def layer_inputs(torch, b, bp, L, d, h, ds, p, dtype, bias_dtype, seed, n_masked):
+def layer_inputs(torch, b, bp, L, d, h, ds, p, dtype, bias_dtype, seed, n_masked,
+                 directions=False):
     """Random fused-layer inputs on the card: orthonormal frames,
-    translations of magnitude ~5, the last n_masked keys padded."""
+    translations of magnitude ~5, the last n_masked keys padded; with
+    `directions`, direction rows packed too (drawn after the others)."""
     from diffab_pytorch_tpu_torch.geometry import so3
     from diffab_pytorch_tpu_torch.ops.ipa_fused_layer import pack_layer_weights
 
@@ -347,6 +356,7 @@ def layer_inputs(torch, b, bp, L, d, h, ds, p, dtype, bias_dtype, seed, n_masked
         w(d, h * p * 3), w(d, h * p * 3), w(d, h * p * 3),
         w(h * ds, d), w(h * p * 3, d), w(h * p, d),
         (f(h).abs() + 0.5).cuda(), scales[0], scales[1], dtype,
+        w_od=w(h * p * 3, d) if directions else None,
     )
     args = dict(
         x=f(b, L, d).to(dtype).cuda(),
@@ -4376,6 +4386,149 @@ def kernel_times(torch, card, pb, h=8):
     return k1_times, k1_f32, k2_times, err_bf16, err_f32
 
 
+GA_MODEL = dict(n_head=12, ipa_block="ga")
+
+
+def ga_patches(tmp, n, L=256):
+    """n synthetic complexes (the family corpus's) as L-residue patch files
+    in tmp; returns their paths."""
+    from diffab_pytorch_tpu_torch.data.synthetic import make_family_pdb
+    from diffab_pytorch_tpu_torch.structure.antibody import from_chains
+    from diffab_pytorch_tpu_torch.structure.patch import featurize_patch, save_patch
+    from diffab_pytorch_tpu_torch.structure.pdb import parse_pdb
+
+    paths = []
+    for i in range(n):
+        patch = featurize_patch(from_chains(parse_pdb(make_family_pdb(i % 8, 100 + i)), "H",
+                                            "L", ["A"]), L)
+        paths.append(os.path.join(tmp, f"ga{i:03d}.npz"))
+        save_patch(paths[-1], patch)
+    return paths
+
+
+def ga_phase(torch, card):
+    """[ga] the official DiffAb network (official_config(): GA blocks of 12
+    heads with point directions, the quaternion rotation head, six CDRs, L =
+    256, float32) on the card.  (a) K1 with direction rows against its plain
+    version: b = 100, h = 12, L = 256 in float32 and bf16 (the chunked path),
+    L = 77 in float32 at d = 30, and b = 128, L = 128 in bf16, where the
+    persistent launch 1 would take the call without direction rows: it must
+    take the per-item kernel (the counters); then the autograd Function with
+    direction rows against autograd of its plain version.  (b) sample()
+    graphed bitwise eager under deterministic algorithms (8 designs, L = 256,
+    T = 100; K1 600 a call) and the `ga.blocks` counter, 600 a call on both.
+    (c) `DiffAb(official_config())` through its entry points: sample()
+    (graphed) of 100 designs of a six-CDR 256-residue patch, score_designs,
+    and fit() for 3 steps at batch 4; then `cli.train --official` 2 steps
+    and `cli.sample --official` from its checkpoint.  Returns the largest
+    K1 error."""
+    from diffab_pytorch_tpu_torch import config as C
+    from diffab_pytorch_tpu_torch.cli import sample as cli_sample
+    from diffab_pytorch_tpu_torch.cli import train as cli_train
+    from diffab_pytorch_tpu_torch.data.dataset import PatchDataset, assemble_batch
+    from diffab_pytorch_tpu_torch.diffusion.orientation import make_orientation_tables
+    from diffab_pytorch_tpu_torch.diffusion.schedule import cosine_variance_schedule
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+    from diffab_pytorch_tpu_torch.structure.patch import load_patch
+    from diffab_pytorch_tpu_torch.train.harness import DiffAb
+    from diffab_pytorch_tpu_torch.train.trainer import fit
+    from diffab_pytorch_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    worst = 0.0
+    with torch.no_grad():
+        for dtype, seed in ((torch.float32, 90), (torch.bfloat16, 91)):
+            worst = max(worst, check_layer(
+                torch, f"[ga] (a) K1 directions {dtype} (b=100 bp=1 L=256 h=12)",
+                layer_inputs(torch, 100, 1, 256, 128, 12, 32, 8, dtype, dtype, seed, 9,
+                             directions=True), bf16=dtype == torch.bfloat16))
+        worst = max(worst, check_layer(
+            torch, "[ga] (a) K1 directions f32 L=77 d=30 (b=8 bp=2 h=12)",
+            layer_inputs(torch, 8, 2, 77, 30, 12, 32, 8, torch.float32, torch.float32, 92, 9,
+                         directions=True), bf16=False))
+        before = k1_paths()
+        worst = max(worst, check_layer(
+            torch, "[ga] (a) K1 directions bf16 (b=128 bp=1 L=128 h=8)",
+            layer_inputs(torch, N_DESIGNS, 1, L_MAIN, 128, 8, 32, 8, torch.bfloat16,
+                         torch.bfloat16, 93, 0, directions=True), bf16=True))
+        got = k1_paths_since(before)
+        print(f"[ga] (a) K1 paths of that call: {got} (the per-item kernel: no items, one call)")
+        if got != dict(items=0, overlapped=0, fallback_calls=1):
+            raise RuntimeError(f"[ga] (a) K1 with direction rows took the persistent path: {got}")
+    la = layer_inputs(torch, 4, 4, L_MAIN, 128, 12, 32, 8, torch.float32, torch.float32, 94, 8,
+                      directions=True)
+    shape = (12, 32, 8, True)
+    layer_fn = lambda impl: (lambda x, wq, wo, g, bias, rot, trans, mask, st: impl(
+        x, rot, trans, mask, op.LayerKernelWeights(wq, wo, g, *shape), bias, st))
+    check_grads(torch, "[ga] (a) K1 directions f32 (b=4 L=128 h=12)",
+                layer_fn(op.fused_ipa_layer_packed), layer_fn(op.fused_ipa_layer_packed_reference),
+                [la["x"], la["wts"].w_qkv, la["wts"].w_out, la["wts"].g, la["bias"]],
+                (la["rot"], la["trans"], la["mask"], la["scale_total"]))
+
+    d = C.default_config().diffusion
+    sched = cosine_variance_schedule(d.T, s=d.s, beta_max=d.beta_max, device="cuda")
+    tables = make_orientation_tables(sched)
+    blocks0 = profiling.counters().get("ga.blocks", 0)
+    graph_sample(torch, card, "[ga] (b)", sched, tables, "float32", 8, 256, model=GA_MODEL,
+                 k1_per_call=600, profile_eager=False, profile_graphed=False)
+    blocks = profiling.counters().get("ga.blocks", 0) - blocks0
+    print(f"[ga] (b) ga.blocks over those 5 calls (eager, graphed, 2 replays, eager): {blocks}")
+    if blocks != 5 * 600:
+        raise RuntimeError(f"[ga] (b) ga.blocks {blocks}, expected {5 * 600}")
+
+    cfg = C.official_config()
+    cdrs = cfg.data.cdrs_to_generate
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = ga_patches(tmp, 8)
+        h = DiffAb(cfg)
+        state = h.init(0)
+        batch = assemble_batch([load_patch(paths[0])], cdrs, device="cuda")[0]
+        gen = torch.Generator(device="cuda")
+        for k in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = h.sample(state.params, batch, generator=gen.manual_seed(k), n_designs=100)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        scores = h.score_designs(state.params, batch, res, generator=gen.manual_seed(9)).score
+        torch.cuda.synchronize()
+        ok = all(bool(torch.isfinite(t).all()) for t in (res.translations, res.orientations,
+                                                         scores))
+        ds = PatchDataset(paths, cdrs_to_generate=cdrs)
+        rows = [b for b, _ in ds.batches(4, shuffle=False, epochs=1)]
+        state = fit(h, rows, max_steps=3, state=state, seed=1)
+        print(f"[ga] (c) official_config(): sample() 100 designs of a six-CDR L=256 patch "
+              f"{wall:.3f} s ({100 / wall:.2f} designs/s, second call), score_designs "
+              f"finite {ok}, fit() to step {state.step} (card: {card})")
+        if not ok or state.step != 3:
+            raise RuntimeError("[ga] (c) the official network's entry points failed")
+        ck = os.path.join(tmp, "ck")
+        rc = cli_train.main(["--data-dir", tmp, "--official", "--max-steps", "2", "-b", "4",
+                             "--val-pct", "0", "--checkpoint-dir", ck])
+        rc = rc or cli_sample.main(["--patch", paths[1], "--checkpoint-dir", ck, "-n", "4",
+                                    "--official", "-o", os.path.join(tmp, "designs")])
+        print(f"[ga] (c) cli.train --official and cli.sample --official: exit {rc}")
+        if rc:
+            raise RuntimeError("[ga] (c) the --official CLIs failed")
+    print(f"[ga] phase {time.perf_counter() - t0:.2f} s; K1 with direction rows: largest "
+          f"error {worst:.3e}")
+    return worst
+
+
+def ga_main() -> int:
+    """`python3 chip_smoke.py --ga`: the build, then the [ga] phase alone."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from diffab_pytorch_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[build] kernels built in {_build.build_all():.2f} s")
+    ga_phase(torch, card_line())
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4590,7 +4743,10 @@ def main() -> int:
     # ---- 17. the compiled step bodies: graphed against eager --------------------------
     graph_phase(torch, card)
 
-    # ---- 18. records ---------------------------------------------------------------
+    # ---- 18. the official DiffAb network --------------------------------------------------
+    ga_phase(torch, card)
+
+    # ---- 19. records ---------------------------------------------------------------
     by_path = lambda i: {path: c[i] for path, c in launches.items()}
     kernels = [{
         "name": "ipa_fused_layer",
@@ -4658,4 +4814,6 @@ if __name__ == "__main__":
         sys.exit(run_clis(sys.argv[2:]))
     if sys.argv[1:2] == ["--tp-worker"]:
         sys.exit(tp_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ga"]:
+        sys.exit(ga_main())
     sys.exit(main())

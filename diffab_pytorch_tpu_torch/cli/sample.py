@@ -37,7 +37,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from diffab_pytorch_tpu_torch.config import default_config, resolve_device, tiny_config
+from diffab_pytorch_tpu_torch.config import (
+    default_config,
+    official_config,
+    resolve_device,
+    tiny_config,
+)
 from diffab_pytorch_tpu_torch.constants import AA_THREE, THREE_TO_ONE
 from diffab_pytorch_tpu_torch.data.dataset import COORD_SCALE, assemble_batch
 from diffab_pytorch_tpu_torch.parallel.dp import sample_fanout_sharded
@@ -68,7 +73,8 @@ def parse_args(argv=None):
     src.add_argument("-a", "--antigen-chain-ids", default=None)
 
     p.add_argument("--checkpoint-dir", required=True)
-    p.add_argument("--cdrs", nargs="+", default=["H3"])
+    p.add_argument("--cdrs", nargs="+", default=None,
+                   help="CDRs to generate (default H3; all six under --official)")
     p.add_argument("-n", "--n-samples", type=int, default=8)
     p.add_argument("--mode", choices=["codesign", "fix-sequence", "fix-structure"],
                    default="codesign")
@@ -104,6 +110,10 @@ def parse_args(argv=None):
                         "the context extent), a float (normalized units) or 'none'")
     p.add_argument("-s", "--seed", type=int, default=0)
     p.add_argument("--tiny", action="store_true")
+    p.add_argument("--official", action="store_true",
+                   help="Start from official_config(), the official DiffAb network (GA blocks "
+                        "of 12 heads, point directions, the quaternion rotation head) "
+                        "designing all six CDRs; a checkpoint's recorded model config wins")
     p.add_argument("-o", "--out-dir", default="designs")
     p.add_argument("--no-idealize", action="store_true",
                    help="Skip the peptide-bond idealization of designed edges")
@@ -230,8 +240,10 @@ def design(args, device, dp_group=None) -> int:
         print("need --patch or --pdb")
         return 2
 
+    cfg = tiny_config() if args.tiny else official_config() if args.official else default_config()
+    if args.cdrs is None:
+        args.cdrs = list(cfg.data.cdrs_to_generate) if args.official else ["H3"]
     batch, norm = assemble_batch([sample_dict], cdrs_to_generate=args.cdrs, device=device)
-    cfg = tiny_config() if args.tiny else default_config()
     saved_model = ckpt_lib.load_model_config(args.checkpoint_dir)
     if saved_model is not None:
         # the recorded architecture: a self-conditioned checkpoint has a

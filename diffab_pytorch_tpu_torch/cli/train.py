@@ -39,6 +39,7 @@ from diffab_pytorch_tpu_torch.config import (
     DiffAbConfig,
     TrainConfig,
     default_config,
+    official_config,
     production_config,
     resolve_device,
     tiny_config,
@@ -55,8 +56,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--data-dir", required=True, help="Directory of preprocessed .npz patches")
-    p.add_argument("--cdrs", nargs="+", default=["H3"],
-                   help="CDRs to generate (subset of H1 H2 H3 L1 L2 L3)")
+    p.add_argument("--cdrs", nargs="+", default=None,
+                   help="CDRs to generate (subset of H1 H2 H3 L1 L2 L3; default H3, all "
+                        "six under --official)")
     p.add_argument("--val-pct", type=float, default=0.1)
     p.add_argument("--no-cache-data", action="store_true",
                    help="Disable the in-RAM normalized-sample cache (~35 KB/sample)")
@@ -67,6 +69,10 @@ def parse_args(argv=None):
                    help="Start from production_config(): dist_atoms=4, d_pair 48, bf16, "
                         "lr 6e-4 warmup + cosine over the run, gradient and update "
                         "clipping, EMA, mode dropout.  Explicit recipe flags still win.")
+    p.add_argument("--official", action="store_true",
+                   help="Start from official_config(): the official DiffAb network (GA "
+                        "blocks of 12 heads with point directions and transitions, the "
+                        "quaternion rotation head), float32, all six CDRs unless --cdrs")
     p.add_argument("-b", "--bsz", type=int, default=None,
                    help="Batch size (default 16; 32 under --production)")
     p.add_argument("-e", "--epochs", type=int, default=60)
@@ -138,8 +144,11 @@ def build_config(args, horizon: int = 0) -> DiffAbConfig:
     (-1 for --dist-atoms) so --production can fill them while explicit
     values win; horizon = the planned optimizer steps (the production
     cosine; 0 = unknown)."""
+    if args.production and args.official:
+        raise SystemExit("--production and --official are two recipes; pick one")
     prod = production_config(steps=max(horizon, 1)) if args.production else None
-    cfg = tiny_config() if args.tiny else prod if prod is not None else default_config()
+    cfg = (tiny_config() if args.tiny else prod if prod is not None
+           else official_config() if args.official else default_config())
 
     def pick(user, prod_value, plain_default):
         if user is not None:
@@ -198,6 +207,8 @@ def main(argv=None) -> int:
 
 
 def train(args, device, dp_group=None) -> int:
+    if args.cdrs is None:
+        args.cdrs = list(official_config().data.cdrs_to_generate) if args.official else ["H3"]
     ds = PatchDataset.from_dir(args.data_dir, cdrs_to_generate=args.cdrs)
     if len(ds) == 0:
         print(f"no .npz patches under {args.data_dir}")

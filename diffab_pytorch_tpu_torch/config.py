@@ -58,6 +58,21 @@ class ModelConfig:
     self_conditioning_sequence: bool = True
     sc_late_fusion: bool = False
     sc_split_trunk: bool = False
+    # The official DiffAb network (Luo et al., NeurIPS 2022, github.com/
+    # luost26/diffab, modules/encoders/ga.py and modules/diffusion/
+    # dpm_full.py): ipa_block "ga" makes every layer a GABlock (the
+    # attention's output zeroed on masked residues, a residual and
+    # LayerNorm, a three-layer ReLU transition, a residual and LayerNorm;
+    # each value point's unit direction o / (|o| + 1e-4) among the
+    # attention's features; to_out's row blocks in the official order
+    # [pair | scalar | points | distances | directions]) and turns the
+    # orientation head's 3-vector v into the rotation of the unit
+    # quaternion (1, v) / |(1, v)| in place of exp(v).
+    ipa_block: str = "ipa"
+
+    def __post_init__(self):
+        if self.ipa_block not in ("ipa", "ga"):
+            raise ValueError(f"ipa_block must be 'ipa' or 'ga', got {self.ipa_block!r}")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -157,6 +172,20 @@ def production_config(steps: int = 12000, batch_size: int = 32,
             grad_clip_norm=1.0, update_clip_rms=1.0, ema_decay=0.999,
             mode_dropout=0.15, seed=seed,
         ),
+    )
+
+
+def official_config() -> DiffAbConfig:
+    """The published DiffAb network as the official code runs it for the
+    joint design of all six CDRs (configs/train/codesign_multicdrs.yml):
+    GA blocks of 12 heads with point directions, the (1, i, j, k) rotation
+    head, d_res 128, d_pair 64, 6 blocks, 32 scalar and 8 query and value
+    point dims a head, float32, T = 100, 256-residue patches; the recipe's
+    batch 16, Adam at lr 1e-4 and gradients clipped to norm 100."""
+    return DiffAbConfig(
+        model=ModelConfig(n_head=12, ipa_block="ga"),
+        data=DataConfig(patch_size=256, cdrs_to_generate=("H1", "H2", "H3", "L1", "L2", "L3")),
+        train=TrainConfig(grad_clip_norm=100.0),
     )
 
 

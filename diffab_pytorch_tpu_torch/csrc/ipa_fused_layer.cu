@@ -13,6 +13,10 @@
 //   attn is written in T; out_s = attn v_s, out_p = attn v_p (T operands)
 //   loc = (out_p - t) @ R^T, nrm = sqrt(|loc|^2 + 1e-8)
 //   acc = [out_s | loc | nrm] (rounded to T) @ [W_s; W_p; W_n]
+//   with direction rows (dir = 1, the official DiffAb block's point
+//   directions): acc = [out_s | loc | nrm | loc / (nrm + 1e-4)] @
+//   [W_s; W_p; W_n; W_d], from the kernels' DIR instantiations; dir = 0
+//   launches the instantiations without the direction code
 //
 // The rounding points are the Pallas kernel's: the augmented operands, the
 // attention weights and the output-projection operands are cast to the
@@ -122,12 +126,12 @@ struct ChunkDims {
   int ts, as, os, warp_bytes, total;
 };
 
-template <typename T> ChunkDims chunk_dims(int L, int h, int ds, int p) {
+template <typename T> ChunkDims chunk_dims(int L, int h, int ds, int p, bool dir = false) {
   ChunkDims D;
   const int fv = ds + 3 * p;
   D.L = L, D.LS = round_up(L, 16), D.h = h, D.ds = ds, D.p = p;
   D.FP = round_up(fv + 3, ptx::is_bf16<T> ? 16 : 8), D.FVP = round_up(fv, 8);
-  D.FH = round_up(ds + 4 * p, 8);
+  D.FH = round_up(ds + (dir ? 7 : 4) * p, 8);
   D.ts = ptx::tile_stride<T>(CHUNK), D.as = ptx::tile_stride<bf16>(CHUNK);
   D.os = ptx::tile_stride<bf16>(D.FVP);
   D.warp_bytes = ptx::is_bf16<T> ? 16 * (D.as * 2 > D.os * 4 ? D.as * 2 : D.os * 4) : 0;
@@ -136,7 +140,7 @@ template <typename T> ChunkDims chunk_dims(int L, int h, int ds, int p) {
   return D;
 }
 
-template <typename T, typename TB>
+template <typename T, typename TB, bool DIR = false>
 __global__ void __launch_bounds__(256, 2)
 attend_kernel(const T* __restrict__ opnd,   // q, k (b, h, FP, LS), v (b, h, FVP, LS)
               const T* __restrict__ rot,    // (b, L, 3, 3)
@@ -195,17 +199,17 @@ attend_kernel(const T* __restrict__ opnd,   // q, k (b, h, FP, LS), v (b, h, FVP
     }
   }
   __syncwarp();
-  ipa_layer::write_features<T>(ot, rstr, cstr, rs + m0 * 9, tr + m0 * 3, rows, D.ds, D.p,
-                               D.FH, feat + ((row_base + m0) * h + hh) * D.FH,
-                               (size_t)h * D.FH, lane);
+  ipa_layer::write_features<T, DIR>(ot, rstr, cstr, rs + m0 * 9, tr + m0 * 3, rows, D.ds, D.p,
+                                    D.FH, feat + ((row_base + m0) * h + hh) * D.FH,
+                                    (size_t)h * D.FH, lane);
 }
 
 template <typename T, typename TB>
 cudaError_t run_attend(const void* opnd, const void* rot, const void* trans,
                        const void* bias, void* feat, void* attn, int b, int bp, int L, int h,
-                       int ds, int p, float scale_total, cudaStream_t stream) {
-  const ChunkDims D = chunk_dims<T>(L, h, ds, p);
-  auto kernel = attend_kernel<T, TB>;
+                       int ds, int p, float scale_total, bool dir, cudaStream_t stream) {
+  const ChunkDims D = chunk_dims<T>(L, h, ds, p, dir);
+  auto kernel = dir ? attend_kernel<T, TB, true> : attend_kernel<T, TB, false>;
   cudaError_t err = ptx::allow_dynamic_smem(kernel, D.total);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(h, b, (L + CHUNK - 1) / CHUNK), 256, D.total, stream>>>(
@@ -221,11 +225,13 @@ cudaError_t run_attend(const void* opnd, const void* rot, const void* trans,
 int run_f32(const void* x, const void* rot, const void* trans, const void* mask,
             const void* w_qkv, const void* w_out, const float* g, const void* bias,
             void* feat, void* acc, void* attn, void* opnd, int b, int bp, int L, int d, int h,
-            int ds, int p, float scale_total, float nk_scale, cudaStream_t stream) {
+            int ds, int p, float scale_total, float nk_scale, bool dir, cudaStream_t stream) {
   const bool chunked = L > ipa_tc::MAX_L;
-  tf32x3::Dims D = tf32x3::layer_dims(chunked ? CHUNK : L, d, h, ds, p);
+  tf32x3::Dims D = tf32x3::layer_dims(chunked ? CHUNK : L, d, h, ds, p, dir);
   D.L = L;
-  auto heads = chunked ? tf32x3::layer_heads_kernel<true> : tf32x3::layer_heads_kernel<false>;
+  auto heads = chunked ? tf32x3::layer_heads_kernel<true>
+               : dir   ? tf32x3::layer_heads_kernel<false, true>
+                       : tf32x3::layer_heads_kernel<false>;
   cudaError_t err = ptx::allow_dynamic_smem(heads, D.total);
   if (err != cudaSuccess) return err;
   const int x_vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
@@ -237,7 +243,8 @@ int run_f32(const void* x, const void* rot, const void* trans, const void* mask,
       x_vec, static_cast<float*>(opnd));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (chunked && (err = run_attend<float, float>(opnd, rot, trans, bias, feat, attn, b, bp, L,
-                                                 h, ds, p, scale_total, stream)) != cudaSuccess)
+                                                 h, ds, p, scale_total, dir, stream)) !=
+                     cudaSuccess)
     return err;
 
   const int M = b * L, NP = round_up(d, 8);
@@ -256,10 +263,10 @@ template <typename TB>
 int run_bf16(const void* x, const void* rot, const void* trans, const void* mask,
              const void* w_qkv, const void* w_out, const float* g, const void* bias,
              void* feat, void* acc, void* attn, void* opnd, int b, int bp, int L, int d, int h,
-             int ds, int p, float scale_total, float nk_scale, int persistent_blocks,
+             int ds, int p, float scale_total, float nk_scale, int persistent_blocks, bool dir,
              cudaStream_t stream) {
   const bool chunked = L > ipa_tc::MAX_L;
-  tc::Dims D = tc::layer_dims(chunked ? CHUNK : L, d, h, ds, p);
+  tc::Dims D = tc::layer_dims(chunked ? CHUNK : L, d, h, ds, p, dir);
   D.L = L;
   cudaError_t err;
   if (persistent_blocks > 0) {
@@ -276,8 +283,9 @@ int run_bf16(const void* x, const void* rot, const void* trans, const void* mask
         static_cast<bf16*>(feat), static_cast<bf16*>(attn), P, b, b / bp, scale_total,
         nk_scale, frames_vec);
   } else {
-    auto heads =
-        chunked ? tc::layer_heads_kernel<TB, true> : tc::layer_heads_kernel<TB, false>;
+    auto heads = chunked ? tc::layer_heads_kernel<TB, true>
+                 : dir   ? tc::layer_heads_kernel<TB, false, true>
+                         : tc::layer_heads_kernel<TB, false>;
     if ((err = ptx::allow_dynamic_smem(heads, D.total)) != cudaSuccess) return err;
     const int x_vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
     heads<<<dim3(h, b, (L + CHUNK - 1) / CHUNK), tc::THREADS, D.total, stream>>>(
@@ -289,7 +297,7 @@ int run_bf16(const void* x, const void* rot, const void* trans, const void* mask
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (chunked && (err = run_attend<bf16, TB>(opnd, rot, trans, bias, feat, attn, b, bp, L, h,
-                                             ds, p, scale_total, stream)) != cudaSuccess)
+                                             ds, p, scale_total, dir, stream)) != cudaSuccess)
     return err;
 
   const int M = b * L, NP = round_up(d, 8);
@@ -324,15 +332,17 @@ extern "C" {
 // (unread otherwise).  Returns a cudaError_t (0 on success);
 // cudaErrorInvalidValue for shapes the kernel does not take.
 // persistent_blocks > 0 runs launch 1 as the persistent kernel on that many
-// blocks (bf16 and its shapes only), 0 as one block per (head, design).
+// blocks (bf16 and its shapes only, no direction rows), 0 as one block per
+// (head, design).  dir = 1: w_out holds direction rows per head and feat
+// FH = ds + 7 P rounded up to 8 columns a head (else ds + 4 P).
 int ipa_fused_layer_forward(int dtype, int bias_dtype, const void* x, const void* rot,
                             const void* trans, const void* mask, const void* w_qkv,
                             const void* w_out, const float* g, const void* bias, void* feat,
                             void* acc, void* attn, void* opnd, int b, int bp, int L, int d,
                             int h, int ds, int p, float scale_total, float nk_scale,
-                            int persistent_blocks, void* stream) {
+                            int persistent_blocks, int dir, void* stream) {
   if (!shape_ok(b, bp, L, d, h, ds, p)) return cudaErrorInvalidValue;
-  if (persistent_blocks > 0 && (dtype != 1 || !persistent_ok(L, d, h, ds, p, x)))
+  if (persistent_blocks > 0 && (dtype != 1 || dir || !persistent_ok(L, d, h, ds, p, x)))
     return cudaErrorInvalidValue;
   const bool chunked = L > ipa_tc::MAX_L;
   for (const void* t : {w_qkv, w_out, static_cast<const void*>(feat), chunked ? opnd : w_qkv})
@@ -344,7 +354,7 @@ int ipa_fused_layer_forward(int dtype, int bias_dtype, const void* x, const void
         (chunked && chunk_dims<float>(L, h, ds, p).total > 232448))
       return cudaErrorInvalidValue;
     return run_f32(x, rot, trans, mask, w_qkv, w_out, g, bias, feat, acc, attn, opnd, b, bp,
-                   L, d, h, ds, p, scale_total, nk_scale, s);
+                   L, d, h, ds, p, scale_total, nk_scale, dir != 0, s);
   }
   if (dtype != 1) return cudaErrorInvalidValue;
   if (tc::layer_dims(rows, d, h, ds, p).total > 232448 ||
@@ -352,10 +362,12 @@ int ipa_fused_layer_forward(int dtype, int bias_dtype, const void* x, const void
     return cudaErrorInvalidValue;
   if (bias_dtype == 1)
     return run_bf16<bf16>(x, rot, trans, mask, w_qkv, w_out, g, bias, feat, acc, attn, opnd,
-                          b, bp, L, d, h, ds, p, scale_total, nk_scale, persistent_blocks, s);
+                          b, bp, L, d, h, ds, p, scale_total, nk_scale, persistent_blocks,
+                          dir != 0, s);
   if (bias_dtype == 0)
     return run_bf16<float>(x, rot, trans, mask, w_qkv, w_out, g, bias, feat, acc, attn, opnd,
-                           b, bp, L, d, h, ds, p, scale_total, nk_scale, persistent_blocks, s);
+                           b, bp, L, d, h, ds, p, scale_total, nk_scale, persistent_blocks,
+                           dir != 0, s);
   return cudaErrorInvalidValue;
 }
 

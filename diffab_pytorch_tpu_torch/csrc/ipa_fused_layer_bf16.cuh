@@ -88,11 +88,12 @@ struct Dims {
   int stage_bytes, post_bytes, total;  // launch 1 dynamic shared memory
 };
 
-inline Dims layer_dims(int L, int d, int h, int ds, int p) {
+// dir: the features carry the point directions (FH = ds + 7 P rounded up)
+inline Dims layer_dims(int L, int d, int h, int ds, int p, bool dir = false) {
   Dims D;
   D.L = L, D.LP = round_up(L, 16), D.d = d, D.h = h, D.ds = ds, D.p = p;
   D.FV = ds + 3 * p, D.FVP = round_up(D.FV, 8), D.FAP = round_up(D.FV + 3, 16);
-  D.NQ = 3 * D.FVP, D.FH = round_up(ds + 4 * p, 8);
+  D.NQ = 3 * D.FVP, D.FH = round_up(ds + (dir ? 7 : 4) * p, 8);
   D.xs = tile_stride<bf16>(KC), D.ws = tile_stride<bf16>(D.NQ);
   D.qs = tile_stride<bf16>(D.FAP), D.vs = tile_stride<bf16>(D.FVP);
   D.ps = D.LP + 4, D.as = D.LP + 8, D.os = tile_stride<bf16>(D.FVP);
@@ -110,8 +111,9 @@ inline Dims layer_dims(int L, int d, int h, int ds, int p) {
 // patch (D made for CHUNK rows, D.L the patch's L), stops after the
 // operands and writes them feature-major to opnd: q, k (b, h, FAP, LS)
 // then v (b, h, FVP, LS), LS = D.L rounded up to 16, padded rows included
-// (finite; their keys get weight 0 in the chunked core)
-template <typename TB, bool CHUNKED = false>
+// (finite; their keys get weight 0 in the chunked core).  DIR: the
+// epilogue writes the point directions too (ipa_fused_layer_features.cuh)
+template <typename TB, bool CHUNKED = false, bool DIR = false>
 __global__ void __launch_bounds__(THREADS, 2)
 layer_heads_kernel(const bf16* __restrict__ x,        // (b, L, d)
                    const bf16* __restrict__ rot,      // (b, L, 3, 3)
@@ -463,9 +465,9 @@ layer_heads_kernel(const bf16* __restrict__ x,        // (b, L, d)
     }
   }
   __syncwarp();
-  ipa_layer::write_features<bf16>(orow, D.os, 1, rs + m0 * 9, ts + m0 * 3, rows, ds, p, D.FH,
-                                  feat + ((row_base + m0) * h + hh) * D.FH, (size_t)h * D.FH,
-                                  lane);
+  ipa_layer::write_features<bf16, DIR>(orow, D.os, 1, rs + m0 * 9, ts + m0 * 3, rows, ds, p,
+                                       D.FH, feat + ((row_base + m0) * h + hh) * D.FH,
+                                       (size_t)h * D.FH, lane);
 }
 
 // ---- launch 2: C (M x N) = A (M x K) @ B (K x NP), bf16 out ---------------------------

@@ -78,11 +78,12 @@ struct Dims {
   int total;         // launch 1 dynamic shared memory (bytes)
 };
 
-inline Dims layer_dims(int L, int d, int h, int ds, int p) {
+// dir: the features carry the point directions (FH = ds + 7 P rounded up)
+inline Dims layer_dims(int L, int d, int h, int ds, int p, bool dir = false) {
   Dims D;
   D.L = L, D.LP = round_up(L, 16), D.d = d, D.h = h, D.ds = ds, D.p = p;
   D.FV = ds + 3 * p, D.FVP = round_up(D.FV, 8), D.FP = round_up(D.FV + 3, 8);
-  D.NQ = 3 * D.FVP, D.FH = round_up(ds + 4 * p, 8);
+  D.NQ = 3 * D.FVP, D.FH = round_up(ds + (dir ? 7 : 4) * p, 8);
   D.ws = tile_stride<float>(D.NQ), D.ts = tile_stride<float>(D.LP);
   D.stage_floats = D.LP * XS + KC * D.ws;
   const int tiles = (2 * D.FP + D.FVP) * D.ts;
@@ -94,8 +95,9 @@ inline Dims layer_dims(int L, int d, int h, int ds, int p) {
 // ---- launch 1 ------------------------------------------------------------------
 // CHUNKED (L > MAX_L): as the bf16 layer's (tc::layer_heads_kernel), the
 // block takes rows row0 .. row0 + CHUNK - 1, stops after the operands and
-// writes them feature-major to opnd: q, k (b, h, FP, LS), v (b, h, FVP, LS)
-template <bool CHUNKED = false>
+// writes them feature-major to opnd: q, k (b, h, FP, LS), v (b, h, FVP, LS).
+// DIR: the epilogue writes the point directions too
+template <bool CHUNKED = false, bool DIR = false>
 __global__ void __launch_bounds__(THREADS, 2)
 layer_heads_kernel(const float* __restrict__ x,        // (b, L, d)
                    const float* __restrict__ rot,      // (b, L, 3, 3)
@@ -311,9 +313,9 @@ layer_heads_kernel(const float* __restrict__ x,        // (b, L, d)
   }
   __syncwarp();
   const int rows = L - m0 < 16 ? L - m0 : 16;
-  ipa_layer::write_features<float>(ot, 1, ts, rs + m0 * 9, tr + m0 * 3, rows, ds, p, D.FH,
-                                   feat + ((row_base + m0) * h + hh) * D.FH, (size_t)h * D.FH,
-                                   lane);
+  ipa_layer::write_features<float, DIR>(ot, 1, ts, rs + m0 * 9, tr + m0 * 3, rows, ds, p,
+                                        D.FH, feat + ((row_base + m0) * h + hh) * D.FH,
+                                        (size_t)h * D.FH, lane);
 }
 
 // ---- launch 2: C (M x N) = A (M x K) @ B (K x NP), float32 ------------------------------

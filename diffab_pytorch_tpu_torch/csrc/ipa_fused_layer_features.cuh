@@ -2,7 +2,10 @@
 // dtype routes, ipa_fused_layer_bf16.cuh and ipa_fused_layer_f32.cuh, and
 // the long-patch attention kernel of ipa_fused_layer.cu): from a warp's
 // weighted sums [out_s | out_p] to the head's features [out_s | loc | nrm]
-// in feat, through the inverse frames and the point norms.
+// in feat, through the inverse frames and the point norms; with DIR (the
+// official DiffAb block's point directions) [out_s | loc | nrm | dir],
+// dir = loc / (nrm + 1e-4).  Without DIR the direction code is compiled
+// out.
 
 #pragma once
 
@@ -14,25 +17,32 @@ namespace ipa_layer {
 
 using namespace ptx;
 
-// The head's features [out_s | loc | nrm | 0 pad] (FH columns) of `rows`
-// rows: inverse frames and point norms of the f32 outputs (feature c of
-// row r at ot[r rstr + c cstr]) with the rows' frames (rs: 9, tr: 3 floats
-// a row); row r goes to feat[r fstride .. + FH - 1] in TO
-template <typename TO>
+// The head's features [out_s | loc | nrm (| dir) | 0 pad] (FH columns) of
+// `rows` rows: inverse frames and point norms of the f32 outputs (feature c
+// of row r at ot[r rstr + c cstr]) with the rows' frames (rs: 9, tr: 3
+// floats a row); row r goes to feat[r fstride .. + FH - 1] in TO
+template <typename TO, bool DIR = false>
 __device__ __forceinline__ void write_features(const float* ot, int rstr, int cstr,
                                                const float* rs, const float* tr, int rows,
                                                int ds, int p, int FH, TO* __restrict__ feat,
                                                size_t fstride, int lane) {
   // lane owns feature columns 2 cp and 2 cp + 1 of every row: out_s (kind
-  // 0), coordinate kc of point pp's loc (1), point pp's norm (2), zero (3)
+  // 0), coordinate kc of point pp's loc (1), point pp's norm (2), zero (3);
+  // with DIR, coordinate kc of point pp's direction (4) before the zeros
   for (int cp = lane; cp < FH / 2; cp += 32) {
     int kind[2], kc[2], pp[2];
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int c = 2 * cp + u, q = c - ds;
       kind[u] = c < ds ? 0 : c < ds + 3 * p ? 1 : c < ds + 4 * p ? 2 : 3;
+      if constexpr (DIR) {
+        if (c >= ds + 4 * p && c < ds + 7 * p) kind[u] = 4;
+      }
       kc[u] = kind[u] == 1 ? q / p : 0;
       pp[u] = kind[u] == 1 ? q - kc[u] * p : kind[u] == 2 ? q - 3 * p : 0;
+      if constexpr (DIR) {
+        if (kind[u] == 4) kc[u] = (q - 4 * p) / p, pp[u] = q - 4 * p - kc[u] * p;
+      }
     }
     for (int r = 0; r < rows; ++r) {
       const float* orr = ot + r * rstr;
@@ -53,6 +63,9 @@ __device__ __forceinline__ void write_features(const float* ot, int rstr, int cs
         const float loc = kc[u] == 0 ? l0 : kc[u] == 1 ? l1 : l2;
         const float sc = orr[(kind[u] == 0 ? 2 * cp + u : 0) * cstr];
         v[u] = kind[u] == 0 ? sc : kind[u] == 1 ? loc : kind[u] == 2 ? sqrtf(nrm + 1e-8f) : 0.f;
+        if constexpr (DIR) {
+          if (kind[u] == 4) v[u] = loc / (sqrtf(nrm + 1e-8f) + 1e-4f);
+        }
       }
       store2<TO>(feat + r * fstride + 2 * cp, v[0], v[1]);
     }

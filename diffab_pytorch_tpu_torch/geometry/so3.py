@@ -76,6 +76,14 @@ def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
+def quaternion_1ijk_to_rotation_matrix(v: torch.Tensor) -> torch.Tensor:
+    """3-vector (..., 3) -> the rotation of the unit quaternion (1, v) /
+    |(1, v)| (the official DiffAb's rotation head); every v is a rotation."""
+    one = torch.ones_like(v[..., :1])
+    q = torch.cat([one, v], dim=-1)
+    return quaternion_to_matrix(q / torch.linalg.norm(q, dim=-1, keepdim=True))
+
+
 def rotation_matrix_to_vector(r: torch.Tensor) -> torch.Tensor:
     """Rotation matrix (..., 3, 3) -> rotation vector axis * angle (..., 3)."""
     q = matrix_to_quaternion(r)

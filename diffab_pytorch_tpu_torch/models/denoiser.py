@@ -3,8 +3,10 @@ covariant coordinate and orientation heads, softplus on gamma, and the
 three self-conditioning variants.
 
 Outputs: translations_eps (b, L, 3) in the global frame, orientations_t0
-(b, L, 3, 3) = exp(v_hat) @ R_t, seq_posterior (b, L, K) = predicted
-p(s_0), and seq_logits.
+(b, L, 3, 3) = exp(v_hat) @ R_t (with `ipa_block="ga"`, the official
+DiffAb's head: U^T @ R_t, U the rotation of the unit quaternion
+(1, v_hat) normalised), seq_posterior (b, L, K) = predicted p(s_0), and
+seq_logits.
 
 Self-conditioning (`ModelConfig.self_conditioning`): the previous step's
 clean-state estimate enters as 3 + K + 1 features per residue (K = 0 with
@@ -155,7 +157,12 @@ class Denoiser(nn.Module):
                             + eps_local[..., 2:3] * r[..., 2, :])
 
         v_eps = self.orientation_head(res_geo)
-        o_eps = so3.vector_to_rotation_matrix(v_eps.to(f32))
+        if cfg.ipa_block == "ga":
+            # the official R_next = R U with R's columns the frame axes:
+            # here the rows are, so the update is U^T R
+            o_eps = so3.quaternion_1ijk_to_rotation_matrix(v_eps.to(f32)).transpose(-1, -2)
+        else:
+            o_eps = so3.vector_to_rotation_matrix(v_eps.to(f32))
         orientations_t0 = so3.compose(o_eps, orientations_t.to(f32))
 
         seq_logits = self.sequence_head(res).to(f32)

@@ -32,6 +32,16 @@ through `copy_to_tp_region` (its gradient summed over tp, as is gamma's,
 of which the rank reads its heads' slice), the partial output (b, L, d) is
 summed over tp by `reduce_from_tp_region`, and the bias row is added once,
 after the sum.
+
+The official DiffAb block (`ModelConfig.ipa_block="ga"`, its
+`modules/encoders/ga.py GABlock`): the layer's output is zeroed on masked
+residues, then x <- LN_1(x + out) and x <- LN_2(x + MLP(x)), the MLP
+Linear-ReLU-Linear-ReLU-Linear at width d; to_out's row blocks come in the
+official order [pair | scalar | points | norms | directions]: each head's
+value points also give their unit directions o / (|o| + 1e-4) (|o| the
+point norm above), on every branch; K1 writes them from its epilogue.  Each GA block books `ga.blocks` to the
+port's counters (through a graph's tally when captured), and its
+residual, LayerNorms and MLP run in the span `ga.transition`.
 """
 
 from __future__ import annotations
@@ -41,9 +51,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diffab_pytorch_tpu_torch.config import ModelConfig
-from diffab_pytorch_tpu_torch.models.layers import Linear
+from diffab_pytorch_tpu_torch.models.layers import LayerNorm, Linear, MLPHead
+from diffab_pytorch_tpu_torch.ops import _build
 from diffab_pytorch_tpu_torch.ops.ipa_attention import fused_ipa_attention_raw
 from diffab_pytorch_tpu_torch.ops.ipa_fused_layer import (
+    DIR_EPS,
     LayerKernelWeights,
     fused_ipa_layer_packed,
     pack_layer_weights,
@@ -53,6 +65,7 @@ from diffab_pytorch_tpu_torch.parallel.mesh import (
     copy_to_tp_region,
     reduce_from_tp_region,
 )
+from diffab_pytorch_tpu_torch.utils.profiling import span
 
 
 def frames_apply(points, rot, trans):
@@ -119,11 +132,34 @@ class InvariantPointAttentionLayer(nn.Module):
             self.to_pair_bias = Linear(dp, h, dt, bias=False)
         self.gamma = nn.Parameter(
             torch.full((h_all,), float(torch.log(torch.expm1(torch.tensor(1.0))))))
-        d_pair_out = h * dp if cfg.use_pair_bias else 0
-        self.to_out = Linear(h * ds + d_pair_out + h * pv * 3 + h * pv, d, dt)
+        self.ga = cfg.ipa_block == "ga"
+        self.to_out = Linear(sum(n for _, n in self.out_layout()), d, dt)
+        if self.ga:
+            self.layer_norm_1 = LayerNorm(d, dt)
+            self.transition = MLPHead(d, d, d, dt)
+            self.layer_norm_2 = LayerNorm(d, dt)
         self.scale_scalar = ds ** -0.5
         self.scale_point = (4.5 * pq) ** -0.5
         self.scale_total = (3 if cfg.use_pair_bias else 2) ** -0.5
+
+    def out_layout(self) -> list:
+        """to_out's input row blocks in order, (name, rows): [scalar | pair |
+        points | norms], the GA block's [pair | scalar | points | norms], and
+        [directions] last in the GA block (no pair block without the pair
+        bias)."""
+        cfg, h = self.cfg, self.n_head
+        pv = cfg.n_value_point_per_head
+        pair = [("pair", h * cfg.d_pair_emb)] if cfg.use_pair_bias else []
+        scalar = [("scalar", h * cfg.d_scalar_per_head)]
+        rows = (pair + scalar if self.ga else scalar + pair) + [("points", h * pv * 3),
+                                                                ("norms", h * pv)]
+        return rows + ([("dirs", h * pv * 3)] if self.ga else [])
+
+    def out_blocks(self, dtype: torch.dtype) -> dict:
+        """to_out's (in, d) kernel in `dtype`, split into the blocks of
+        `out_layout`."""
+        names, sizes = zip(*self.out_layout())
+        return dict(zip(names, torch.split(self.to_out.kernel(dtype), list(sizes))))
 
     def softplus_gamma(self) -> torch.Tensor:
         """softplus(gamma) of the layer's heads, in the compute dtype."""
@@ -136,19 +172,17 @@ class InvariantPointAttentionLayer(nn.Module):
         """(packed fused-layer weights, W_pair (h dp, d), b_row (d,)) in the
         compute dtype — parameters only, so the sampler computes them once."""
         cfg = self.cfg
-        dt, h, ds, dp = cfg.dtype, self.n_head, cfg.d_scalar_per_head, cfg.d_pair_emb
-        p = cfg.n_value_point_per_head
+        dt = cfg.dtype
         gamma = self.softplus_gamma()
-        # to_out rows: [scalar (h ds) | pair (h dp) | points (h p 3) | norms (h p)]
-        W_s, W_pair, W_p, W_n = torch.split(
-            self.to_out.kernel(dt), [h * ds, h * dp, h * p * 3, h * p])
+        W = self.out_blocks(dt)
         packed = pack_layer_weights(
             *(m.kernel(dt) for m in (self.to_q_scalar, self.to_k_scalar,
                                      self.to_v_scalar, self.to_q_point,
                                      self.to_k_point, self.to_v_point)),
-            W_s, W_p, W_n, gamma, self.scale_scalar, self.scale_point, dt,
+            W["scalar"], W["points"], W["norms"], gamma, self.scale_scalar,
+            self.scale_point, dt, w_od=W.get("dirs"),
         )
-        return packed, W_pair.contiguous(), self.to_out.bias.to(dt)
+        return packed, W["pair"].contiguous(), self.to_out.bias.to(dt)
 
     def forward(self, x, pair, rot, trans, residue_mask=None, pair_bias=None,
                 kernel_weights=None):
@@ -156,6 +190,7 @@ class InvariantPointAttentionLayer(nn.Module):
         residue_mask (b, L), pair_bias (bp, h, L, L) precomputed (the
         layer's h heads) or None."""
         cfg = self.cfg
+        x_in = x
         x = copy_to_tp_region(x, self.heads)
         dt = cfg.dtype
         b, L, _ = x.shape
@@ -181,7 +216,8 @@ class InvariantPointAttentionLayer(nn.Module):
         rot, trans = rot.to(dt).contiguous(), trans.to(dt).contiguous()
         if not self.use_kernel:
             acc = self._plain_path(x, pair, rot, trans, residue_mask, pair_bias, n_designs)
-            return reduce_from_tp_region(acc, self.heads) + self.to_out.bias.to(dt)
+            out = reduce_from_tp_region(acc, self.heads) + self.to_out.bias.to(dt)
+            return self._block(x_in, out, residue_mask)
         bias = pair_bias.to(dt).contiguous()
         if cfg.fuse_ipa_layer is False:
             acc, attn, W_pair, b_row = self._attention_core_path(x, rot, trans, mask, bias)
@@ -195,7 +231,20 @@ class InvariantPointAttentionLayer(nn.Module):
         # design-major transpose then moves a (b, L, d) tensor
         op = _pair_rows(attn, pair.to(dt), n_designs) @ W_pair  # (bp, i, n, d)
         acc = acc + op.transpose(1, 2).reshape(b, L, -1)
-        return reduce_from_tp_region(acc, self.heads) + b_row
+        return self._block(x_in, reduce_from_tp_region(acc, self.heads) + b_row, residue_mask)
+
+    def _block(self, x, out, residue_mask):
+        """The layer's output `out` (b, L, d): as it is, or in a GA block the
+        residual, LayerNorm and transition around it from the input x."""
+        if not self.ga:
+            return out
+        _build.count("ga.blocks")
+        with span("ga.transition"):
+            if residue_mask is not None:
+                out = torch.where(residue_mask[..., None], out,
+                                  torch.zeros((), dtype=out.dtype, device=out.device))
+            x = self.layer_norm_1(x.to(out.dtype) + out)
+            return self.layer_norm_2(x + self.transition(x))
 
     def _plain_path(self, x, pair, rot, trans, residue_mask, pair_bias, n_designs):
         """JAX `models/ipa.py:312-389`, the layer without the kernels'
@@ -231,21 +280,30 @@ class InvariantPointAttentionLayer(nn.Module):
         if residue_mask is not None:
             logit = torch.where(residue_mask[:, None, None, :], logit, -1e9)
         attn = torch.softmax(logit, dim=-1)
-        outs = [(attn @ heads(v_s, ds)).transpose(1, 2).reshape(b, L, h * ds)]
+        feats = {"scalar": (attn @ heads(v_s, ds)).transpose(1, 2).reshape(b, L, h * ds)}
         if cfg.use_pair_bias:
-            outs.append(attended_pair_rows(attn, pair.to(dt), n_designs))
+            feats["pair"] = attended_pair_rows(attn, pair.to(dt), n_designs)
         out_p = (attn @ heads(v_p, pv * 3)).transpose(1, 2).reshape(b, L, h, pv, 3)
-        out_p = frames_apply_inverse(out_p, rot, trans)
-        nrm = torch.sqrt((out_p * out_p).sum(dim=-1) + 1e-8)
-        outs += [out_p.reshape(b, L, h * pv * 3), nrm.reshape(b, L, h * pv)]
+        feats.update(self._point_features(frames_apply_inverse(out_p, rot, trans)))
+        outs = [feats[name] for name, _ in self.out_layout()]
         return F.linear(torch.cat(outs, dim=-1), self.to_out.weight.to(dt))
+
+    def _point_features(self, out_p) -> dict:
+        """The points' features from the local value points (b, L, h, P, 3):
+        "points", "norms" and, in the GA block, "dirs", each (b, L, -1)."""
+        b, L = out_p.shape[:2]
+        nrm = torch.sqrt((out_p * out_p).sum(dim=-1) + 1e-8)
+        out = {"points": out_p.reshape(b, L, -1), "norms": nrm.reshape(b, L, -1)}
+        if self.ga:
+            out["dirs"] = (out_p / (nrm[..., None] + DIR_EPS)).reshape(b, L, -1)
+        return out
 
     def _attention_core_path(self, x, rot, trans, mask, bias):
         """JAX `models/ipa.py:283-300`: projections and frames, the
         attention core, the sliced output projection.  Returns (acc without
         the pair term and bias row, attn, W_pair, b_row)."""
         cfg = self.cfg
-        dt, h, ds, dp = cfg.dtype, self.n_head, cfg.d_scalar_per_head, cfg.d_pair_emb
+        dt, h, ds = cfg.dtype, self.n_head, cfg.d_scalar_per_head
         p = cfg.n_value_point_per_head
         b, L, _ = x.shape
         mods = (self.to_q_scalar, self.to_k_scalar, self.to_v_scalar,
@@ -259,13 +317,11 @@ class InvariantPointAttentionLayer(nn.Module):
         out_s_t, attn, out_p = fused_ipa_attention_raw(
             q_s, k_s, v_s, q_p, k_p, v_p, bias, gamma, mask,
             self.scale_scalar, self.scale_point, self.scale_total)
-        W_s, W_pair, W_p, W_n = torch.split(
-            self.to_out.kernel(dt), [h * ds, h * dp, h * p * 3, h * p])
-        acc = out_s_t.reshape(b, h * ds, L).transpose(1, 2) @ W_s  # (b, L, d)
-        out_p = frames_apply_inverse(out_p, rot, trans)
-        nrm = torch.sqrt((out_p * out_p).sum(dim=-1) + 1e-8)
-        acc = acc + out_p.reshape(b, L, h * p * 3) @ W_p + nrm.reshape(b, L, h * p) @ W_n
-        return acc, attn, W_pair, self.to_out.bias.to(dt)
+        W = self.out_blocks(dt)
+        acc = out_s_t.reshape(b, h * ds, L).transpose(1, 2) @ W["scalar"]  # (b, L, d)
+        for name, f in self._point_features(frames_apply_inverse(out_p, rot, trans)).items():
+            acc = acc + f @ W[name]
+        return acc, attn, W["pair"], self.to_out.bias.to(dt)
 
 
 class InvariantPointAttentionModule(nn.Module):

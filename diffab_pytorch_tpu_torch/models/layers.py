@@ -52,3 +52,19 @@ class MLPHead(nn.Module):
         x = torch.relu(self.dense_0(x))
         x = torch.relu(self.dense_1(x))
         return self.dense_2(x)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis with a float32 scale and shift, computed
+    in float32 and returned in `compute_dtype` (the official DiffAb's
+    `modules/common/layers.py LayerNorm`: eps 1e-10 under the root)."""
+
+    def __init__(self, d: int, compute_dtype: torch.dtype, eps: float = 1e-10):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(d))
+        self.bias = nn.Parameter(torch.zeros(d))
+        self.compute_dtype, self.eps = compute_dtype, eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias, self.eps)
+        return y.to(self.compute_dtype)

@@ -8,7 +8,11 @@ Q/K/V projections, rigid frames, augmented-operand logits with the key
 mask riding the contraction, the per-target bias, a float32 softmax, the
 attention weights written in the compute dtype, the weighted sums, the
 inverse frames and point norms, and the W_s / W_p / W_n output
-projections.  Returns (acc (b, L, d), attn (b, h, L, L)).
+projections.  Returns (acc (b, L, d), attn (b, h, L, L)).  With direction
+rows packed (`pack_layer_weights(..., w_od=...)`, the official DiffAb
+block's point directions) the features gain each value point's unit
+direction loc / (nrm + 1e-4) and W_d projects them; without, the kernels
+compile the direction code out.
 
 Weights enter in their native flax column orders; `pack_layer_weights`
 reorders the point columns (h, P, 3) -> (h, 3, P), folds scale_scalar and
@@ -50,18 +54,23 @@ from diffab_pytorch_tpu_torch.ops import _build
 from diffab_pytorch_tpu_torch.ops._recompute import recompute_grads
 
 _NEG_INF = -1e9
+# the point directions loc / (nrm + DIR_EPS) (the official DiffAb
+# normalize_vector's eps), on every branch of models/ipa.py
+DIR_EPS = 1e-4
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 class LayerKernelWeights(NamedTuple):
     """One layer's kernel operands in the compute dtype, head-major (FVP =
-    ds + 3P and FH = ds + 4P rounded up to 8, dP = d rounded up to 8):
+    ds + 3P and FH = ds + 4P, or ds + 7P with directions, rounded up to 8,
+    dP = d rounded up to 8):
 
     w_qkv: (h, d, 3 FVP), per head and input row [q | k | v], each
         [scalar (ds) | points (3, P) | zeros], scale_scalar folded into the
         q scalar columns and g into the q/k point columns;
     w_out: (h FH, dP), per head the rows [W_s (ds) | W_p (3, P) | W_n (P) |
-        zeros], its columns padded with zeros;
+        zeros], with directions [W_s | W_p | W_n | W_d (3, P) | zeros], its
+        columns padded with zeros;
     g: (h,) float32, sqrt(0.5 * scale_point * gamma)."""
 
     w_qkv: torch.Tensor
@@ -70,6 +79,13 @@ class LayerKernelWeights(NamedTuple):
     n_head: int
     d_scalar: int
     n_point: int
+    directions: bool = False
+
+
+def feature_width(ds: int, p: int, directions: bool = False) -> int:
+    """FH: a head's feature columns [out_s | loc | nrm (| dir)], rounded up
+    to 8."""
+    return _round_up(ds + (7 if directions else 4) * p, 8)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -106,16 +122,18 @@ _sm_counts: dict = {}
 
 
 def takes_persistent(dtype: torch.dtype, b: int, L: int, d: int, h: int, ds: int, p: int,
-                     n_sm: int, x_aligned: bool = True) -> bool:
+                     n_sm: int, x_aligned: bool = True, directions: bool = False) -> bool:
     """Whether launch 1 is the persistent kernel: bf16, L <= 128, the head
     widths it is built for, 16-byte rows of x (d % 8 == 0, x aligned) up to
-    d = 128, and at least two (head, design) items per SM, so that every
-    block holds two in flight.  Otherwise it is one block per item.  The
+    d = 128, no direction rows (its epilogue writes FH = 64), and at least
+    two (head, design) items per SM, so that every block holds two in
+    flight.  Otherwise it is one block per item.  The
     count is a floor, not the crossover: on an H100 at 256 items (training's
     b = 32) the persistent kernel took 0.024 ms against 0.041 (PERF.md
     section 6)."""
     return (dtype == torch.bfloat16 and L <= 128 and (ds, p) == PERSISTENT_WIDTHS
-            and d % 8 == 0 and d <= PERSISTENT_MAX_D and x_aligned and b * h >= 2 * n_sm)
+            and d % 8 == 0 and d <= PERSISTENT_MAX_D and x_aligned and not directions
+            and b * h >= 2 * n_sm)
 
 
 def persistent_counts(items: int, grid: int) -> tuple:
@@ -160,13 +178,14 @@ def scratch_elems(dtype: torch.dtype, b: int, L: int, h: int, ds: int, p: int) -
 
 def pack_layer_weights(
     w_qs, w_ks, w_vs, w_qp, w_kp, w_vp, w_os, w_op, w_on,
-    gamma, scale_scalar: float, scale_point: float, dtype: torch.dtype,
+    gamma, scale_scalar: float, scale_point: float, dtype: torch.dtype, w_od=None,
 ) -> LayerKernelWeights:
     """Reorder and pre-scale the native weights (ipa_pallas.py _pallas_layer,
     the weight block) into the head-major layout of `LayerKernelWeights`:
     products are taken in the weights' own dtype, then cast to `dtype`.  A
     permutation plus zero padding, differentiable: gradients reach the
-    native weights and gamma through it."""
+    native weights and gamma through it.  w_od (h P 3, d), the direction
+    rows in W_p's order, packs after W_n; None packs none."""
     d = w_qs.shape[0]
     h = gamma.shape[0]
     ds = w_qs.shape[1] // h
@@ -174,7 +193,8 @@ def pack_layer_weights(
     if w_vp.shape[1] // (h * 3) != p:
         raise ValueError("fused layer kernel assumes equal q/v point counts")
     fv = ds + 3 * p
-    fvp, fh, dp = _round_up(fv, 8), _round_up(ds + 4 * p, 8), _round_up(d, 8)
+    directions = w_od is not None
+    fvp, fh, dp = _round_up(fv, 8), feature_width(ds, p, directions), _round_up(d, 8)
     g = torch.sqrt(0.5 * scale_point * gamma.to(torch.promote_types(gamma.dtype, torch.float32)))
 
     def heads(w_s, w_p, scale_points):  # -> (h, d, FVP) [scalar | points (3, P) | zeros]
@@ -186,11 +206,12 @@ def pack_layer_weights(
 
     w_qkv = torch.cat([heads(w_qs * torch.tensor(scale_scalar, dtype=w_qs.dtype), w_qp, True),
                        heads(w_ks, w_kp, True), heads(w_vs, w_vp, False)], dim=-1)
-    rows = torch.cat([w_os.reshape(h, ds, d),
-                      w_op.reshape(h, p, 3, d).transpose(1, 2).reshape(h, 3 * p, d),
-                      w_on.reshape(h, p, d)], dim=1).to(dtype)
-    w_out = _pad(rows, (0, dp - d, 0, fh - ds - 4 * p)).reshape(h * fh, dp)
-    return LayerKernelWeights(w_qkv.contiguous(), w_out.contiguous(), g.contiguous(), h, ds, p)
+    coords = lambda w: w.reshape(h, p, 3, d).transpose(1, 2).reshape(h, 3 * p, d)
+    rows = torch.cat([w_os.reshape(h, ds, d), coords(w_op), w_on.reshape(h, p, d)]
+                     + ([coords(w_od)] if directions else []), dim=1).to(dtype)
+    w_out = _pad(rows, (0, dp - d, 0, fh - rows.shape[1])).reshape(h * fh, dp)
+    return LayerKernelWeights(w_qkv.contiguous(), w_out.contiguous(), g.contiguous(), h, ds, p,
+                              directions)
 
 
 def fused_ipa_layer_packed_reference(x, rot, trans, mask, wts: LayerKernelWeights,
@@ -248,8 +269,11 @@ def fused_ipa_layer_packed_reference(x, rot, trans, mask, wts: LayerKernelWeight
            + dd[:, :, :, None, 1] * R[:, :, None, :, 1, None]
            + dd[:, :, :, None, 2] * R[:, :, None, :, 2, None])  # (b, L, h, 3, P)
     nrm = torch.sqrt((loc * loc).sum(dim=-2) + 1e-8)  # (b, L, h, P)
-    feat = torch.cat([os_, loc.reshape(b, L, h, 3 * p), nrm], dim=-1).to(dt).to(f32)
-    w_out = wts.w_out.reshape(h, -1, wts.w_out.shape[-1])[:, :ds + 4 * p, :d]
+    parts = [os_, loc.reshape(b, L, h, 3 * p), nrm]
+    if wts.directions:
+        parts.append((loc / (nrm[..., None, :] + DIR_EPS)).reshape(b, L, h, 3 * p))
+    feat = torch.cat(parts, dim=-1).to(dt).to(f32)
+    w_out = wts.w_out.reshape(h, -1, wts.w_out.shape[-1])[:, :feat.shape[-1], :d]
     acc = torch.einsum("blhf,hfd->bld", feat, w_out.to(f32)).to(dt)
     return acc, at
 
@@ -260,7 +284,7 @@ def _check(x, rot, trans, mask, wts, bias):
     dt = x.dtype
     if dt not in _DTYPE_CODE:
         raise TypeError(f"unsupported compute dtype {dt}")
-    fvp, fh = _round_up(ds + 3 * p, 8), _round_up(ds + 4 * p, 8)
+    fvp, fh = _round_up(ds + 3 * p, 8), feature_width(ds, p, wts.directions)
     expect = {
         "rot": (rot, (b, L, 3, 3), dt), "trans": (trans, (b, L, 3), dt),
         "mask": (mask, (b, L), dt),
@@ -289,7 +313,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("ipa_fused_layer")
     if lib.ipa_fused_layer_forward.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ipa_fused_layer_forward.argtypes = [i, i] + [p] * 12 + [i] * 7 + [f, f, i, p]
+        lib.ipa_fused_layer_forward.argtypes = [i, i] + [p] * 12 + [i] * 7 + [f, f, i, i, p]
         lib.ipa_fused_layer_forward.restype = ctypes.c_int
         lib.ipa_fused_layer_scratch_elems.argtypes = [i] * 6
         lib.ipa_fused_layer_scratch_elems.restype = ctypes.c_longlong
@@ -305,7 +329,7 @@ def _launch(x, rot, trans, mask, wts, bias, scale_total):
     dev, dt = x.device, x.dtype
     acc = torch.empty((b, L, d), dtype=dt, device=dev)
     attn = torch.empty((b, h, L, L), dtype=dt, device=dev)
-    feat = torch.empty((b * L, h * _round_up(ds + 4 * p, 8)), dtype=dt, device=dev)
+    feat = torch.empty((b * L, h * feature_width(ds, p, wts.directions)), dtype=dt, device=dev)
     lib = _library()
     args = [x, rot, trans, mask, wts.w_qkv, wts.w_out, wts.g, bias, feat, acc, attn]
     ptrs = [t.data_ptr() for t in args] + [None]
@@ -318,13 +342,14 @@ def _launch(x, rot, trans, mask, wts, bias, scale_total):
     persistent = 0
     if dt == torch.bfloat16 and L <= 128:
         n_sm = _sm_count(dev)
-        if takes_persistent(dt, b, L, d, h, ds, p, n_sm, x.data_ptr() % 16 == 0):
+        if takes_persistent(dt, b, L, d, h, ds, p, n_sm, x.data_ptr() % 16 == 0,
+                            wts.directions):
             persistent = n_sm
     with torch.cuda.device(dev):
         err = lib.ipa_fused_layer_forward(
             _DTYPE_CODE[dt], _DTYPE_CODE[bias.dtype], *ptrs,
             b, bias.shape[0], L, d, h, ds, p, float(scale_total),
-            float(-_NEG_INF / float(scale_total)), persistent,
+            float(-_NEG_INF / float(scale_total)), persistent, int(wts.directions),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         msg = lib.ipa_fused_layer_error_string(err).decode()
@@ -336,8 +361,7 @@ def _launch(x, rot, trans, mask, wts, bias, scale_total):
 
 
 def _packed_reference(x, rot, trans, mask, w_qkv, w_out, g, bias, shape, scale_total):
-    h, ds, p = shape
-    wts = LayerKernelWeights(w_qkv, w_out, g, h, ds, p)
+    wts = LayerKernelWeights(w_qkv, w_out, g, *shape)
     return fused_ipa_layer_packed_reference(x, rot, trans, mask, wts, bias, scale_total)
 
 
@@ -373,8 +397,8 @@ def fused_ipa_layer_packed(x, rot, trans, mask, wts: LayerKernelWeights, bias,
         raise ValueError(f"no fused IPA layer for device {x.device}")
     args = (x, rot, trans, mask, wts.w_qkv, wts.w_out, wts.g, bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return _FusedLayer.apply(*args, (wts.n_head, wts.d_scalar, wts.n_point),
-                                 float(scale_total))
+        return _FusedLayer.apply(*args, (wts.n_head, wts.d_scalar, wts.n_point,
+                                         wts.directions), float(scale_total))
     return _launch(x, rot, trans, mask, wts, bias, scale_total)
 
 

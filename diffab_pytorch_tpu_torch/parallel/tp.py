@@ -66,6 +66,9 @@ def head_shard(cfg: ModelConfig, mesh: Mesh) -> HeadShard | None:
     tp = mesh.shape[TP_AXIS]
     if tp == 1 or cfg.n_head % tp:
         return None
+    if cfg.ipa_block != "ipa":
+        raise ValueError("tensor parallelism splits the bare IPA layer's four to_out blocks; "
+                         "the GA block is not split")
     return HeadShard(mesh.tp_rank, tp, mesh.tp_group)
 
 

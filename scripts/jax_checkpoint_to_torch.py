@@ -61,7 +61,10 @@ def model_config(train_args, jax_dir: str):
     from diffab_pytorch_tpu_torch.config import ModelConfig
 
     cfg = jax_train.build_config(train_args, horizon=train_args.max_steps or train_args.epochs)
-    ported = [f.name for f in dataclasses.fields(ModelConfig)]
+    # the fields both configs have; the port's own (the official network's
+    # options) keep their defaults, the bare network the JAX package runs
+    jax_fields = {f.name for f in dataclasses.fields(JaxModelConfig)}
+    ported = [f.name for f in dataclasses.fields(ModelConfig) if f.name in jax_fields]
     recorded = jax_ckpt.load_model_config(jax_dir)
     if recorded is not None:
         differ = [(k, getattr(cfg.model, k), getattr(recorded, k)) for k in ported

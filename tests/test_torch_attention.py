@@ -52,7 +52,7 @@ def close(actual, expected, atol, rtol=1e-4):
 
 def port_model_config(jcfg):
     names = {f.name for f in dataclasses.fields(tconfig.ModelConfig)}
-    return tconfig.ModelConfig(**{k: getattr(jcfg, k) for k in names})
+    return tconfig.ModelConfig(**{k: getattr(jcfg, k) for k in names if hasattr(jcfg, k)})
 
 
 def perturbed(tree, seed):

@@ -217,7 +217,8 @@ def models():
     params = jax.jit(jm.init)(jax.random.key(0), jb, jb.seq_idx, jb.translations,
                               jb.orientations, jnp.zeros((2,)))
     port_cfg = tconfig.ModelConfig(**{
-        f.name: getattr(jcfg, f.name) for f in dataclasses.fields(tconfig.ModelConfig)})
+        f.name: getattr(jcfg, f.name) for f in dataclasses.fields(tconfig.ModelConfig)
+        if hasattr(jcfg, f.name)})
     tm = load_jax_params(DiffAbModel(port_cfg, device="cpu"), jax.device_get(params))
     return jm, params, jb, tm, ProteinBatch.from_numpy(a)
 

@@ -155,7 +155,9 @@ def test_pack_gives_one_layout_and_gradients_reach_every_native_weight():
     native = _native_weights(3, d, h, ds, p)
     for dtype in (torch.float32, torch.bfloat16):
         wts = k1.pack_layer_weights(*native, *_scales(ds, p)[:2], dtype)
-        assert wts._fields == ("w_qkv", "w_out", "g", "n_head", "d_scalar", "n_point")
+        assert wts._fields == ("w_qkv", "w_out", "g", "n_head", "d_scalar", "n_point",
+                               "directions")
+        assert wts.directions is False  # no direction rows given
         assert wts.w_qkv.shape == (h, d, 3 * _pad8(ds + 3 * p)) and wts.w_qkv.dtype == dtype
         assert wts.w_out.shape == (h * _pad8(ds + 4 * p), _pad8(d)) and wts.w_out.dtype == dtype
         assert wts.g.dtype == torch.float32 and wts.w_qkv.device.type == "cpu"

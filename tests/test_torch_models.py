@@ -45,7 +45,7 @@ ATOL = 2e-4
 def port_model_config(jcfg):
     """The port's ModelConfig with every field it shares with `jcfg`."""
     names = {f.name for f in dataclasses.fields(tconfig.ModelConfig)}
-    return tconfig.ModelConfig(**{k: getattr(jcfg, k) for k in names})
+    return tconfig.ModelConfig(**{k: getattr(jcfg, k) for k in names if hasattr(jcfg, k)})
 
 
 def jax_batch(arrays):

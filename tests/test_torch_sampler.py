@@ -122,7 +122,8 @@ def test_chain_matches_jax(arrays, port_setup):
 
     # --- the port's sampler, same weights, state and draws
     port_cfg = tconfig.ModelConfig(**{
-        f.name: getattr(jcfg, f.name) for f in dataclasses.fields(tconfig.ModelConfig)})
+        f.name: getattr(jcfg, f.name) for f in dataclasses.fields(tconfig.ModelConfig)
+        if hasattr(jcfg, f.name)})
     tm = load_jax_params(DiffAbModel(port_cfg, device="cpu"), jax.device_get(params))
     ts, tt = port_setup
     out = sample(tm, ts, tt, ProteinBatch.from_numpy(arrays), device="cpu",
@@ -218,7 +219,8 @@ def test_sc_t_max_matches_jax(arrays, port_setup, sc_t_max):
                                  uniform=t_(jax.random.uniform(k_bin, (bn, L))),
                                  normal=t_(jax.random.normal(k_gauss, (bn, L)))))
     tm = load_jax_params(DiffAbModel(tconfig.ModelConfig(**{
-        f.name: getattr(jcfg, f.name) for f in dataclasses.fields(tconfig.ModelConfig)}),
+        f.name: getattr(jcfg, f.name) for f in dataclasses.fields(tconfig.ModelConfig)
+        if hasattr(jcfg, f.name)}),
         device="cpu"), params)
     ts, tt = port_setup
     got = sample(tm, ts, tt, ProteinBatch.from_numpy(arrays), device="cpu", n_designs=N,

@@ -113,7 +113,8 @@ def make_designs(arrays, n, seed=1):
 def port_model(setup, fuse):
     cfg = dataclasses.replace(tconfig.ModelConfig(**{
         f.name: getattr(setup["jcfg"], f.name) for f in dataclasses.fields(tconfig.ModelConfig)
-        if f.name != "fuse_ipa_layer"}), fuse_ipa_layer=fuse)
+        if f.name != "fuse_ipa_layer" and hasattr(setup["jcfg"], f.name)}),
+        fuse_ipa_layer=fuse)
     return load_jax_params(DiffAbModel(cfg, device="cpu"), setup["params"])
 
 

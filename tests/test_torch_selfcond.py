@@ -101,7 +101,8 @@ def sc_model_config(variant, **extra):
 
 def port_model_config(jcfg):
     return tconfig.ModelConfig(**{f.name: getattr(jcfg, f.name)
-                                  for f in dataclasses.fields(tconfig.ModelConfig)})
+                                  for f in dataclasses.fields(tconfig.ModelConfig)
+                                  if hasattr(jcfg, f.name)})
 
 
 @pytest.fixture(scope="module")

@@ -93,7 +93,7 @@ def port_config(jcfg, **model):
     """The port's DiffAbConfig with every field it shares with `jcfg`."""
     def sub(cls, obj):
         names = {f.name for f in dataclasses.fields(cls)}
-        return cls(**{k: getattr(obj, k) for k in names})
+        return cls(**{k: getattr(obj, k) for k in names if hasattr(obj, k)})
     return tconfig.DiffAbConfig(
         model=dataclasses.replace(sub(tconfig.ModelConfig, jcfg.model), **model),
         diffusion=sub(tconfig.DiffusionConfig, jcfg.diffusion),

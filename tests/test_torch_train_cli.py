@@ -35,7 +35,8 @@ def one_torch_thread():
 def port_config(jcfg):
     """The port's DiffAbConfig with every field it shares with `jcfg`."""
     def sub(cls, obj):
-        return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)})
+        return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)
+                       if hasattr(obj, f.name)})
     return tconfig.DiffAbConfig(model=sub(tconfig.ModelConfig, jcfg.model),
                                 diffusion=sub(tconfig.DiffusionConfig, jcfg.diffusion),
                                 data=sub(tconfig.DataConfig, jcfg.data),
