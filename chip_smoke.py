@@ -161,8 +161,11 @@ Phases (any failure raises and the script exits non-zero):
   18. [ga]: the official DiffAb network (official_config()): K1 with
      direction rows against its plain version (b = 100, h = 12, L = 256 in
      both dtypes; L = 77; b = 128, L = 128 in bf16 off the persistent
-     path) and through its autograd Function, sample() graphed bitwise
-     eager with 600 GA blocks a call, and sample(), score_designs, fit(),
+     path; float32 at L = 129, 200, 256, 384, b = 100 and b = bp = 32, on
+     the attention path each books) and through its autograd Function,
+     sample() graphed bitwise eager with 600 GA blocks and 600 one-pass
+     attention calls a call, the official call's K1 launches timed
+     (`attend_time`), and sample(), score_designs, fit(),
      `cli.train --official` and `cli.sample --official` on the card
      (`python3 chip_smoke.py --ga` runs the build and this phase alone);
   19. a `kernels` JSON line, the card line, and the final JSON line.
@@ -405,10 +408,22 @@ def check_layer(torch, name, args, bf16: bool):
     column by 0.3, so a few weights per 10^5 differ by far more than one
     bf16 step.  The check: at most 1e-4 of the elements beyond one bf16
     step (2^-8 on weights, 2^-7 of the output scale on acc); a wrong
-    kernel misses on most elements."""
+    kernel misses on most elements.
+
+    float32 beyond 128 residues (the chunked path) is held to the plain
+    version computed in float64, so that the check measures the kernel and
+    not the float32 plain version's own cancellation in |q|^2 + |k|^2 -
+    2 q.k; the 1e-4 rule stays."""
     from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
 
     acc_k, attn_k = op.fused_ipa_layer_packed(**args)
+    exact = not bf16 and args["x"].shape[1] > 128
+    if exact:
+        wts = args["wts"]
+        wts = wts._replace(w_qkv=wts.w_qkv.double(), w_out=wts.w_out.double(),
+                           g=wts.g.double())
+        args = {k: v.double() if torch.is_tensor(v) else v for k, v in args.items()}
+        args["wts"] = wts
     acc_p, attn_p = op.fused_ipa_layer_packed_reference(**args)
     torch.cuda.synchronize()
     d_attn = (attn_k.float() - attn_p.float()).abs()
@@ -421,7 +436,8 @@ def check_layer(torch, name, args, bf16: bool):
     masked_keys = args["mask"][0] == 0  # every design pads the same keys
     padded = (attn_k[..., masked_keys].float().abs().max().item()
               if masked_keys.any() else 0.0)
-    print(f"[parity] {name}: max|d attn| {d_attn.max().item():.3e}, "
+    print(f"[parity] {name}{' (plain version in float64)' if exact else ''}: max|d attn| "
+          f"{d_attn.max().item():.3e}, "
           f"max|d acc| {d_acc.max().item():.3e} = {d_acc.max().item() / scale:.3e} of "
           f"max|acc| {scale:.3e}; share beyond tol (attn {tol_attn:.1e}, acc "
           f"{tol_acc:.1e}): {share_attn:.2e} / {share_acc:.2e} (allowed {allowed:.0e}); "
@@ -2171,12 +2187,15 @@ def k_launches():
     return op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches
 
 
-K1_PATHS = ("ipa_layer.items", "ipa_layer.items_overlapped", "ipa_layer.fallback_calls")
+K1_PATHS = ("ipa_layer.items", "ipa_layer.items_overlapped", "ipa_layer.fallback_calls",
+            "ipa_layer.attend_onepass_calls", "ipa_layer.attend_twopass_calls")
 
 
 def k1_paths():
-    """The port's counters of K1's bf16 launch-1 paths so far (items and
-    overlapped items of the persistent kernel, calls of the per-item one)."""
+    """The port's counters of K1's paths so far: bf16 launch 1 (items and
+    overlapped items of the persistent kernel, calls of the per-item one)
+    and float32's attention beyond 128 residues (calls of the one-pass and
+    of the two-pass core)."""
     from diffab_pytorch_tpu_torch.utils import profiling
 
     c = profiling.counters()
@@ -2184,8 +2203,8 @@ def k1_paths():
 
 
 def k1_paths_since(before):
-    return dict(zip(("items", "overlapped", "fallback_calls"),
-                    (a - b for a, b in zip(k1_paths(), before))))
+    return dict(zip(("items", "overlapped", "fallback_calls", "attend_onepass",
+                     "attend_twopass"), (a - b for a, b in zip(k1_paths(), before))))
 
 
 # (b, bp, L, d, h, bias dtype, masked keys, seed) of check_persistent_path
@@ -2222,7 +2241,8 @@ def check_persistent_path(torch, tag):
                 f"{bias_dtype})", a, bf16=True))
             got = k1_paths_since(before)
             items = b * h
-            want = dict(items=items, overlapped=items - min(items, n_sm), fallback_calls=0)
+            want = dict(items=items, overlapped=items - min(items, n_sm), fallback_calls=0,
+                        attend_onepass=0, attend_twopass=0)
             print(f"{tag} K1 paths of that call: {got} (expected {want}, {n_sm} SMs)")
             if got != want:
                 raise RuntimeError(f"{tag} K1 at b={b} bp={bp} L={L} d={d} h={h} did not take "
@@ -3921,7 +3941,7 @@ def graph_sample(torch, card, tag, sched, tables, compute_dtype, n_designs, L, m
                eager_busy=busy_e, graph_busy=busy_g, eager_events=ev_e, graph_events=ev_g,
                eager_idle=idle(busy_e, wall_e), graph_idle=idle(busy_g, wall_g),
                capture_s=capture_s, pool_gb=cache.pool_bytes / 1e9, eager_peak_gb=peak[False],
-               graph_peak_gb=peak[None], k1_profiler=seen)
+               graph_peak_gb=peak[None], k1_profiler=seen, k1_paths=paths_replay)
     print(f"{tag}: designs/s eager {out['eager_rate']:.3f}, graphed {out['graph_rate']:.3f} "
           f"({out['graph_rate'] / out['eager_rate']:.2f}x; calls eager "
           f"{', '.join(f'{w:.4f}' for w in walls[False])} s, graphed "
@@ -4406,6 +4426,90 @@ def ga_patches(tmp, n, L=256):
     return paths
 
 
+# (L, b, bp, d, h, ds, P, seed) of ga_long_checks at the official heads: a
+# chunk that is mostly padding, a ragged chunk, two whole chunks and three
+# chunks, each at the sampler's fan-out (b = 100 designs of one target) and
+# at a bias a design (b = bp = 32)
+GA_LONG_CASES = tuple((L, b, bp, 128, 12, 32, 8, 95 + 2 * i + (bp > 1))
+                      for i, L in enumerate((129, 200, 256, 384))
+                      for b, bp in ((100, 1), (32, 32)))
+# the same at other head widths, where the one-pass kernel takes its slices
+# at run time: narrow heads, and the widest (ds + 3P = 64) at its longest
+# one-pass L
+ONEPASS_WIDTH_CASES = ((200, 8, 2, 30, 3, 8, 4, 105), (256, 8, 2, 20, 2, 1, 21, 106))
+
+
+def ga_long_checks(torch):
+    """[ga] (a) K1 float32 with direction rows at the official heads (h =
+    12, d = 128, ds 32, P 8) beyond 128 residues against its plain version
+    (in float64, check_layer), 9 padded keys, GA_LONG_CASES, and at other
+    head widths (ONEPASS_WIDTH_CASES); each call must book the attention
+    path `attend_path` names (one pass up to L = 272 at the default widths,
+    two beyond).  Returns the largest error."""
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+
+    worst = 0.0
+    with torch.no_grad():
+        for L, b, bp, d, h, ds, p, seed in GA_LONG_CASES + ONEPASS_WIDTH_CASES:
+            before = k1_paths()
+            worst = max(worst, check_layer(
+                torch, f"[ga] (a) K1 directions f32 (b={b} bp={bp} L={L} d={d} h={h} ds={ds} "
+                f"P={p})",
+                layer_inputs(torch, b, bp, L, d, h, ds, p, torch.float32, torch.float32,
+                             seed, 9, directions=True), bf16=False))
+            got = k1_paths_since(before)
+            onepass = op.attend_path(torch.float32, L, ds, p) == op.ATTEND_ONEPASS
+            want = dict(items=0, overlapped=0, fallback_calls=0, attend_onepass=int(onepass),
+                        attend_twopass=int(not onepass))
+            print(f"[ga] (a) K1 paths of that call: {got} (expected {want})")
+            if got != want:
+                raise RuntimeError(f"[ga] (a) K1 f32 at L={L} booked {got}, expected {want}")
+    return worst
+
+
+def attend_time(torch, card, iters=20):
+    """[time] K1 float32 with direction rows at the official cell's call (b =
+    100, bp = 1, h = 12, L = 256, d = 128, ds 32, P 8): the whole call by CUDA
+    events (queued behind a sleep) and its three launches apart by the
+    profiler, the attention launch (`attend_kernel` in its name) beside the
+    bound of its products and of its compulsory bytes.  Uses nothing that an
+    older checkout of the port lacks, so that two trees' kernels can be
+    timed by this one function in one call.  Returns the readings."""
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+
+    b, bp, L, h, ds, p = 100, 1, 256, 12, 32, 8
+    names = ("layer_heads_kernel", "attend_kernel", "out_proj_kernel")
+    with torch.no_grad():
+        a = layer_inputs(torch, b, bp, L, 128, h, ds, p, torch.float32, torch.float32, 98, 0,
+                         directions=True)
+        kern = lambda: op.fused_ipa_layer_packed(**a)
+        km = cuda_time_ms(kern, iters)
+        tl = device_timeline(torch, kern, iters, names)
+        km2 = cuda_time_ms(kern, iters)
+    # the core's products (logits over the ds + 3P + 3 augmented features,
+    # weighted sums over ds + 3P) and its compulsory bytes: attn written,
+    # the operand scratch (FP = 64, FVP = 56 rows) read once, the features
+    # written (FH = 88)
+    fv = ds + 3 * p
+    fp, fvp, fh = -(-(fv + 3) // 8) * 8, -(-fv // 8) * 8, -(-(ds + 7 * p) // 8) * 8
+    flops = 2 * b * h * L * L * (2 * fv + 3)
+    n_bytes = 4 * (b * h * L * L + b * h * (2 * fp + fvp) * L + b * L * h * fh)
+    bnd, by, t_o, t_b = bound_ms(flops, n_bytes, "float32")
+    att = tl and tl["attend_kernel"]
+    out = dict(call_ms=min(km, km2), launch_ms=tl and {n: tl[n] for n in names},
+               attend_bound_ms=bnd)
+    print(f"[time] K1 f32 directions b={b} bp={bp} L={L} h={h} on {card}: the call "
+          f"{km:.4f} / {km2:.4f} ms (CUDA events, {iters} calls queued behind a sleep); "
+          + ("its launches: not measured (the profiler reported no device time)" if tl is None
+             else "its launches (profiler, " + str(tl["calls_seen"]) + " calls seen): "
+             + ", ".join(f"{n} {'not measured' if tl[n] is None else f'{tl[n]:.4f} ms'}"
+                         for n in names))
+          + f"; the attention launch's bound {bnd:.4f} ms ({flops / 1e9:.2f} GFLOP at the "
+          f"3xTF32 rate -> {t_o:.4f} ms, {n_bytes / 1e6:.1f} MB -> {t_b:.4f} ms; bound by {by})"
+          + ("" if not att else f", {bnd / att:.2%} of it"))
+    return out
+
+
 def ga_phase(torch, card):
     """[ga] the official DiffAb network (official_config(): GA blocks of 12
     heads with point directions, the quaternion rotation head, six CDRs, L =
@@ -4413,10 +4517,13 @@ def ga_phase(torch, card):
     version: b = 100, h = 12, L = 256 in float32 and bf16 (the chunked path),
     L = 77 in float32 at d = 30, and b = 128, L = 128 in bf16, where the
     persistent launch 1 would take the call without direction rows: it must
-    take the per-item kernel (the counters); then the autograd Function with
-    direction rows against autograd of its plain version.  (b) sample()
-    graphed bitwise eager under deterministic algorithms (8 designs, L = 256,
-    T = 100; K1 600 a call) and the `ga.blocks` counter, 600 a call on both.
+    take the per-item kernel (the counters); float32 at h = 12 and L = 129,
+    200, 256, 384 (ga_long_checks, each booking its attention path); then
+    the autograd Function with direction rows against autograd of its plain
+    version.  (b) sample() graphed bitwise eager under deterministic
+    algorithms (8 designs, L = 256, T = 100; K1 600 a call, each on the
+    one-pass attention: the counters) and the `ga.blocks` counter, 600 a
+    call on both; then attend_time, the official call's K1 [time] line.
     (c) `DiffAb(official_config())` through its entry points: sample()
     (graphed) of 100 designs of a six-CDR 256-residue patch, score_designs,
     and fit() for 3 steps at batch 4; then `cli.train --official` 2 steps
@@ -4453,8 +4560,10 @@ def ga_phase(torch, card):
                          torch.bfloat16, 93, 0, directions=True), bf16=True))
         got = k1_paths_since(before)
         print(f"[ga] (a) K1 paths of that call: {got} (the per-item kernel: no items, one call)")
-        if got != dict(items=0, overlapped=0, fallback_calls=1):
+        if got != dict(items=0, overlapped=0, fallback_calls=1, attend_onepass=0,
+                       attend_twopass=0):
             raise RuntimeError(f"[ga] (a) K1 with direction rows took the persistent path: {got}")
+    worst = max(worst, ga_long_checks(torch))
     la = layer_inputs(torch, 4, 4, L_MAIN, 128, 12, 32, 8, torch.float32, torch.float32, 94, 8,
                       directions=True)
     shape = (12, 32, 8, True)
@@ -4469,12 +4578,17 @@ def ga_phase(torch, card):
     sched = cosine_variance_schedule(d.T, s=d.s, beta_max=d.beta_max, device="cuda")
     tables = make_orientation_tables(sched)
     blocks0 = profiling.counters().get("ga.blocks", 0)
-    graph_sample(torch, card, "[ga] (b)", sched, tables, "float32", 8, 256, model=GA_MODEL,
-                 k1_per_call=600, profile_eager=False, profile_graphed=False)
+    gs = graph_sample(torch, card, "[ga] (b)", sched, tables, "float32", 8, 256, model=GA_MODEL,
+                      k1_per_call=600, profile_eager=False, profile_graphed=False)
     blocks = profiling.counters().get("ga.blocks", 0) - blocks0
     print(f"[ga] (b) ga.blocks over those 5 calls (eager, graphed, 2 replays, eager): {blocks}")
     if blocks != 5 * 600:
         raise RuntimeError(f"[ga] (b) ga.blocks {blocks}, expected {5 * 600}")
+    attend = {k: gs["k1_paths"][k] for k in ("attend_onepass", "attend_twopass")}
+    print(f"[ga] (b) K1 attention paths a replay: {attend} (expected 600 one-pass calls)")
+    if attend != dict(attend_onepass=600, attend_twopass=0):
+        raise RuntimeError(f"[ga] (b) the L=256 float32 calls took {attend}")
+    attend_time(torch, card)
 
     cfg = C.official_config()
     cdrs = cfg.data.cdrs_to_generate

@@ -33,7 +33,9 @@
 // -1e9 / scale_total in the operands and underflow to exactly 0 as well.
 // Up to MAX_L keys one block holds a whole (design, head) and each warp
 // all its logits (logits .. weighted_sums); longer patches run in query
-// and key chunks of MAX_L (chunked_attention, at the end of this file).
+// and key chunks of MAX_L (chunked_attention; the fused layer's float32
+// calls in one pass over the keys, chunked_attention_onepass, last in this
+// file).
 //
 // Fragment layouts (thread lane, group g = lane / 4, t = lane % 4): the
 // accumulators of an m16n8 tile hold rows g and g + 8, columns 2t and
@@ -502,6 +504,340 @@ __device__ __forceinline__ void chunked_attention(
       }
     }
   }
+}
+
+// ---- float32 beyond MAX_L: one pass over the keys ------------------------------
+// The float32 (3xTF32) route of the chunked core in one pass, for the fused
+// layer's attention launch (ipa_fused_layer.cu onepass_attend_kernel; bf16
+// and K2 keep chunked_attention above).  One block of CHUNK / 16 = 8 warps
+// per (design, head, CHUNK query rows); each warp's 16 rows:
+//   - q: the raw tile lands once (in the strip's space), and each warp keeps
+//     its rows' A fragments split into tf32 big + small in registers;
+//   - keys in chunks of OP_KC = 32 through a ring of two stages by
+//     cp.async: chunk c + 1 is in flight while chunk c is multiplied.  Each
+//     thread splits what it copied in place once it lands (the raw values
+//     in the first half of their span), so K and V are split once per
+//     block, not once per warp that reads them, and laid out so that one
+//     16-byte load gives a fragment's big and small pairs as mma.sync takes
+//     them: K per (8-feature slice, t) row, key by key, [big f | big f + 4 |
+//     small f | small f + 4] (f = 8 slice + t); V per feature row, keys
+//     2j and 2j + 1 as [big | big | small | small];
+//   - each logit once: the 3xTF32 product, bias and scale, the running row
+//     max m and sum l, o and l rescaled by exp(m_old - m_new) when m grows,
+//     p = exp(s - m_new) into the warp's strip rows in shared memory (keys
+//     of the whole patch, 16 x LS floats) with that chunk's m beside it, and
+//     o += p [v_s | v_p] from registers.  The three products of each tile go
+//     out term by term across the chunk's tiles, so that neighbouring
+//     mma.sync instructions feed different accumulators;
+//   - after the last chunk the strip rows go to attn once, each times
+//     exp(m_chunk - m) / l (normalised: the pair-row reduction reads them),
+//     16-byte stores where L % 4 == 0 and attn is 16-byte aligned, and o is
+//     scaled by 1 / l.
+// A chunk past LS (the last of an L with LS % 32 = 16) is zero-filled and
+// computed whole: its keys are >= L, so their weights are 0.  KK and VT,
+// the slices FP / 8 and FVP / 8, are compile-time at the default widths
+// (8, 7), so the products carry no branch; 0 takes them at run time.
+// The strip is what bounds the path: CHUNK x (LS + 8) floats beside the
+// two stages (OnepassDims, ipa_fused_layer.cu), so one block per SM
+// (__launch_bounds__(256, 1), 255 registers a thread: the q fragments live
+// there), and beyond L = 272 at the default widths (256 at the widest) the
+// strip no longer fits and the layer takes the two-pass core.  What bounds
+// it on an H100 (700 W): at the official call (b 100, h 12, L 256) it takes
+// 0.76 ms against 0.19 ms of compulsory bytes (0.11 ms of products at the
+// 3xTF32 rate); a chunk's 1,440 mma.sync of a block would take 2.2k cycles
+// at the card's measured 1.52 cycles an mma an SM, and a chunk takes 6.6k:
+// with 8 warps an SM and a barrier a chunk the loop waits on latency, and a
+// block's q loads, attn stores and epilogue (a third of its time) overlap
+// nothing.
+constexpr int OP_KC = 32;                 // keys of one ring stage
+constexpr int OP_KROW = 4 * (OP_KC + 2);  // floats of a K stage row: 2 mod 8 float4s
+constexpr int OP_VROW = 2 * OP_KC + 16;   // floats of a V stage row: 16 mod 32
+constexpr int OP_QS = CHUNK + 8;          // raw q tile row stride (floats): 8 mod 32
+constexpr int OP_MAX_KK = 9;              // FP / 8 for ds + 3P <= 64 in float32
+constexpr int OP_THREADS = CHUNK / 16 * 32;
+
+// Chunk c of k (FP rows) and v (FVP rows) into a stage (FP / 2 K rows of
+// OP_KROW floats, then FVP V rows of OP_VROW): !SPLIT copies the pieces that
+// exist (keys < LS) by cp.async, raw, into the first half of their spans;
+// SPLIT turns each landed span into its (big, small) layout and zero-fills
+// the spans past LS.  A K span (slice row r, 4 keys) holds features f and
+// f + 4, so one thread copies and splits both.
+template <bool SPLIT>
+__device__ __forceinline__ void onepass_stage(const float* __restrict__ k,
+                                              const float* __restrict__ v, int FP, int FVP,
+                                              int LS, int c, float* stg, int tid) {
+  const int j0 = c * OP_KC, per = (LS - j0 < OP_KC ? LS - j0 : OP_KC) / 4, kr = FP / 2;
+  for (int e = tid; e < (kr + FVP) * (OP_KC / 4); e += OP_THREADS) {
+    const int r = e / (OP_KC / 4), k4 = e % (OP_KC / 4);
+    const bool have = k4 < per;
+    if (r < kr) {
+      float* dst = stg + r * OP_KROW + 16 * k4;
+      if constexpr (!SPLIT) {
+        if (have) {
+          const float* src = k + (size_t)((r / 4) * 8 + r % 4) * LS + j0 + 4 * k4;
+          cp_async16(dst, src);
+          cp_async16(dst + 4, src + 4 * (size_t)LS);
+        }
+      } else {
+        uint4* d = reinterpret_cast<uint4*>(dst);
+        if (!have) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) d[u] = make_uint4(0u, 0u, 0u, 0u);
+          continue;
+        }
+        const float4 a = *reinterpret_cast<const float4*>(dst);
+        const float4 b = *reinterpret_cast<const float4*>(dst + 4);
+        const float fa[4] = {a.x, a.y, a.z, a.w}, fb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          uint32_t ab, as, bb, bs;
+          split_tf32(fa[u], ab, as);
+          split_tf32(fb[u], bb, bs);
+          d[u] = make_uint4(ab, bb, as, bs);
+        }
+      }
+    } else {
+      float* dst = stg + kr * OP_KROW + (r - kr) * OP_VROW + 8 * k4;
+      if constexpr (!SPLIT) {
+        if (have) cp_async16(dst, v + (size_t)(r - kr) * LS + j0 + 4 * k4);
+      } else {
+        uint4* d = reinterpret_cast<uint4*>(dst);
+        if (!have) {
+          d[0] = d[1] = make_uint4(0u, 0u, 0u, 0u);
+          continue;
+        }
+        const float4 x = *reinterpret_cast<const float4*>(dst);
+        uint32_t b[4], s[4];
+        split_tf32(x.x, b[0], s[0]);
+        split_tf32(x.y, b[1], s[1]);
+        split_tf32(x.z, b[2], s[2]);
+        split_tf32(x.w, b[3], s[3]);
+        d[0] = make_uint4(b[0], b[1], s[0], s[1]);
+        d[1] = make_uint4(b[2], b[3], s[2], s[3]);
+      }
+    }
+  }
+}
+
+// Sources feature-major rows of LS floats (LS = L rounded up to 16, 16-byte
+// aligned): q, k (FP rows), v (FVP rows).  Shared memory: strip (CHUNK x
+// ss floats, ss = LS + 8), mrow (CHUNK x nch, nch = LS / OP_KC rounded
+// up), ring (two stages of FP / 2 x OP_KROW + FVP x OP_VROW floats).  Call
+// from every thread of the block: it synchronises the block.  Leaves o =
+// attn [v_s | v_p] of the warp's 16 rows q0 + 16 warp .. (nothing for a
+// warp past LS) with attn written, and the warp's own strip rows free.
+template <int KK, int VT>
+__device__ __forceinline__ void chunked_attention_onepass(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    int FP, int FVP, int LS, int L, const float* __restrict__ bias_h,
+    float* __restrict__ attn_h, bool attn_vec, int q0, float scale_total, float* strip, int ss,
+    float* mrow, int nch, float* ring, int tid, float (&o)[MAX_V_TILES][4]) {
+  constexpr int KT = OP_KC / 8;  // key tiles of a stage
+  constexpr int KKM = KK ? KK : OP_MAX_KK, VTM = VT ? VT : MAX_V_TILES;
+  const int lane = tid % 32, m0 = 16 * (tid / 32), i0 = q0 + m0, g = lane / 4, t = lane % 4;
+  const int QW = LS - q0 < CHUNK ? LS - q0 : CHUNK, n_chunks = (LS + OP_KC - 1) / OP_KC;
+  const int k_floats = FP / 2 * OP_KROW, stage = k_floats + FVP * OP_VROW;
+  const int kk_n = FP / 8, v_tiles = FVP / 8;
+  const bool active = m0 < QW;
+
+  // the raw q tile (FP x QW, stride OP_QS) in the strip's space, with chunk 0
+  for (int e = tid; e < FP * (QW / 4); e += OP_THREADS) {
+    const int f = e / (QW / 4), c4 = e - f * (QW / 4);
+    cp_async16(strip + f * OP_QS + 4 * c4, q + (size_t)f * LS + q0 + 4 * c4);
+  }
+  onepass_stage<false>(k, v, FP, FVP, LS, 0, ring, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  // this warp's q rows as A fragments, split once: rows g, g + 8, k-columns
+  // t, t + 4 of each 8-feature slice
+  uint32_t qb[KKM][4], qsm[KKM][4];
+#pragma unroll
+  for (int kk = 0; kk < KKM; ++kk) {
+    if (active && (KK || kk < kk_n)) {
+      const float* qp = strip + (kk * 8 + t) * OP_QS + m0 + g;
+      split_tf32(qp[0], qb[kk][0], qsm[kk][0]);
+      split_tf32(qp[8], qb[kk][1], qsm[kk][1]);
+      split_tf32(qp[4 * OP_QS], qb[kk][2], qsm[kk][2]);
+      split_tf32(qp[4 * OP_QS + 8], qb[kk][3], qsm[kk][3]);
+    }
+  }
+
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+#pragma unroll
+  for (int vt = 0; vt < MAX_V_TILES; ++vt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[vt][e] = 0.f;
+  const bool even = L % 2 == 0;
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c > 0) cp_async_wait<0>();
+    // what this thread copied has landed
+    onepass_stage<true>(k, v, FP, FVP, LS, c, ring + (c & 1) * stage, tid);
+    // chunk c split by every thread; every warp done with chunk c - 1 (its
+    // stage is refilled next) and, at c = 0, with the q tile in the strip
+    __syncthreads();
+    if (c + 1 < n_chunks) {
+      onepass_stage<false>(k, v, FP, FVP, LS, c + 1, ring + ((c + 1) & 1) * stage, tid);
+      cp_async_commit();
+    }
+    if (!active) continue;
+    const int j0 = c * OP_KC;
+    const float* ks = ring + (c & 1) * stage;
+    const float* vs = ks + k_floats;
+
+    // the chunk's bias (rows i0 + g, i0 + g + 8 < L; keys < L), read before
+    // the products so that the loads are in flight under them
+    float bv[KT][4];
+#pragma unroll
+    for (int nt = 0; nt < KT; ++nt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int i = i0 + g + hr * 8, j = j0 + nt * 8 + 2 * t;
+        float b0 = 0.f, b1 = 0.f;
+        if (i < L) {
+          if (even) {
+            if (j < L) load_f2<float>(bias_h + (size_t)i * L + j, b0, b1);
+          } else {
+            if (j < L) b0 = bias_h[(size_t)i * L + j];
+            if (j + 1 < L) b1 = bias_h[(size_t)i * L + j + 1];
+          }
+        }
+        bv[nt][2 * hr] = b0, bv[nt][2 * hr + 1] = b1;
+      }
+
+    // s = Q_aug K_aug^T; (w.x, w.y) the big B pair of features t, t + 4,
+    // (w.z, w.w) the small
+    float s[KT][4];
+#pragma unroll
+    for (int nt = 0; nt < KT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KKM; ++kk) {
+      if (KK || kk < kk_n) {
+        const float* kp = ks + (kk * 4 + t) * OP_KROW + 4 * g;
+        uint4 w[KT];
+#pragma unroll
+        for (int nt = 0; nt < KT; ++nt) w[nt] = *reinterpret_cast<const uint4*>(kp + 32 * nt);
+#pragma unroll
+        for (int nt = 0; nt < KT; ++nt) mma_tf32(s[nt], qsm[kk], w[nt].x, w[nt].y);
+#pragma unroll
+        for (int nt = 0; nt < KT; ++nt) mma_tf32(s[nt], qb[kk], w[nt].z, w[nt].w);
+#pragma unroll
+        for (int nt = 0; nt < KT; ++nt) mma_tf32(s[nt], qb[kk], w[nt].x, w[nt].y);
+      }
+    }
+
+    // (s + bias) * scale_total, keys >= L -inf; the running max
+    float cm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < KT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + nt * 8 + 2 * t + (e & 1);
+        s[nt][e] = j < L ? (s[nt][e] + bv[nt][e]) * scale_total : -INFINITY;
+        cm[e >> 1] = fmaxf(cm[e >> 1], s[nt][e]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      cm[hr] = fmaxf(cm[hr], __shfl_xor_sync(0xffffffffu, cm[hr], 1));
+      cm[hr] = fmaxf(cm[hr], __shfl_xor_sync(0xffffffffu, cm[hr], 2));
+      // every chunk holds a key < L (j0 <= LS - 16 < L), so m is finite
+      // from chunk 0 on and exp(-inf - m) = 0 there
+      const float mn = fmaxf(m_run[hr], cm[hr]);
+      alpha[hr] = expf(m_run[hr] - mn);
+      m_run[hr] = mn;
+      l_run[hr] *= alpha[hr];
+    }
+#pragma unroll
+    for (int vt = 0; vt < VTM; ++vt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[vt][e] *= alpha[e >> 1];
+
+    // p = exp(s - m) into the strip (keys < LS) and o += p [v_s | v_p]
+    float* srow = strip + (m0 + g) * ss + j0 + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < KT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = expf(s[nt][e] - m_run[e >> 1]);
+        l_run[e >> 1] += s[nt][e];
+      }
+      if (j0 + nt * 8 < LS) {
+        *reinterpret_cast<float2*>(srow + nt * 8) = make_float2(s[nt][0], s[nt][1]);
+        *reinterpret_cast<float2*>(srow + 8 * ss + nt * 8) = make_float2(s[nt][2], s[nt][3]);
+      }
+      // k-column t is key 2t and t + 4 is key 2t + 1 (see the note above)
+      uint32_t ab[4], as[4];
+      split_tf32(s[nt][0], ab[0], as[0]);
+      split_tf32(s[nt][2], ab[1], as[1]);
+      split_tf32(s[nt][1], ab[2], as[2]);
+      split_tf32(s[nt][3], ab[3], as[3]);
+      // keys 2t, 2t + 1 of feature g of each 8-feature tile: [big | big |
+      // small | small]
+      const float* vk = vs + g * OP_VROW + (nt * 4 + t) * 4;
+      uint4 w[VTM];
+#pragma unroll
+      for (int vt = 0; vt < VTM; ++vt)
+        if (VT || vt < v_tiles) w[vt] = *reinterpret_cast<const uint4*>(vk + vt * 8 * OP_VROW);
+#pragma unroll
+      for (int vt = 0; vt < VTM; ++vt)
+        if (VT || vt < v_tiles) mma_tf32(o[vt], as, w[vt].x, w[vt].y);
+#pragma unroll
+      for (int vt = 0; vt < VTM; ++vt)
+        if (VT || vt < v_tiles) mma_tf32(o[vt], ab, w[vt].z, w[vt].w);
+#pragma unroll
+      for (int vt = 0; vt < VTM; ++vt)
+        if (VT || vt < v_tiles) mma_tf32(o[vt], ab, w[vt].x, w[vt].y);
+    }
+    if (t == 0) {
+      mrow[(m0 + g) * nch + c] = m_run[0];
+      mrow[(m0 + g + 8) * nch + c] = m_run[1];
+    }
+  }
+  if (!active) return;
+
+  // the rows' l, 1 / l on o, and each chunk's factor exp(m_chunk - m) / l
+  float inv_l[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l_run[hr] += __shfl_xor_sync(0xffffffffu, l_run[hr], 1);
+    l_run[hr] += __shfl_xor_sync(0xffffffffu, l_run[hr], 2);
+    inv_l[hr] = 1.f / l_run[hr];
+  }
+#pragma unroll
+  for (int vt = 0; vt < VTM; ++vt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[vt][e] *= inv_l[e >> 1];
+  __syncwarp();  // every lane's strip rows and chunk maxima are in
+  if (t == 0) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float* mr = mrow + (m0 + g + hr * 8) * nch;
+      for (int c = 0; c < n_chunks; ++c) mr[c] = expf(mr[c] - m_run[hr]) * inv_l[hr];
+    }
+  }
+  __syncwarp();
+  // attn rows i0 .. i0 + rows - 1, keys < L, once
+  const int rows = L - i0 < 16 ? L - i0 : 16;
+#pragma unroll 4
+  for (int r = 0; r < rows; ++r) {
+    const float* sr = strip + (m0 + r) * ss;
+    const float* fr = mrow + (m0 + r) * nch;
+    float* dst = attn_h + (size_t)(i0 + r) * L;
+    if (attn_vec) {
+      for (int j = 4 * lane; j < L; j += 128) {
+        const float f = fr[j / OP_KC];
+        const float4 w = *reinterpret_cast<const float4*>(sr + j);
+        *reinterpret_cast<float4*>(dst + j) = make_float4(w.x * f, w.y * f, w.z * f, w.w * f);
+      }
+    } else {
+      for (int j = lane; j < L; j += 32) dst[j] = sr[j] * fr[j / OP_KC];
+    }
+  }
+  __syncwarp();  // the strip rows are free for the caller
 }
 
 }  // namespace ipa_tc

@@ -78,22 +78,28 @@
 // feature-major); attend_kernel, one block per (head, design, chunk of
 // 128 query rows), runs the chunked core of ipa_attention_tc.cuh on the
 // scratch (keys streamed in chunks of 128, two passes) and launch 1's
-// epilogue; launch 2 as above.  Projecting once into the scratch, rather
-// than each query-chunk block projecting all L keys itself, costs bytes
-// and no FLOPs: at b = 128, L = 256, bf16 the scratch is ~96 MB written
-// and ~159 MB read back (K and V once per query chunk) against the
-// layer's 153 MB of compulsory traffic (float32: twice that); recomputing
-// would add (L / 128 - 1) x the key and value projections per block.
+// epilogue; launch 2 as above.  In float32, where its strip fits (L <= 272
+// at the default widths), onepass_attend_kernel takes attend_kernel's
+// place: the same work with each logit computed once (below).  Projecting
+// once into the scratch, rather than each query-chunk block projecting all
+// L keys itself, costs bytes and no FLOPs: at b = 128, L = 256, bf16 the
+// scratch is ~96 MB written and ~159 MB read back (K and V once per query
+// chunk) against the layer's 153 MB of compulsory traffic (float32: twice
+// that); recomputing would add (L / 128 - 1) x the key and value
+// projections per block.
 // Shared memory at L = 256: launch 1 that of L = 128 (bf16 95,872 bytes
 // at the default shapes, 169,936 at the widest; float32 106,752 and
 // 119,808); attend_kernel bf16 91,008 and 103,936, float32 106,240 and
-// 119,296 (chunk_dims).  The L <= 128 launches are unchanged.
+// 119,296 (chunk_dims); onepass_attend_kernel 216,064 at the default
+// shapes (onepass_dims, growing with L).  The L <= 128 launches are
+// unchanged.
 //
 // Limits: ds + 3 P <= 64; for these every L, d and h fit the shared
 // memory a block may use (227 KB): at most ~167 KB for bf16 and ~120 KB
-// for float32 (layer_dims of each header, chunk_dims).  The persistent
-// launch 1 takes d up to 128 (persistent_dims: 226,432 bytes at d = 128);
-// wider rows take the per-item kernel.
+// for float32 (layer_dims of each header, chunk_dims; the one-pass kernel
+// only where it fits, onepass_fits).  The persistent launch 1 takes d up
+// to 128 (persistent_dims: 226,432 bytes at d = 128); wider rows take the
+// per-item kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -219,6 +225,140 @@ cudaError_t run_attend(const void* opnd, const void* rot, const void* trans,
   return cudaGetLastError();
 }
 
+// ---- L > MAX_L in float32: the one-pass core -------------------------------------
+// One block of 8 warps per (design, head, chunk of CHUNK query rows), the
+// query chunk fastest in the grid, so that the blocks of one (design, head)
+// read its K and V from L2 about the same time:
+// ipa_tc::chunked_attention_onepass (each logit once, a two-stage cp.async
+// ring of 32 keys split once per block, the warp's weights on chip until
+// the row's max and sum are known, attn written once) and the epilogue of
+// attend_kernel (write_features_by_item: the same features, work split by
+// (row, point) item), the outputs turned through the warp's own strip rows.
+// Shared memory (OnepassDims, floats): the query rows' frames (12 CHUNK),
+// the strip (CHUNK x ss, ss = LS + 8; first the raw q tile), the chunks'
+// row maxima (CHUNK x nch) and the ring (2 x stage, stage = FP / 2 x 136 +
+// FVP x 80: K and V split into tf32 pairs).  At the official
+// shapes (L = 256, ds 32, P 8) 216,064 bytes: one block per SM, so
+// __launch_bounds__(256, 1) leaves 255 registers a thread, which hold the
+// warp's split q fragments (72 at the widest) beside the accumulators.
+// `onepass_fits`: the layer takes this path where the bytes fit a block's
+// 232,448, L <= 272 at the default widths and L <= 256 at the widest
+// (ds + 3P = 64); longer patches keep attend_kernel's two passes, whose
+// shared memory does not grow with L.
+struct OnepassDims {
+  int L, LS, h, ds, p, FP, FVP, FH;
+  int ss, nch, stage, total;
+};
+
+inline OnepassDims onepass_dims(int L, int h, int ds, int p, bool dir = false) {
+  OnepassDims D;
+  const int fv = ds + 3 * p;
+  D.L = L, D.LS = round_up(L, 16), D.h = h, D.ds = ds, D.p = p;
+  D.FP = round_up(fv + 3, 8), D.FVP = round_up(fv, 8);
+  D.FH = round_up(ds + (dir ? 7 : 4) * p, 8);
+  D.ss = D.LS + 8, D.nch = (D.LS + ipa_tc::OP_KC - 1) / ipa_tc::OP_KC;
+  D.stage = D.FP / 2 * ipa_tc::OP_KROW + D.FVP * ipa_tc::OP_VROW;
+  D.total = (CHUNK * 12 + CHUNK * D.ss + CHUNK * D.nch + 2 * D.stage) * 4;
+  return D;
+}
+
+inline bool onepass_fits(int L, int ds, int p) {
+  return L > ipa_tc::MAX_L && onepass_dims(L, 1, ds, p).total <= 232448;
+}
+
+// KK, VT: FP / 8 and FVP / 8 at compile time (8, 7 at the default widths), or
+// 0 for any (ipa_tc::chunked_attention_onepass)
+template <bool DIR, int KK, int VT>
+__global__ void __launch_bounds__(ipa_tc::OP_THREADS, 1)
+onepass_attend_kernel(const float* __restrict__ opnd,   // q, k (b, h, FP, LS), v (b, h, FVP, LS)
+                      const float* __restrict__ rot,    // (b, L, 3, 3)
+                      const float* __restrict__ trans,  // (b, L, 3)
+                      const float* __restrict__ bias,   // (bp, h, L, L)
+                      float* __restrict__ feat,         // (b L, h FH)
+                      float* __restrict__ attn,         // (b, h, L, L)
+                      const OnepassDims D, int n_designs, float scale_total, int attn_vec) {
+  const int q0 = blockIdx.x * CHUNK, hh = blockIdx.y, design = blockIdx.z;
+  const int target = design / n_designs, tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int L = D.L, LS = D.LS, h = D.h;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* rs = reinterpret_cast<float*>(smem);  // CHUNK x 9
+  float* tr = rs + CHUNK * 9;                  // CHUNK x 3
+  float* strip = tr + CHUNK * 3;               // CHUNK x ss
+  float* mrow = strip + CHUNK * D.ss;          // CHUNK x nch
+  float* ring = mrow + CHUNK * D.nch;          // 2 x stage
+
+  const size_t row_base = (size_t)design * L + q0, gi = (size_t)design * h + hh;
+  const int m0 = 16 * warp, i0 = q0 + m0;
+  // the frames of this warp's 16 rows (9 + 3 floats a row), read into
+  // registers now and put into shared memory after the core, so that their
+  // loads wait behind nothing and hold nothing up
+  float fv[6];
+#pragma unroll
+  for (int u = 0; u < 6; ++u) {
+    const int e = lane + 32 * u, r = e < 144 ? e / 9 : (e - 144) / 3;
+    fv[u] = i0 + r >= L ? 0.f
+            : e < 144 ? rot[(row_base + m0) * 9 + e]
+                      : trans[(row_base + m0) * 3 + e - 144];
+  }
+
+  const size_t qk = (size_t)gridDim.z * h * D.FP * LS;
+  const float* q = opnd + gi * D.FP * LS;
+  float o[ipa_tc::MAX_V_TILES][4];
+  ipa_tc::chunked_attention_onepass<KK, VT>(q, q + qk, opnd + 2 * qk + gi * D.FVP * LS, D.FP, D.FVP,
+                                    LS, L, bias + ((size_t)target * h + hh) * L * L,
+                                    attn + gi * L * L, attn_vec, q0, scale_total, strip, D.ss,
+                                    mrow, D.nch, ring, tid, o);
+  if (i0 >= LS) return;  // warp-uniform; no block barrier follows
+  const int rows = L - i0 < 16 ? L - i0 : 16, gq = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int u = 0; u < 6; ++u) {
+    const int e = lane + 32 * u;
+    if (e < 144) rs[m0 * 9 + e] = fv[u];
+    else tr[m0 * 3 + e - 144] = fv[u];
+  }
+  // the outputs as f32 through the warp's own strip rows: feature c of row r
+  // at ot[r ss + c]
+  float* ot = strip + m0 * D.ss;
+#pragma unroll
+  for (int vt = 0; vt < ipa_tc::MAX_V_TILES; ++vt) {
+    if (vt < D.FVP / 8) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        *reinterpret_cast<float2*>(ot + (gq + hr * 8) * D.ss + vt * 8 + 2 * tq) =
+            make_float2(o[vt][2 * hr], o[vt][2 * hr + 1]);
+    }
+  }
+  __syncwarp();
+  ipa_layer::write_features_by_item<DIR>(ot, D.ss, rs + m0 * 9, tr + m0 * 3, rows, D.ds, D.p,
+                                         D.FH, feat + ((row_base + m0) * h + hh) * D.FH,
+                                         (size_t)h * D.FH, lane);
+}
+
+// the default and official widths (ds 32, P 8: FP 64, FVP 56) compiled with
+// their slices fixed
+constexpr int ONEPASS_KK = 8, ONEPASS_VT = 7;
+
+cudaError_t run_attend_onepass(const void* opnd, const void* rot, const void* trans,
+                               const void* bias, void* feat, void* attn, int b, int bp, int L,
+                               int h, int ds, int p, float scale_total, bool dir,
+                               cudaStream_t stream) {
+  const OnepassDims D = onepass_dims(L, h, ds, p, dir);
+  const bool fixed = D.FP == 8 * ONEPASS_KK && D.FVP == 8 * ONEPASS_VT;
+  auto kernel = dir ? (fixed ? onepass_attend_kernel<true, ONEPASS_KK, ONEPASS_VT>
+                             : onepass_attend_kernel<true, 0, 0>)
+                    : (fixed ? onepass_attend_kernel<false, ONEPASS_KK, ONEPASS_VT>
+                             : onepass_attend_kernel<false, 0, 0>);
+  cudaError_t err = ptx::allow_dynamic_smem(kernel, D.total);
+  if (err != cudaSuccess) return err;
+  const int attn_vec = L % 4 == 0 && reinterpret_cast<uintptr_t>(attn) % 16 == 0;
+  kernel<<<dim3((L + CHUNK - 1) / CHUNK, h, b), ipa_tc::OP_THREADS, D.total, stream>>>(
+      static_cast<const float*>(opnd), static_cast<const float*>(rot),
+      static_cast<const float*>(trans), static_cast<const float*>(bias),
+      static_cast<float*>(feat), static_cast<float*>(attn), D, b / bp, scale_total, attn_vec);
+  return cudaGetLastError();
+}
+
 // Launch 1 takes a whole (design, head) up to MAX_L rows; beyond, it writes
 // the operands of each CHUNK rows to opnd and attend_kernel runs the
 // attention (D is made for min(L, CHUNK) rows, D.L is the patch's L)
@@ -242,10 +382,14 @@ int run_f32(const void* x, const void* rot, const void* trans, const void* mask,
       static_cast<float*>(feat), static_cast<float*>(attn), D, b / bp, scale_total, nk_scale,
       x_vec, static_cast<float*>(opnd));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (chunked && (err = run_attend<float, float>(opnd, rot, trans, bias, feat, attn, b, bp, L,
-                                                 h, ds, p, scale_total, dir, stream)) !=
-                     cudaSuccess)
-    return err;
+  if (chunked) {
+    err = onepass_fits(L, ds, p)
+              ? run_attend_onepass(opnd, rot, trans, bias, feat, attn, b, bp, L, h, ds, p,
+                                   scale_total, dir, stream)
+              : run_attend<float, float>(opnd, rot, trans, bias, feat, attn, b, bp, L, h, ds, p,
+                                         scale_total, dir, stream);
+    if (err != cudaSuccess) return err;
+  }
 
   const int M = b * L, NP = round_up(d, 8);
   tf32x3::out_proj_kernel<<<dim3((NP + tf32x3::GN - 1) / tf32x3::GN,
@@ -378,6 +522,16 @@ long long ipa_fused_layer_scratch_elems(int dtype, int b, int L, int h, int ds, 
   if (L <= ipa_tc::MAX_L) return 0;
   const ChunkDims D = dtype == 1 ? chunk_dims<bf16>(L, h, ds, p) : chunk_dims<float>(L, h, ds, p);
   return (long long)b * h * (2 * D.FP + D.FVP) * D.LS;
+}
+
+// The attention launch a call beyond 128 residues takes: 2 = float32's one
+// pass (onepass_attend_kernel), 1 = the two passes of attend_kernel
+// (bf16, and float32 where the one-pass strip does not fit), 0 = none (L <=
+// 128).  The wrapper books its counters by it (ops/ipa_fused_layer.py
+// attend_path).
+int ipa_fused_layer_attend_path(int dtype, int L, int ds, int p) {
+  if (L <= ipa_tc::MAX_L) return 0;
+  return dtype == 0 && onepass_fits(L, ds, p) ? 2 : 1;
 }
 
 const char* ipa_fused_layer_error_string(int err) {

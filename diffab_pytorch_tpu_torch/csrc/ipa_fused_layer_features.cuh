@@ -72,4 +72,45 @@ __device__ __forceinline__ void write_features(const float* ot, int rstr, int cs
   }
 }
 
+// The same features of `rows` rows, float32, with work split by item
+// rather than by column: a lane takes (row, point) items, point pp of row
+// r computing its inverse frame, norm (and direction) once, and (row,
+// column) items for the scalars and the zero pad, which it copies.  The
+// same expressions as write_features, so the same values; for the
+// one-pass attention kernel (ipa_fused_layer.cu), where write_features'
+// per-column lanes, each recomputing a row's rotation for every column,
+// took a fifth of the block's time.  Consecutive lanes write consecutive
+// columns of a row (points pp of one coordinate, scalars c).
+template <bool DIR = false>
+__device__ __forceinline__ void write_features_by_item(const float* ot, int rstr,
+                                                       const float* rs, const float* tr,
+                                                       int rows, int ds, int p, int FH,
+                                                       float* __restrict__ feat,
+                                                       size_t fstride, int lane) {
+  const int pc = ds + (DIR ? 7 : 4) * p, ns = ds + FH - pc;  // scalar and pad columns
+  for (int it = lane; it < rows * ns; it += 32) {
+    const int r = it / ns, c0 = it - r * ns, c = c0 < ds ? c0 : c0 - ds + pc;
+    feat[r * fstride + c] = c0 < ds ? ot[r * rstr + c] : 0.f;
+  }
+  for (int it = lane; it < rows * p; it += 32) {
+    const int r = it / p, pp = it - r * p;
+    const float* orr = ot + r * rstr;
+    const float* R = rs + r * 9;
+    const float d0 = orr[ds + pp] - tr[r * 3], d1 = orr[ds + p + pp] - tr[r * 3 + 1],
+                d2 = orr[ds + 2 * p + pp] - tr[r * 3 + 2];
+    const float l0 = d0 * R[0] + d1 * R[1] + d2 * R[2];
+    const float l1 = d0 * R[3] + d1 * R[4] + d2 * R[5];
+    const float l2 = d0 * R[6] + d1 * R[7] + d2 * R[8];
+    float nrm = 0.f;
+    nrm += l0 * l0;
+    nrm += l1 * l1;
+    nrm += l2 * l2;
+    const float n = sqrtf(nrm + 1e-8f);
+    float* fr = feat + r * fstride + ds + pp;
+    fr[0] = l0, fr[p] = l1, fr[2 * p] = l2, fr[3 * p] = n;
+    if constexpr (DIR) fr[4 * p] = l0 / (n + 1e-4f), fr[5 * p] = l1 / (n + 1e-4f),
+                       fr[6 * p] = l2 / (n + 1e-4f);
+  }
+}
+
 }  // namespace ipa_layer

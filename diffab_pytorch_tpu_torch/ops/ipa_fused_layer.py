@@ -33,7 +33,11 @@ In bf16 with many (head, design) items, launch 1 is a persistent kernel of
 one block per SM (`takes_persistent`, `csrc/ipa_fused_layer_persistent.cuh`);
 each such launch books `ipa_layer.items` and `ipa_layer.items_overlapped`
 to the port's counters (`utils/profiling.py`), and each other bf16 call up
-to 128 residues `ipa_layer.fallback_calls`, graph replays included.
+to 128 residues `ipa_layer.fallback_calls`, graph replays included.  A
+float32 call beyond 128 residues runs its attention in one pass over the
+keys where the kernel's shared-memory strip fits (`attend_path`) and books
+`ipa_layer.attend_onepass_calls`, else in two and books
+`ipa_layer.attend_twopass_calls`.
 Under autograd the launch sits in a `torch.autograd.Function` whose
 backward differentiates the plain version on the saved inputs, as
 `_bwd_layer` differentiates `_layer_core_jnp`; the weights are packed
@@ -155,6 +159,46 @@ def book_path(persistent_blocks: int, items: int) -> None:
         _build.count("ipa_layer.fallback_calls")
 
 
+# The attention launch beyond 128 residues (csrc/ipa_fused_layer.cu): float32
+# runs it in one pass over the keys (onepass_attend_kernel) where a block's
+# shared memory holds its strip beside the other tiles (onepass_dims), else
+# (bf16, longer float32 patches) in two (attend_kernel)
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on an H100
+ATTEND_TWOPASS, ATTEND_ONEPASS = 1, 2
+_OP_KC, _OP_KROW, _OP_VROW = 32, 136, 80  # keys a ring stage, floats of its K and V rows
+
+
+def onepass_smem(L: int, ds: int, p: int) -> int:
+    """Bytes of shared memory of the one-pass attention block at L > 128
+    (`onepass_dims`): the query rows' frames (12 x 128 floats), the strip
+    of 128 rows x (LS + 8) floats, the chunks' row maxima (128 x LS / 32
+    rounded up) and two ring stages of FP / 2 x 136 + FVP x 80 floats
+    (K and V split into tf32 pairs), LS = L rounded up to 16."""
+    fv = ds + 3 * p
+    ls = _round_up(L, 16)
+    stage = _round_up(fv + 3, 8) // 2 * _OP_KROW + _round_up(fv, 8) * _OP_VROW
+    return 4 * (128 * 12 + 128 * (ls + 8) + 128 * -(-ls // _OP_KC) + 2 * stage)
+
+
+def attend_path(dtype: torch.dtype, L: int, ds: int, p: int) -> int:
+    """The attention launch of a call (`ipa_fused_layer_attend_path`): 0 up
+    to 128 residues, ATTEND_ONEPASS for float32 where `onepass_smem` fits a
+    block (L <= 272 at the default widths, 256 at ds + 3P = 64),
+    ATTEND_TWOPASS otherwise."""
+    if L <= 128:
+        return 0
+    if dtype == torch.float32 and onepass_smem(L, ds, p) <= SMEM_LIMIT:
+        return ATTEND_ONEPASS
+    return ATTEND_TWOPASS
+
+
+def book_attend(path: int) -> None:
+    """Book one float32 call beyond 128 residues to the port's counters by
+    its attention path, as its launch is booked."""
+    _build.count("ipa_layer.attend_onepass_calls" if path == ATTEND_ONEPASS
+                 else "ipa_layer.attend_twopass_calls")
+
+
 def _sm_count(dev: torch.device) -> int:
     """The card's SMs, read once per device."""
     i = dev.index if dev.index is not None else torch.cuda.current_device()
@@ -219,9 +263,10 @@ def fused_ipa_layer_packed_reference(x, rot, trans, mask, wts: LayerKernelWeight
     """Plain PyTorch version of the kernel: the same augmented-operand
     expansion and the same rounding points (augmented operands, attention
     weights and output-projection operands in the compute dtype; the rest
-    in float32).  Differentiable."""
-    f32 = torch.float32
+    in float32).  Differentiable.  Float64 inputs are computed in float64
+    throughout (the card checks' exact version)."""
     dt = x.dtype
+    f32 = torch.float64 if dt == torch.float64 else torch.float32
     b, L, d = x.shape
     h, ds, p = wts.n_head, wts.d_scalar, wts.n_point
     fv = ds + 3 * p
@@ -317,6 +362,8 @@ def _library() -> ctypes.CDLL:
         lib.ipa_fused_layer_forward.restype = ctypes.c_int
         lib.ipa_fused_layer_scratch_elems.argtypes = [i] * 6
         lib.ipa_fused_layer_scratch_elems.restype = ctypes.c_longlong
+        lib.ipa_fused_layer_attend_path.argtypes = [i] * 4
+        lib.ipa_fused_layer_attend_path.restype = ctypes.c_int
         lib.ipa_fused_layer_error_string.argtypes = [ctypes.c_int]
         lib.ipa_fused_layer_error_string.restype = ctypes.c_char_p
     return lib
@@ -333,10 +380,13 @@ def _launch(x, rot, trans, mask, wts, bias, scale_total):
     lib = _library()
     args = [x, rot, trans, mask, wts.w_qkv, wts.w_out, wts.g, bias, feat, acc, attn]
     ptrs = [t.data_ptr() for t in args] + [None]
+    path = attend_path(dt, L, ds, p)
     if L > 128:  # the operand scratch of the chunked path
         n_scratch = scratch_elems(dt, b, L, h, ds, p)
         if n_scratch != lib.ipa_fused_layer_scratch_elems(_DTYPE_CODE[dt], b, L, h, ds, p):
             raise RuntimeError("operand scratch size disagrees with the kernel's")
+        if path != lib.ipa_fused_layer_attend_path(_DTYPE_CODE[dt], L, ds, p):
+            raise RuntimeError("attention path disagrees with the kernel's")
         scratch = torch.empty(n_scratch, dtype=dt, device=dev)
         ptrs[-1] = scratch.data_ptr()
     persistent = 0
@@ -357,6 +407,8 @@ def _launch(x, rot, trans, mask, wts, bias, scale_total):
     _build.count_launch(fused_ipa_layer_packed, "ipa_fused_layer", acc, attn)
     if dt == torch.bfloat16 and L <= 128:
         book_path(persistent, b * h)
+    elif dt == torch.float32 and path:
+        book_attend(path)
     return acc, attn
 
 

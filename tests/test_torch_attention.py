@@ -286,6 +286,62 @@ def test_chunked_core_meets_the_kernel_rules_at_L256(dtype):
     assert float(got[2][..., -n_masked:].float().abs().max()) == 0.0
 
 
+def _onepass_core(q_aug, k_aug, v_s, v_p, bias, scale_total, product, chunk=32):
+    """K1 float32's core beyond 128 keys in one pass (csrc/ipa_attention_tc.cuh
+    chunked_attention_onepass) in plain PyTorch, in its chunk order: each
+    chunk's logits once; the running max m and sum l, l and the weighted sums
+    rescaled by exp(m_old - m_new) when m grows; p = exp(logit - m_new) kept
+    with that chunk's m; at the end attn = p exp(m_chunk - m) / l and the
+    sums over l (the products 3xTF32 by `product`)."""
+    b, h, _, n = q_aug.shape
+    q, k = q_aug.float(), k_aug.float()
+    v = torch.cat([v_s, v_p], dim=2).float()
+    bias_full = torch.repeat_interleave(bias.float(), b // bias.shape[0], dim=0)
+    m = torch.full((b, h, n), -float("inf"))
+    l = torch.zeros(b, h, n)
+    out = torch.zeros(b, h, v.shape[2], n)
+    strip = []
+    for j0 in range(0, n, chunk):
+        s = product("bhfi,bhfj->bhij", q, k[..., j0:j0 + chunk])
+        s = (s + bias_full[..., j0:j0 + chunk]) * scale_total
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        out = out * alpha[:, :, None] + product("bhcj,bhij->bhci", v[..., j0:j0 + chunk], p)
+        strip.append((p, m_new))
+        m = m_new
+    attn = torch.cat([p * (torch.exp(mc - m) / l)[..., None] for p, mc in strip], dim=-1)
+    out = out / l[:, :, None]
+    ds = v_s.shape[2]
+    return out[:, :, :ds], out[:, :, ds:], attn
+
+
+@pytest.mark.parametrize("n", [129, 200, 256])
+def test_onepass_core_meets_the_float32_rule(n):
+    """The one-pass core at L = 129 (a chunk of one key), 200 (a ragged
+    chunk) and 256, 16 padded keys, at chip_smoke.py's magnitudes (ds=32,
+    P=8, points x5) against the plain version within the float32 rule (1e-4
+    on weights, 1e-4 of the output scale), padded keys exactly 0: the
+    per-chunk maxima and the final factors lose nothing that the rule sees."""
+    n_masked, h, ds, p = 16, 2, 32, 8
+    rng = np.random.default_rng(52 + n)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    mask = torch.ones(2, n)
+    mask[:, -n_masked:] = 0.0
+    scales = (ds ** -0.5, (4.5 * p) ** -0.5, 3 ** -0.5)
+    ops = k2.augmented_operands(f(2, n, h, ds), f(2, n, h, ds), f(2, n, h, ds),
+                                f(2, n, h, p, 3) * 5, f(2, n, h, p, 3) * 5, f(2, n, h, p, 3) * 5,
+                                f(h).abs() + 0.5, mask, *scales)
+    bias = f(1, h, n, n)
+    ref = k2.ipa_attention_core_reference(*ops, bias, scales[2])
+    got = _onepass_core(*ops, bias, scales[2], _tf32_product(3))
+    for i, (g, r) in enumerate(zip(got, ref)):
+        scale = 1.0 if i == 2 else max(1.0, float(r.abs().max()))
+        assert float((g - r).abs().max()) <= 1e-4 * scale
+    assert float(got[2][..., -n_masked:].abs().max()) == 0.0
+
+
 @pytest.mark.parametrize("shape", [(24, 64, -1, 24), (128, 80, 41, 24), (128, 56, 32, 24),
                                    (0, 64, 32, 24)])
 def test_attention_shape_gate_rejects_what_the_kernel_does_not_take(shape):

@@ -150,6 +150,26 @@ def test_plain_version_on_the_pack_matches_an_einsum_on_the_native_weights(bias_
         assert torch.equal(acc_w, acc) and torch.equal(attn_w, attn)
 
 
+def test_plain_version_in_float64_is_the_exact_layer():
+    """On float64 inputs and a float64 pack (chip_smoke.py's check_layer
+    builds one for K1 float32 beyond 128 residues) the plain version computes
+    in float64 throughout: it meets the layer computed in float64 from the
+    native weights to rounding, where the float32 plain version misses by its
+    own cancellation (~1e-6 and more)."""
+    b, bp, L, d, h, ds, p = 4, 2, 20, 32, 4, 8, 4
+    native = _native_weights(1, d, h, ds, p)
+    wts = k1.pack_layer_weights(*(t.double() for t in native), *_scales(ds, p)[:2],
+                                torch.float64)
+    args = _layer_inputs(2, b, bp, L, d, h, 3)
+    acc, attn = k1.fused_ipa_layer_packed_reference(
+        wts=wts, scale_total=_scales(ds, p)[2], **{k: v.double() for k, v in args.items()})
+    acc_n, attn_n = _native_layer(native=native, scales=_scales(ds, p), **args)
+    assert acc.dtype == attn.dtype == torch.float64
+    assert float((attn - attn_n).abs().max()) <= 1e-12
+    assert float((acc - acc_n).abs().max()) <= 1e-12 * max(1.0, float(acc_n.abs().max()))
+    assert float(attn[..., -3:].abs().max()) == 0.0
+
+
 def test_pack_gives_one_layout_and_gradients_reach_every_native_weight():
     d, h, ds, p = 32, 4, 8, 4
     native = _native_weights(3, d, h, ds, p)
@@ -270,10 +290,12 @@ def test_tf32_layer_products_meet_the_float32_rule_only_as_three(products):
 def _model_shapes():
     """(L, d, h, ds, P) of every fused-layer shape the port's configs and
     tests use: tests/test_torch_models.py (L=24 at the tiny widths), the
-    tiny, default and production configs at the patch size, the card
-    checks' L=77, and patches longer than 128 residues."""
+    tiny, default, production and official configs at the patch size (the
+    official network's 12 heads at L = 256), the card checks' L=77, and
+    patches longer than 128 residues."""
     out = [(24, 32, 4, 8, 4)]
-    for cfg in (tconfig.tiny_config(), tconfig.default_config(), tconfig.production_config()):
+    for cfg in (tconfig.tiny_config(), tconfig.default_config(), tconfig.production_config(),
+                tconfig.official_config()):
         m = cfg.model
         dims = (m.d_residue_emb, m.n_head, m.d_scalar_per_head, m.n_query_point_per_head)
         out += [(L, *dims) for L in (24, 32, 77, cfg.data.patch_size)]
@@ -378,3 +400,108 @@ def test_counters_book_through_graph_tallies_and_replays():
     for _ in range(3):
         _build.replayed(tally)
     assert delta() == (1024 + 3 * 2048, 892 + 3 * 1784, 1 + 3)
+
+
+# ---- the attention launch beyond 128 residues (csrc/ipa_fused_layer.cu) -------------
+F32 = torch.float32
+
+
+@pytest.mark.parametrize("case,expected", [
+    # one chunk of 128 rows: no attention launch
+    (dict(L=128), 0),
+    (dict(L=77), 0),
+    # a chunk that is mostly padding, a ragged one, the official network's
+    # two whole chunks
+    (dict(L=129), k1.ATTEND_ONEPASS),
+    (dict(L=200), k1.ATTEND_ONEPASS),
+    (dict(L=256), k1.ATTEND_ONEPASS),
+    # the crossover at the default widths: 224,768 bytes of shared memory
+    # at L = 272, 232,960 at 273 (LS = 288)
+    (dict(L=272), k1.ATTEND_ONEPASS),
+    (dict(L=273), k1.ATTEND_TWOPASS),
+    # three chunks
+    (dict(L=384), k1.ATTEND_TWOPASS),
+    # the widest heads (ds + 3P = 64): 225,536 bytes at L = 256, 234,240 at 257
+    (dict(L=256, ds=1, p=21), k1.ATTEND_ONEPASS),
+    (dict(L=257, ds=1, p=21), k1.ATTEND_TWOPASS),
+    # narrow heads fit longer strips
+    (dict(L=352, ds=8, p=4), k1.ATTEND_ONEPASS),
+    (dict(L=384, ds=8, p=4), k1.ATTEND_TWOPASS),
+    # bf16 keeps the two passes at every L
+    (dict(L=256, dtype=torch.bfloat16), k1.ATTEND_TWOPASS),
+    (dict(L=129, dtype=torch.bfloat16), k1.ATTEND_TWOPASS),
+])
+def test_attend_path_rule(case, expected):
+    kw = dict(dtype=F32, L=256, ds=32, p=8)
+    kw.update(case)
+    assert k1.attend_path(kw["dtype"], kw["L"], kw["ds"], kw["p"]) == expected
+    if kw["dtype"] == F32 and kw["L"] > 128:
+        fits = k1.onepass_smem(kw["L"], kw["ds"], kw["p"]) <= k1.SMEM_LIMIT
+        assert fits is (expected == k1.ATTEND_ONEPASS)
+
+
+def test_onepass_smem_of_the_official_call():
+    """L = 256, ds 32, P 8 (FP 64, FVP 56): frames 6,144 bytes, the strip
+    128 x 264 floats, the chunks' maxima 128 x 8, two stages of 32 x 136 +
+    56 x 80 floats: 216,064 bytes, the figure csrc/ipa_fused_layer.cu
+    states."""
+    assert k1.onepass_smem(256, 32, 8) == 6144 + 128 * 264 * 4 + 128 * 8 * 4 + 2 * (
+        32 * 136 + 56 * 80) * 4 == 216064
+
+
+def test_attend_counters_book_through_graph_tallies_and_replays():
+    """Each float32 call beyond 128 rows books its attention path as its
+    launch is booked: outside a capture at once, inside one into the graph's
+    tally (nothing counted yet), and once more at every replay."""
+    from diffab_pytorch_tpu_torch.ops import _build
+    from diffab_pytorch_tpu_torch.utils import profiling
+
+    names = ("ipa_layer.attend_onepass_calls", "ipa_layer.attend_twopass_calls")
+    read = lambda: tuple(profiling.counters().get(n, 0) for n in names)
+    start = read()
+    delta = lambda: tuple(a - b for a, b in zip(read(), start))
+    k1.book_attend(k1.ATTEND_ONEPASS)
+    k1.book_attend(k1.ATTEND_TWOPASS)
+    assert delta() == (1, 1)
+    with _build.capturing() as tally:
+        for _ in range(6):  # one graphed reverse step of the official network
+            k1.book_attend(k1.ATTEND_ONEPASS)
+    assert delta() == (1, 1)
+    assert tally == {"ipa_layer.attend_onepass_calls": 6}
+    for _ in range(100):  # the 100 replays of one sample() call
+        _build.replayed(tally)
+    assert delta() == (601, 1)
+
+
+def _k1_kernel_names():
+    """The name of every __global__ kernel in csrc/ipa_fused_layer*.cu*."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(k1.__file__).resolve().parent.parent / "csrc"
+    found = []
+    for src in sorted(csrc.glob("ipa_fused_layer*.cu*")):
+        text = src.read_text()
+        found += [(src.name, m.group(1)) for m in re.finditer(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(", text)]
+    return found
+
+
+def test_every_k1_kernel_is_named_in_the_roofline_metric():
+    """`benchmark/metrics/k1_roofline.ga.py` (and the `.sample` / `.train`
+    readers) find K1's device time by name: every __global__ kernel of K1's
+    sources must carry one of its `K1_KERNELS`, or a renamed kernel would
+    drop out of the denominator and read as an impossible share."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "benchmark" / "metrics" / "k1_roofline.ga.py"
+    spec = importlib.util.spec_from_file_location("k1_roofline_ga", path)
+    metric = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(metric)
+    kernels = _k1_kernel_names()
+    # launch 1 (both routes and the persistent kernel), launch 2 (both
+    # routes), the two-pass and the one-pass attention
+    assert len(kernels) == 7
+    for src, name in kernels:
+        assert any(k in name for k in metric.K1_KERNELS), (src, name)
