@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (diffab_pytorch_tpu_torch) on one CUDA card.
+"""Check the PyTorch/CUDA port (diffab_pytorch_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase below
+    python3 chip_smoke.py --ga     # the build, then [ga] alone
 
+The benchmark (benchmark/run.py) measures the port end to end; this script
+holds the card's results to the plain versions, to the CPU and to
+themselves, and times the two kernels per launch (PERF.md's kernel table).
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit, torch and CUDA versions;
-  2. build every kernel from csrc/ (nvcc, sm_90a) and print the build time,
-     registers, shared memory and each kernel's instruction count ([sass]);
+  2. [build] every kernel from csrc/ (nvcc, sm_90a) and the C++ parser and
+     featurizer, their build times, registers, shared memory and each
+     kernel's instruction count ([sass]);
   3. each kernel against its plain PyTorch version on the card, at tiny
      shapes in float32 and bfloat16, at an L that is not a multiple of 16,
-     at the main paths' shapes in float32 and bfloat16, and (K1) at the
-     widest shape its gate takes, with the tolerances stated below; then
-     each kernel's autograd Function against autograd of its plain version
-     (float32, b=4, L=128);
+     at the main paths' shapes, with a bias a target and a bias for two,
+     and (K1) at the widest shape its gate takes, with the tolerances
+     stated below; then each kernel's autograd Function against autograd
+     of its plain version (float32, b=4, L=128);
   4. end-to-end checks: one default_config()-width denoiser forward (6
      layers, 8 designs of one L=128 target) on the card against the CPU
      plain path, in bf16 and in float32; on small inputs, sample() on the
@@ -20,19 +25,20 @@ Phases (any failure raises and the script exits non-zero):
      same injected draws, and one training loss with its gradients on the
      card against the CPU with the same draws, each for fuse_ipa_layer None
      (fused-layer kernel) and False (attention-core kernel);
-  5. the sampling main path: CDR-H3 codesign sampling with default_config()
-     in bfloat16, 128 designs of one synthetic 128-residue target, T=100,
-     seeded random weights; launch counts, output checks, designs/s and a
-     profiler breakdown of one call; then the same in float32, the default
-     compute dtype ([main-f32]);
-  6. the training main path, once per flag: production_config() (bf16,
-     batch 32, L=128) from a seeded init on one synthetic batch, 3 warm-up
-     and 20 timed steps through fit(); launch counts, loss trajectory,
-     state checks, steps/s and samples/s, and a profile of one step;
-  7. per-launch kernel times at L = 128 against the plain version and the
-     bound, in bfloat16 and float32 (float32 bounds at the 3xTF32 rate),
-     K1's two bf16 launches timed apart with the card's idle time between
-     them (profiler);
+  5. [main] the sampling main path: CDR-H3 codesign sampling with
+     default_config() in bfloat16, 128 designs of one synthetic
+     128-residue target, T=100, seeded random weights (K1's persistent
+     launch 1 against its plain version first); launch counts, K1's path
+     counters and output checks of one call; then the same in float32,
+     the default compute dtype ([main-f32]);
+  6. [train] the training main path, once per flag: production_config()
+     (bf16, batch 32, L=128) from a seeded init on one synthetic batch, 3
+     + 20 steps through fit(); launch counts, loss trajectory and state
+     checks;
+  7. [time] per-launch kernel times at L = 128 against the plain version
+     and the bound, in bfloat16 and float32 (float32 bounds at the 3xTF32
+     rate), K1's two bf16 launches timed apart with the card's idle time
+     between them (profiler);
   8. [long] patches longer than 128 residues: both kernels against their
      plain versions at L = 136, 200, 256 (b = bp = 32 and b = 128, bp = 1),
      129 and 384, in both dtypes, and their times at L = 256; [e2e-long]
@@ -41,54 +47,49 @@ Phases (any failure raises and the script exits non-zero):
   9. [fast] short few-step chains (chord init, fine tail, noise_t_max,
      heun, ab2, ddim, posterior orientations, t-restart, trajectory),
      card against CPU for both flags;
-  10. [main-256]: the sampling main path on one 256-residue target, and a
-     few production fit() steps at L = 256, batch 8, per flag; [fast]:
-     K1 against its plain version at b = 512 (the recipes' widest shape),
-     then bench.py's three few-step recipes on the [main] target (chord-10
-     and 22-eval at 512 designs, the 25-step chain at 128);
+  10. [main-256]: the sampling main path on one 256-residue target, and
+     the captured production fit() steps at L = 256, batch 8, per flag;
+     [fast]: K1 against its plain version at b = 512 (the recipes' widest
+     shape), then bench.py's three few-step recipes on the [main] target
+     (chord-10 and 22-eval at 512 designs, the 25-step chain at 128), each
+     checked as [main] is;
   11. [design]: the design loop through the entry points: the fixture
      complex tests/fixtures/ab1_chothia.pdb featurized into a 128-residue
      patch, a seeded default_config() checkpoint, `cli.sample --rank -n 128
      --cdrs H3` and `cli.evaluate --json` on the card (files, scores, ranks,
-     the report, K1 launches per sample and score call, designs/s, designs
-     scored/s, relax and PDB-write times, a profile of one score call and
-     one relax call); then score_designs card vs CPU (8 designs, both
-     flags, float32 and bf16, injected ScoreDraws) and relax_ca card vs CPU;
+     the report, K1 launches per sample and score call); then score_designs
+     card vs CPU (8 designs, both flags, float32 and bf16, injected
+     ScoreDraws) and relax_ca card vs CPU;
   12. [data]: the training data path through the entry points: the
      family corpus (8 families x 32 = 256 complexes) through `cli.preprocess
      -j <cores> -k 128` (the C++ parser and featurizer, built from
      native/*.cpp in this run), the C++ routes against Python on 16 PDBs,
      `cli.train --production --max-steps 14` through the prefetch loader
      and with --device-pool (K1 launches, losses, the checkpoint and its
-     model_config.json, steps/s, samples/s, peak memory, the pool's bytes,
-     the loader's host ms per batch, a profile of one step), three pool
-     steps through fit() at fuse_ipa_layer=False (K2), `cli.sample -n 16`
-     from the trained checkpoint; then pool_train_step against train_step
-     on its rows on the card, two pool steps card vs CPU, and the loader's
-     card batches against the host batches;
+     model_config.json, the same rows at every step on both paths), three
+     pool steps through fit() at fuse_ipa_layer=False (K2), `cli.sample -n
+     16` from the trained checkpoint; then pool_train_step against
+     train_step on its rows on the card, two pool steps card vs CPU, and
+     the loader's card batches against the host batches;
   13. [selfcond]: self-conditioning.  Every variant (early fusion,
      geometry-only, late fusion, split trunk) card vs CPU at tiny widths
      for both kernel flags in float32 and bf16: a forward with an estimate
      (and one with |x0| ~ 1e4), the two-pass loss with its gradients per
      sample and per residue under mode dropout, a heun chain with sc_t_max;
-     production_config() training, plain then with early fusion and with
-     the split trunk (3 + 20 fit() steps, K1 6 / 12 / 24 a step, steps/s
-     beside the plain run's and [train]'s, a profile of one step, peak
-     memory; then 1 + 4 split-trunk steps at fuse_ipa_layer=False, K2 24 a
-     step); the [main] sampling path, plain then self-conditioned (K1 600 /
-     600 / 1,200 a call, designs/s beside the plain run's and [main]'s);
-     `cli.train --production --self-conditioning
-     --sc-split-trunk --sc-onset 2 --sc-rate-warmup 4 --max-steps 8` on
-     [data]'s patches and `cli.sample -n 16` from its checkpoint;
+     production_config() training with early fusion and with the split
+     trunk (3 + 20 fit() steps, K1 12 / 24 a step; then 1 + 4 split-trunk
+     steps at fuse_ipa_layer=False, K2 24 a step); the [main] sampling
+     path self-conditioned (K1 600 / 1,200 a call); `cli.train --production
+     --self-conditioning --sc-split-trunk --sc-onset 2 --sc-rate-warmup 4
+     --max-steps 8` on [data]'s patches and `cli.sample -n 16` from its
+     checkpoint;
   14. [parallel]: data parallelism.  (a) NCCL at world size 1 in this
      process: make_dp_train_step at production_config(), batch 32, bitwise
      against train_step for 3 steps from the end of the warmup (both under
-     deterministic algorithms),
-     20 timed steps of each, the all_reduce's device ms and bytes, device
-     events a step; sample_fanout_sharded (128 designs, T=100) and
-     score_fanout_sharded equal to sample() and score_designs(); (e) the
-     IPA layer's plain branch (no pair bias; pq != pv) card vs CPU; (b) two
-     ranks sharing the card over gloo (processes started with
+     deterministic algorithms); sample_fanout_sharded (128 designs, T=100)
+     and score_fanout_sharded equal to sample() and score_designs(); (e)
+     the IPA layer's plain branch (no pair bias; pq != pv) card vs CPU; (b)
+     two ranks sharing the card over gloo (processes started with
      --parallel-worker; NCCL refuses two ranks on one card): 3 DP steps at
      2 x 16 rows and one at fuse_ipa_layer=False, from the end of the
      warmup and under deterministic algorithms, against a host loop, the
@@ -110,54 +111,48 @@ Phases (any failure raises and the script exits non-zero):
      bf16 within twice the bf16 step's own distance from float32; the
      update from the tp gradients within 1e-5 of each leaf's scale), the
      replicated leaves bit-identical after every step, then each rank's
-     collectives a step, steps/s, busy ms, device events, idle share and
-     peak memory; (d) the sharded checkpoint restored into the ranks and
-     single-device, bitwise; (c) four ranks, dp = 2 x tp = 2, float32,
-     each step replayed with host_dp_loss_and_grads; (e) K1 and K2
-     against their plain versions at h = 4, 2, 1 (L = 128 and 256, both
+     collectives a step; (d) the sharded checkpoint restored into the
+     ranks and single-device, bitwise; (c) four ranks, dp = 2 x tp = 2,
+     float32, each step replayed with host_dp_loss_and_grads; (e) K1 and
+     K2 against their plain versions at h = 4, 2, 1 (L = 128 and 256, both
      shapes and dtypes), K1 at h = 8 against its two halves, and their
      times at those h beside h = 8's; (f) tp = 2 over NCCL, one rank per
      card, where there is more than one card;
   16. [rest]: the rest of the JAX package.  (a) sample_sharded of 8
      128-residue targets (default_config() bf16, T=100): NCCL at world
      size 1 in this process, bitwise sample() on the same batch, K1 600
-     launches a call at b = bp = 8, designs/s beside [main]'s; then two
-     gloo ranks sharing the card (--parallel-worker ... rest), 2 x 4
-     targets, bitwise the host loop of each rank's sample() from its rank
-     generator; (b) pool_train_step(steps_per_call=4) at
-     production_config(), batch 32, from a device pool of [train]'s batch
-     under deterministic algorithms, bitwise four one-step calls (state
-     and stacked metrics), K1 24 a call, one call at fuse_ipa_layer=False
-     (K2 24), steps/s of both beside [train]'s; (c) checked_fn around one
-     production training step (bitwise the unwrapped step; with a NaN
-     parameter it raises naming an op; its slowdown), assert_all_finite,
-     trace() with named_scope("denoiser") around one eager sample() of
-     the 25-step recipe (the Chrome trace holds the scope and K1's kernel),
+     launches a call at b = bp = 8; then two gloo ranks sharing the card
+     (--parallel-worker ... rest), 2 x 4 targets, bitwise the host loop of
+     each rank's sample() from its rank generator; (b)
+     pool_train_step(steps_per_call=4) at production_config(), batch 32,
+     from a device pool of [train]'s batch under deterministic algorithms,
+     bitwise four one-step calls (state and stacked metrics), K1 24 a
+     call, one call at fuse_ipa_layer=False (K2 24); (c) checked_fn around
+     one production training step (bitwise the unwrapped step; with a NaN
+     parameter it raises naming an op), assert_all_finite, trace() with
+     named_scope("denoiser") around one eager sample() of the 25-step
+     recipe (the Chrome trace holds the scope and K1's kernel),
      block_and_time and StepTimer beside CUDA events; (d) the
      compositional corpus (write_combo_corpus, 4 instances of each of 40
      train combinations) through cli.preprocess -k 128, cli.train
-     --production --max-steps 4 (K1 counted a step), the checkpoint, and
+     --production --max-steps 4 (K1 counted a step, the loader's copy
+     stream kept off the graph capture stream), the checkpoint, and
      cli.sample -n 16 from it on a held-out combination's patch;
-  17. [graph]: the compiled step bodies.  Every phase above runs
-     on the card's default path, the step bodies replayed as captured
-     CUDA graphs (utils/graphs.py); here each is held against its eager
-     run (graphs=False) from the same seed under deterministic
-     algorithms, bitwise: (a) sample() at [main]'s size in bf16 and
-     float32 (K1 600 a call, the profiler's count the same), the [fast]
-     recipes, [main-256], self-conditioning (early fusion; the split trunk
-     with Heun) at two IPA layers, fuse_ipa_layer=False (the 25-step
-     recipe), and a second call with other weights in the same tensors;
-     (b) make_train_step over 5 steps of [train]'s batch and
-     make_eval_step at both flags and in both dtypes,
-     make_pool_train_step(4) (one replay a call) against 8 train_steps at
-     both flags in bf16, and the update with its scalars on the card
-     against the same update with them as host floats; (c) each path's
-     designs/s or steps/s graphed beside eager (timed in turns), busy ms,
-     idle share and device events of a graphed call where no earlier
-     phase profiles that path and of an eager call at [main] bf16,
-     chord-10, sc early and the training steps, the capture's seconds,
-     the pool's size and the peak memory, and the card's reserved memory
-     across three fit() runs from new states;
+  17. [graph]: the compiled step bodies.  Every phase above runs on the
+     card's default path, the step bodies replayed as captured CUDA graphs
+     (utils/graphs.py); here each is held against its eager run
+     (graphs=False) from the same seed under deterministic algorithms,
+     bitwise: (a) sample() at [main]'s size in bf16 (K1 600 a call, the
+     profiler's count the same, and a second call with other weights in
+     the same tensors) and float32, the [fast] recipes, [main-256],
+     self-conditioning (early fusion; the split trunk with Heun) at two
+     IPA layers, and fuse_ipa_layer=False (the 25-step recipe); (b)
+     make_train_step over 5 steps of [train]'s batch and make_eval_step at
+     both flags and in both dtypes, make_pool_train_step(4) (one replay a
+     call) against 8 train_steps at both flags in bf16, and the update
+     with its scalars on the card against the same update with them as
+     host floats; (c) the card's reserved memory across three fit() runs
+     from new states (the capture pool must not grow a run);
   18. [ga]: the official DiffAb network (official_config()): K1 with
      direction rows against its plain version (b = 100, h = 12, L = 256 in
      both dtypes; L = 77; b = 128, L = 128 in bf16 off the persistent
@@ -166,15 +161,16 @@ Phases (any failure raises and the script exits non-zero):
      sample() graphed bitwise eager with 600 GA blocks and 600 one-pass
      attention calls a call, the official call's K1 launches timed
      (`attend_time`), and sample(), score_designs, fit(),
-     `cli.train --official` and `cli.sample --official` on the card
-     (`python3 chip_smoke.py --ga` runs the build and this phase alone);
-  19. a `kernels` JSON line, the card line, and the final JSON line.
+     `cli.train --official` and `cli.sample --official` on the card;
+  19. a `kernels` JSON line (launch counts by path, largest errors, the
+     kernel times), the card line, and the final JSON line.
 
 The L = 128 kernel times (phase 7) run where they ran before the long-patch
 and few-step phases existed, so that two versions of this script read them
-after the same work.  To time another checkout's package with this script's
-phase, load this file with importlib from inside that checkout and call
-kernel_times(torch, card, 32).
+after the same work.  To time another checkout's kernels with this
+script's functions (kernel_times, long_patch_phase, tp_kernels,
+attend_time), load this file with importlib from inside that checkout and
+call, for example, kernel_times(torch, card, 32).
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
 """
@@ -193,14 +189,9 @@ import sys
 import tempfile
 import time
 
-HERE = os.path.dirname(os.path.abspath(__file__))
+from benchmark.lib import work  # the card's peaks, K1's operations and bytes
 
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores; float32 exact to the
-# checks' 1e-4 on the tensor cores as 3xTF32 (three TF32 products for each
-# product, a third of the 494.7 TFLOP/s TF32 rate), the fastest
-# float32-exact route on this card; HBM3 bandwidth
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 494.7e12 / 3}
-PEAK_BYTES = 3.35e12
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 N_DESIGNS, L_MAIN, N_GENERATE = 128, 128, 8
 
@@ -238,12 +229,12 @@ K2_DESIGN = ("one launch, one block of 8 warps per (head, design) (all 128 query
              "float32-exact to 1e-4")
 
 
-def bound_ms(flops, n_bytes, dtype_name):
-    """The least time the card could take: the larger of the operations
-    over the dtype's peak and the bytes over the HBM rate.  Returns (ms,
-    what bounds it, operations ms, bytes ms)."""
-    t_o, t_b = flops / PEAK_FLOPS[dtype_name] * 1e3, n_bytes / PEAK_BYTES * 1e3
-    return max(t_o, t_b), "operations" if t_o >= t_b else "bytes", t_o, t_b
+def bound_parts(flops, n_bytes, dtype_name):
+    """`work.bound_s` in ms, with what bounds it and its two terms: (ms,
+    "operations" or "bytes", operations ms, bytes ms)."""
+    t_o, t_b = flops / work.PEAK_FLOPS[dtype_name] * 1e3, n_bytes / work.PEAK_BYTES * 1e3
+    return (work.bound_s(flops, n_bytes, dtype_name) * 1e3,
+            "operations" if t_o >= t_b else "bytes", t_o, t_b)
 
 
 def card_line() -> str:
@@ -277,19 +268,17 @@ def sass_counts(build) -> dict:
     return counts
 
 
-def cuda_time_ms(fn, iters: int, warmup: int = 2, queued: bool = True) -> float:
+def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Device time per call of fn over `iters` back-to-back calls (CUDA
-    events).  queued: the calls wait behind a ~10 ms sleep kernel, so the
-    time is the card's and not the host's launch rate; otherwise each call
-    starts when the host issues it (how the earlier K1 design was timed)."""
+    events), queued behind a ~10 ms sleep kernel, so that the time is the
+    card's and not the host's launch rate."""
     import torch
 
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    if queued:
-        torch.cuda._sleep(20_000_000)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -340,8 +329,7 @@ def device_timeline(torch, fn, iters, names):
     return out
 
 
-def layer_inputs(torch, b, bp, L, d, h, ds, p, dtype, bias_dtype, seed, n_masked,
-                 directions=False):
+def layer_inputs(torch, b, bp, L, d, h, ds, p, dtype, seed, n_masked, directions=False):
     """Random fused-layer inputs on the card: orthonormal frames,
     translations of magnitude ~5, the last n_masked keys padded; with
     `directions`, direction rows packed too (drawn after the others)."""
@@ -367,30 +355,10 @@ def layer_inputs(torch, b, bp, L, d, h, ds, p, dtype, bias_dtype, seed, n_masked
         trans=(f(b, L, 3) * 5).to(dtype).cuda(),
         mask=mask.to(dtype).cuda(),
         wts=wts,
-        bias=f(bp, h, L, L).to(bias_dtype).cuda(),
+        bias=f(bp, h, L, L).to(dtype).cuda(),
         scale_total=scales[2],
     )
     return args
-
-
-def ipa_layer_flops_bytes(b, bp, L, d, h, ds, p, itemsize, bias_itemsize):
-    """Operations and compulsory bytes of one fused-layer call (each input
-    read once, each output written once)."""
-    fq = h * (ds + 3 * p)
-    flops = b * (
-        2 * L * d * 3 * fq  # Q/K/V projections
-        + 2 * h * L * L * (ds + 3 * p + 3)  # augmented logits
-        + 2 * h * L * L * (ds + 3 * p)  # weighted sums
-        + 2 * L * d * h * (ds + 4 * p)  # output projections
-    )
-    n_bytes = (
-        b * L * d * itemsize * 2  # x in, acc out
-        + b * h * L * L * itemsize  # attn out
-        + bp * h * L * L * bias_itemsize  # bias
-        + (d * 3 * fq + h * (ds + 4 * p) * d) * itemsize  # weights
-        + b * L * 13 * itemsize + h * 4  # rot, trans, mask, g
-    )
-    return flops, n_bytes
 
 
 def check_layer(torch, name, args, bf16: bool):
@@ -449,7 +417,7 @@ def check_layer(torch, name, args, bf16: bool):
     return max(d_attn.max().item(), d_acc.max().item())
 
 
-def attention_inputs(torch, b, bp, L, h, ds, p, dtype, bias_dtype, seed, n_masked):
+def attention_inputs(torch, b, bp, L, h, ds, p, dtype, seed, n_masked):
     """Random attention-core operands on the card, assembled from
     projections and global-frame points of magnitude ~5 by the wrapper's
     own `augmented_operands` in `dtype`; the last n_masked keys padded."""
@@ -464,7 +432,7 @@ def attention_inputs(torch, b, bp, L, h, ds, p, dtype, bias_dtype, seed, n_maske
     ops = augmented_operands(*(t.to(dtype) for t in proj), f(h).abs() + 0.5,
                              mask.to(dtype), *scales)
     return dict(q_aug=ops[0].cuda(), k_aug=ops[1].cuda(), v_s=ops[2].cuda(),
-                v_p=ops[3].cuda(), bias=f(bp, h, L, L).to(bias_dtype).cuda(),
+                v_p=ops[3].cuda(), bias=f(bp, h, L, L).to(dtype).cuda(),
                 scale_total=scales[2])
 
 
@@ -537,25 +505,24 @@ def long_patch_phase(torch, card):
                 tag = f"[long] {'bf16' if bf else 'f32'} L={L} b={b} bp={bp}"
                 err1 = max(err1, check_layer(
                     torch, f"{tag} K1", layer_inputs(torch, b, bp, L, **widths, dtype=dtype,
-                                                     bias_dtype=dtype, seed=200 + i,
-                                                     n_masked=9), bf16=bf))
+                                                     seed=200 + i, n_masked=9), bf16=bf))
                 err2 = max(err2, check_attention(
                     torch, f"{tag} K2",
                     attention_inputs(torch, b, bp, L, widths["h"], widths["ds"], widths["p"],
-                                     dtype, dtype, 300 + i, 9), 9, bf16=bf))
+                                     dtype, 300 + i, 9), 9, bf16=bf))
         times = {}
         L = 256
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).removeprefix("torch.")
             for label, b, bp in (("train", 32, 32), ("sample", N_DESIGNS, 1)):
-                la = layer_inputs(torch, b, bp, L, **widths, dtype=dtype, bias_dtype=dtype,
+                la = layer_inputs(torch, b, bp, L, **widths, dtype=dtype,
                                   seed=400 + b, n_masked=0)
                 aa = attention_inputs(torch, b, bp, L, widths["h"], widths["ds"], widths["p"],
-                                      dtype, dtype, 500 + b, 0)
+                                      dtype, 500 + b, 0)
                 for kname, kern, plain, (fl, nb) in (
                         ("ipa_fused_layer", lambda: op.fused_ipa_layer_packed(**la),
                          lambda: op.fused_ipa_layer_packed_reference(**la),
-                         ipa_layer_flops_bytes(b, bp, L, **widths, itemsize=dtype.itemsize,
+                         work.ipa_layer_flops_bytes(b, bp, L, **widths, itemsize=dtype.itemsize,
                                                bias_itemsize=dtype.itemsize)),
                         ("ipa_attention", lambda: k2.ipa_attention_core(**aa),
                          lambda: k2.ipa_attention_core_reference(**aa),
@@ -565,7 +532,7 @@ def long_patch_phase(torch, card):
                     km = cuda_time_ms(kern, 20)
                     pm = cuda_time_ms(plain, 3)
                     km2 = cuda_time_ms(kern, 20)
-                    bnd, by, t_o, t_b = bound_ms(fl, nb, dname)
+                    bnd, by, t_o, t_b = bound_parts(fl, nb, dname)
                     times[(kname, dname, label)] = dict(ms=min(km, km2), plain_ms=pm,
                                                         bound_ms=bnd, bound_by=by)
                     print(f"[time] [long] {kname} b={b} bp={bp} L={L} {dname} ({label} shape) "
@@ -701,57 +668,22 @@ class RecordingLogger:
               f"orient {row['train/orientations_loss']:.4f})")
 
 
-def profile_device(torch, fn, wall_s, label, top=12, sum_of=(), return_events=False,
-                   count_of=None):
-    """Device time by kernel over one call of fn (torch.profiler), and the
-    idle share of an unprofiled call of wall_s seconds (None: no idle
-    share).  Only device-side events (kernels, copies) are traced and
-    summed: recording the CPU ops as well gives the same device rows, and
-    reading them back took longer than the profiled call.  sum_of: kernel
-    names whose events and ms are also printed as one sum.  Returns the
-    device busy ms (None when the profiler reported none), with
-    return_events (busy ms, device events), and with `count_of` (a kernel
-    name) also the number of that kernel's events."""
+def profiled_kernels(torch, fn, name):
+    """The device events whose kernel name holds `name` in one call of fn
+    under torch.profiler (device events only), or None where the profiler
+    reported no device time at all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    prof_wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((dev_us, ev.key, ev.count))
-    rows.sort(reverse=True)
-    busy_us = sum(r[0] for r in rows)
-    if busy_us > 0:
-        idle = ""
-        if wall_s is not None:
-            idle = (f"; median unprofiled call {wall_s * 1e3:.1f} ms -> device idle share "
-                    f"{max(0.0, 1 - busy_us / (wall_s * 1e6)):.3f}")
-        print(f"[profile] {label}: device busy {busy_us / 1e3:.3f} ms in "
-              f"{sum(r[2] for r in rows)} device events{idle} (profiled wall "
-              f"{prof_wall_us / 1e3:.1f} ms)")
-        for dev_us, key, count in rows[:top]:
-            print(f"[profile]   {dev_us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
-        if sum_of:
-            mine = [r for r in rows if any(name in r[1] for name in sum_of)]
-            print(f"[profile]   {' + '.join(sum_of)}: {sum(r[0] for r in mine) / 1e3:.3f} ms in "
-                  f"{sum(r[2] for r in mine)} launches")
-        n = sum(r[2] for r in rows if count_of and count_of in r[1])
-        if return_events:
-            return (busy_us / 1e3, sum(r[2] for r in rows)) + ((n,) if count_of else ())
-        return busy_us / 1e3
-    print(f"[profile] {label}: device time not measured (profiler reported none)")
-    return ((None, None) + ((None,) if count_of else ())) if return_events else None
+    dev_us = lambda ev: getattr(ev, "self_device_time_total",
+                                getattr(ev, "self_cuda_time_total", 0))
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA and dev_us(ev) > 0]
+    return sum(ev.count for ev in evs if name in ev.key) if evs else None
 
 
 def denoiser_calls(t_seq, opts):
@@ -888,19 +820,16 @@ def layer_calls(mcfg, passes=1):
     return passes * mcfg.n_ipa_layers * (2 if mcfg.sc_split_trunk else 1)
 
 
-def training_main_path(torch, card, tag, fuse, L, n_warm, n_timed, batch_size=None,
-                       profile=True, model=None):
+def training_main_path(torch, tag, fuse, L, n_warm, n_steps, batch_size=None, model=None):
     """production_config() training through fit() on one synthetic batch of
     L-residue patches (batch_size, default the config's 32), from a seeded
     init, its model changed by `model` (ModelConfig fields): n_warm warm-up
-    steps, then n_timed timed steps with the launch counts set to 0 just
-    before and read just after (a self-conditioned step runs the denoiser
-    twice); loss trajectory, peak memory and state checks; a profile of one
-    more step.  Returns ((K1, K2) launches, steps/s)."""
+    steps (the first captures the step), then n_steps steps with the launch
+    counts set to 0 just before and read just after (a self-conditioned
+    step runs the denoiser twice); loss trajectory and state checks.
+    Returns (K1, K2) launches of the n_steps steps."""
     from diffab_pytorch_tpu_torch import config as C
     from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
-    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
-    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
     from diffab_pytorch_tpu_torch.train.harness import DiffAb
     from diffab_pytorch_tpu_torch.train.trainer import fit
 
@@ -915,31 +844,21 @@ def training_main_path(torch, card, tag, fuse, L, n_warm, n_timed, batch_size=No
     harness = DiffAb(hcfg)
     init_params = {k: v.detach().clone() for k, v in harness.init(hcfg.train.seed).params.items()}
     logger = RecordingLogger(f"{tag} {kname}")
-    t0 = time.perf_counter()
     state = fit(harness, pool, max_steps=n_warm, logger=logger)
     torch.cuda.synchronize()
-    print(f"{tag} {kname}: {n_warm} warm-up steps {time.perf_counter() - t0:.2f} s")
-    torch.cuda.reset_peak_memory_stats()
-    op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
+    zero_launches()
+    state = fit(harness, pool, max_steps=n_warm + n_steps, logger=logger, state=state)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state = fit(harness, pool, max_steps=n_warm + n_timed, logger=logger, state=state)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    counts = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
-    steps_per_s = n_timed / wall_s
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"{tag} {kname}: {n_timed} steps of production_config() (bf16, batch {pb}, "
-          f"L={L}) in {wall_s:.4f} s: {steps_per_s:.3f} steps/s, "
-          f"{steps_per_s * pb:.1f} samples/s on {card}; peak memory {peak_gb:.2f} GB")
+    counts = k_launches()
     per_step = layer_calls(hcfg.model, 2 if hcfg.model.self_conditioning else 1)
-    want = (per_step * n_timed, 0) if fuse is None else (0, per_step * n_timed)
-    print(f"{tag} {kname}: launches ipa_fused_layer {counts[0]}, ipa_attention "
-          f"{counts[1]} (expected {want[0]}, {want[1]})")
+    want = (per_step * n_steps, 0) if fuse is None else (0, per_step * n_steps)
+    print(f"{tag} {kname}: {n_steps} steps of production_config() (bf16, batch {pb}, L={L}) "
+          f"after {n_warm}: launches ipa_fused_layer {counts[0]}, ipa_attention {counts[1]} "
+          f"(expected {want[0]}, {want[1]})")
     losses = [row["train/loss"] for _, row in logger.rows]
     moved = sum(not torch.equal(state.params[k].detach(), v) for k, v in init_params.items())
     tchecks = {
-        "steps": state.step == n_warm + n_timed,
+        "steps": state.step == n_warm + n_steps,
         "losses_finite": bool(losses) and all(map(math.isfinite, losses)),
         "params_finite": all(bool(torch.isfinite(v).all()) for v in state.params.values()),
         "params_moved": moved >= 0.9 * len(init_params),
@@ -951,36 +870,25 @@ def training_main_path(torch, card, tag, fuse, L, n_warm, n_timed, batch_size=No
           f"{moved}/{len(init_params)} parameter tensors moved; checks {tchecks}")
     if not all(tchecks.values()):
         raise RuntimeError(f"{tag} training main path check failed: {tchecks}")
-    if profile:  # one more step of fit()'s: a replay of the graph it captured
-        gen = torch.Generator(device="cuda").manual_seed(99)
-        step, step_state = harness.make_train_step(), state
-
-        def one_step():
-            nonlocal step_state
-            step_state, _ = step(step_state, pool[0], harness.draw(pool[0], gen))
-        profile_device(torch, one_step, wall_s / n_timed, f"{tag} one graphed training step, "
-                       f"{kname}, L={L}", sum_of=K1_LAUNCHES if fuse is None else ())
-    return counts, steps_per_s
+    return counts
 
 
-def sampling_main_path(torch, card, compute_dtype, n_calls, tag, L=L_MAIN,
-                       n_designs=N_DESIGNS, model=None, **opts):
+def sampling_main_path(torch, compute_dtype, tag, L=L_MAIN, n_designs=N_DESIGNS, model=None,
+                       **opts):
     """The sampling main path: CDR-H3 codesign sample() with
     default_config() (its model in `compute_dtype`, changed by `model`;
     float32 is default_config() exactly as it stands), one synthetic
     L-residue target (default 128), n_designs designs sharing the context
     (default 128), T=100 and the sampler options `opts` (none: the full
-    chain from the prior), seeded random weights.  One warm-up call, then n_calls timed
-    calls with the launch counts set to 0 just before them and read just
-    after; output checks on the last; a profile of one more call.  Returns
-    ((K1, K2) launches over the timed calls, designs/s of the median
-    call)."""
+    chain from the prior), seeded random weights.  One warm-up call (it
+    captures the step graphs), then one call with the launch counts set to
+    0 just before it and read just after, and output checks on it.
+    Returns (K1, K2) launches of that call."""
     from diffab_pytorch_tpu_torch import config as C
     from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
     from diffab_pytorch_tpu_torch.diffusion.orientation import make_orientation_tables
     from diffab_pytorch_tpu_torch.diffusion.schedule import cosine_variance_schedule
     from diffab_pytorch_tpu_torch.models.diffab import DiffAbModel
-    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
     from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
     from diffab_pytorch_tpu_torch.sampling.sampler import sample, timestep_schedule
     from diffab_pytorch_tpu_torch.weights import init_parameters
@@ -988,13 +896,10 @@ def sampling_main_path(torch, card, compute_dtype, n_calls, tag, L=L_MAIN,
     cfg = C.default_config()
     mcfg = dataclasses.replace(cfg.model, compute_dtype=compute_dtype, **(model or {}))
     dcfg = cfg.diffusion
-    t0 = time.perf_counter()
     model = init_parameters(DiffAbModel(mcfg), torch.Generator().manual_seed(0))
     sched = cosine_variance_schedule(dcfg.T, s=dcfg.s, beta_max=dcfg.beta_max, device="cuda")
     tables = make_orientation_tables(sched)
     target = synthetic_batch(0, 1, L, mcfg.n_atoms, n_generate=N_GENERATE, device="cuda")
-    print(f"{tag} default_config(), compute dtype {mcfg.compute_dtype}: set-up (model, IGSO(3) "
-          f"tables, target) {time.perf_counter() - t0:.2f} s")
 
     def run(seed):
         return sample(model, sched, tables, target, n_designs=n_designs,
@@ -1002,33 +907,22 @@ def sampling_main_path(torch, card, compute_dtype, n_calls, tag, L=L_MAIN,
 
     if tag == "[main]" and compute_dtype == "bfloat16":
         check_persistent_path(torch, tag)
-    t0 = time.perf_counter()
     run(10)
     torch.cuda.synchronize()
-    print(f"{tag} warm-up sample() {time.perf_counter() - t0:.2f} s")
-    op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
+    zero_launches()
     paths0 = k1_paths()
-    call_s = []
-    for i in range(n_calls):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = run(11 + i)
-        torch.cuda.synchronize()
-        call_s.append(time.perf_counter() - t0)
-    launches = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+    out = run(11)
+    torch.cuda.synchronize()
+    launches = k_launches()
     paths = k1_paths_since(paths0)
     t_seq = timestep_schedule(opts.get("t_start", dcfg.T), opts.get("n_steps"),
                               opts.get("step_schedule", "uniform"),
                               opts.get("step_schedule_p", 0.5), opts.get("n_fine_tail"))
-    per_call = layer_calls(mcfg, denoiser_calls(t_seq.tolist(), opts))
-    expected = (n_calls * per_call, 0)
-    wall = sorted(call_s)[n_calls // 2]  # median call
-    print(f"{tag} {n_calls} x sample(n_designs={n_designs}, T={dcfg.T}, L={L}, "
-          f"{len(t_seq)} steps {opts}) in {mcfg.compute_dtype}: "
-          f"{', '.join(f'{c:.4f}' for c in call_s)} s; median {n_designs / wall:.2f} designs/s "
-          f"on {card}; ipa_fused_layer launches {launches[0]} ({launches[0] / n_calls:g} per "
-          f"call), ipa_attention launches {launches[1]} (expected {expected[0]}, {expected[1]}); "
-          f"K1 launch-1 paths {paths}")
+    expected = (layer_calls(mcfg, denoiser_calls(t_seq.tolist(), opts)), 0)
+    print(f"{tag} sample(n_designs={n_designs}, T={dcfg.T}, L={L}, {len(t_seq)} steps {opts}) "
+          f"in {mcfg.compute_dtype}: ipa_fused_layer launches {launches[0]}, ipa_attention "
+          f"launches {launches[1]} (expected {expected[0]}, {expected[1]}); K1 launch-1 paths "
+          f"{paths}")
     if launches != expected:
         raise RuntimeError(f"main path launched (fused layer, attention core) {launches} times, "
                            f"expected {expected}")
@@ -1058,9 +952,7 @@ def sampling_main_path(torch, card, compute_dtype, n_calls, tag, L=L_MAIN,
     print(f"{tag} output checks {checks}")
     if not all(checks.values()):
         raise RuntimeError(f"main path output check failed: {checks}")
-    profile_device(torch, lambda: run(20), wall, f"{tag} one {mcfg.compute_dtype} sample() call",
-                   sum_of=K1_LAUNCHES)
-    return launches, n_designs / wall
+    return launches
 
 
 DESIGN_FIXTURE = os.path.join("tests", "fixtures", "ab1_chothia.pdb")
@@ -1068,47 +960,31 @@ N_DESIGN_CHECK = 8  # designs in the card-vs-CPU score and relax checks
 
 
 class Probe:
-    """Wraps a callable of the design loop: synchronizes the card around
-    each call and records its wall time, its K1 and K2 launches and its
-    arguments (for a profiled call after the run)."""
+    """Wraps a callable of the design loop and records the K1 and K2
+    launches of each call."""
 
-    def __init__(self, torch, fn):
-        self.torch, self.fn, self.calls = torch, fn, []
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
 
     def __call__(self, *args, **kwargs):
-        from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
-        from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
-
-        self.torch.cuda.synchronize()
-        before = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
-        t0 = time.perf_counter()
+        before = k_launches()
         out = self.fn(*args, **kwargs)
-        self.torch.cuda.synchronize()
-        self.calls.append(dict(
-            s=time.perf_counter() - t0, args=args, kwargs=kwargs,
-            launches=(op.fused_ipa_layer_packed.launches - before[0],
-                      k2.ipa_attention_core.launches - before[1])))
+        self.calls.append(tuple(b - a for a, b in zip(before, k_launches())))
         return out
 
-    def total_s(self):
-        return sum(c["s"] for c in self.calls)
 
-
-def design_loop(torch, card, tmp):
+def design_loop(torch, tmp):
     """[design] 1-2: featurize the fixture complex (chains H and L, antigen
     A) into a 128-residue patch with the port's structure modules, write
     seeded default_config() weights in the port's checkpoint format, then
     `cli.sample --rank -n 128 --cdrs H3` and `cli.evaluate --json` on the
-    card, through their main().  Returns ({path: (K1, K2) launches}, the
-    score call's and the relax call's records (`Probe.calls` entries))."""
+    card, through their main().  Returns {path: (K1, K2) launches}."""
     import contextlib
     import io
 
     from diffab_pytorch_tpu_torch import config as C
     from diffab_pytorch_tpu_torch.cli import evaluate as evaluate_cli
     from diffab_pytorch_tpu_torch.cli import sample as sample_cli
-    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
-    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
     from diffab_pytorch_tpu_torch.sampling.scoring import default_t_grid
     from diffab_pytorch_tpu_torch.structure import antibody
     from diffab_pytorch_tpu_torch.structure.patch import featurize_patch, save_patch
@@ -1116,7 +992,6 @@ def design_loop(torch, card, tmp):
     from diffab_pytorch_tpu_torch.train.harness import DiffAb
 
     tag, n = "[design]", N_DESIGNS
-    t0 = time.perf_counter()
     complex_ = antibody.from_pdb(os.path.join(HERE, DESIGN_FIXTURE), "H", "L", ["A"],
                                  keep_fv_only=True)
     patch = featurize_patch(complex_, patch_size=L_MAIN)
@@ -1128,11 +1003,9 @@ def design_loop(torch, card, tmp):
     ckpt.save_model_config(ck, cfg.model)
     print(f"{tag} {DESIGN_FIXTURE}: {complex_.n_residues} residues -> a {L_MAIN}-residue patch "
           f"({int(patch['residue_mask'].sum())} valid, {int((patch['cdr_idx'] == 3).sum())} in "
-          f"H3); seeded default_config() checkpoint; set-up {time.perf_counter() - t0:.2f} s")
+          f"H3); seeded default_config() checkpoint")
 
-    probes = {"sample": Probe(torch, DiffAb.sample), "score": Probe(torch, DiffAb.score_designs),
-              "relax": Probe(torch, sample_cli.relax_ca),
-              "write_pdb": Probe(torch, sample_cli.write_pdb)}
+    probes = {"sample": Probe(DiffAb.sample), "score": Probe(DiffAb.score_designs)}
     out_dir = os.path.join(tmp, "designs")
     argv = ["--patch", patch_path, "--checkpoint-dir", ck, "-n", str(n), "--cdrs", "H3",
             "--rank", "-o", out_dir, "-s", "0"]
@@ -1140,32 +1013,19 @@ def design_loop(torch, card, tmp):
     try:
         DiffAb.sample = lambda self, *a, **k: probes["sample"](self, *a, **k)
         DiffAb.score_designs = lambda self, *a, **k: probes["score"](self, *a, **k)
-        sample_cli.relax_ca, sample_cli.write_pdb = probes["relax"], probes["write_pdb"]
-        op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        zero_launches()
         with contextlib.redirect_stdout(log):
             rc = sample_cli.main(argv)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        total = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+        total = k_launches()
     finally:
         DiffAb.sample, DiffAb.score_designs = probes["sample"].fn, probes["score"].fn
-        sample_cli.relax_ca, sample_cli.write_pdb = probes["relax"].fn, probes["write_pdb"].fn
     print("\n".join(f"{tag} cli.sample: {line}" for line in log.getvalue().splitlines()
                     if line.startswith("[sample]")))
-    s_call, sc_call = probes["sample"].calls[0], probes["score"].calls[0]
-    print(f"{tag} cli.sample {' '.join(argv[4:])}: wall {wall:.3f} s (card: {card})")
-    print(f"{tag} sample() {s_call['s']:.3f} s: {n / s_call['s']:.3f} designs/s (card: {card})")
-    print(f"{tag} score_designs() {sc_call['s']:.3f} s: {n / sc_call['s']:.3f} designs scored/s "
-          f"(card: {card})")
-    print(f"{tag} relax_ca {probes['relax'].total_s() * 1e3:.2f} ms (card: {card})")
-    print(f"{tag} {len(probes['write_pdb'].calls)} PDB writes "
-          f"{probes['write_pdb'].total_s() * 1e3:.2f} ms (card: {card})")
     grid_points = 2 * len(default_t_grid(cfg.diffusion.T))
     want = {"sample": (cfg.model.n_ipa_layers * cfg.diffusion.T, 0),
             "score": (cfg.model.n_ipa_layers * grid_points, 0)}
-    got = {"sample": s_call["launches"], "score": sc_call["launches"]}
+    got = {"sample": probes["sample"].calls[0], "score": probes["score"].calls[0]}
     print(f"{tag} launches K1, K2: sample call {got['sample']}, score call {got['score']}, whole "
           f"CLI {total} (expected {want['sample']}, {want['score']}, the sum)")
 
@@ -1174,15 +1034,13 @@ def design_loop(torch, card, tmp):
     scores = json.load(open(os.path.join(out_dir, "scores.json")))
     values = [v for e in scores.values() for k, v in e.items() if k != "rank"]
     report_path = os.path.join(tmp, "report.json")
-    t0 = time.perf_counter()
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
         rc_eval = evaluate_cli.main(["--native-patch", patch_path, "--designs", out_dir,
                                      "--cdrs", "H3", "--json", report_path])
-    eval_s = time.perf_counter() - t0
     agg = json.load(open(report_path))["aggregate"]
     rows = json.load(open(report_path))["designs"]
-    print(f"{tag} cli.evaluate --json: {eval_s:.3f} s; " + "; ".join(
+    print(f"{tag} cli.evaluate --json: " + "; ".join(
         line for line in log.getvalue().splitlines()[-3:-1]))
     checks = {
         "rc": rc == 0 and rc_eval == 0,
@@ -1201,8 +1059,7 @@ def design_loop(torch, card, tmp):
                              "rank_spearman")}))
     if not all(checks.values()):
         raise RuntimeError(f"{tag} the design loop failed a check: {checks}")
-    return ({"design_cli": got["sample"], "score": got["score"]}, sc_call,
-            probes["relax"].calls[0])
+    return {"design_cli": got["sample"], "score": got["score"]}
 
 
 def design_card_vs_cpu(torch, tmp):
@@ -1288,14 +1145,10 @@ def design_card_vs_cpu(torch, tmp):
     # on the CPU both flags run plain versions of one layer function: one
     # float32 reference serves both; in bf16 the two plain versions round
     # in different places, so each flag's bound comes from its own
-    t0 = time.perf_counter()
     cpu32 = run(None, "float32", "cpu")[0]
-    cpu_s = time.perf_counter() - t0
     worst = {}
     for fuse in (None, False):
-        t0 = time.perf_counter()
         cpu = {"float32": cpu32, "bfloat16": run(fuse, "bfloat16", "cpu")[0]}
-        cpu_s += time.perf_counter() - t0
         for dt in ("float32", "bfloat16"):
             card, ran = run(fuse, dt, "cuda")
             want = (6 * pts, 0) if fuse is None else (0, 6 * pts)
@@ -1322,7 +1175,6 @@ def design_card_vs_cpu(torch, tmp):
             if not ok:
                 raise RuntimeError(f"{tag} score_designs on the card ({dt}, fuse_ipa_layer="
                                    f"{fuse}) disagrees with the CPU plain path")
-    print(f"{tag} the CPU references took {cpu_s:.2f} s (3 score_designs calls)")
 
     # relax_ca on 8 designs of the native: H3's CAs moved by ~0.3 A, two
     # loops squeezed toward their first residue, and two torn (one designed
@@ -1368,51 +1220,26 @@ def design_card_vs_cpu(torch, tmp):
     return worst
 
 
-def design_phase(torch, card):
+def design_phase(torch):
     """[design]: the design loop through the port's entry points on the
-    card, its device profile, and its card-vs-CPU checks (see
-    design_loop and design_card_vs_cpu).  Returns {path: (K1, K2)
-    launches}."""
-    import tempfile
-
-    from diffab_pytorch_tpu_torch.structure.relax import relax_ca
-
-    laps = [time.perf_counter()]
+    card and its card-vs-CPU checks (see design_loop and
+    design_card_vs_cpu).  Returns {path: (K1, K2) launches}."""
     with tempfile.TemporaryDirectory() as tmp:
-        launches, score_call, relax_call = design_loop(torch, card, tmp)
-        laps.append(time.perf_counter())
-        profile_device(torch, lambda: score_call["args"][0].score_designs(
-            *score_call["args"][1:], **score_call["kwargs"]), score_call["s"],
-            "[design] one score_designs() call (128 designs, the default 16 grid points, "
-            "float32)")
-        laps.append(time.perf_counter())
-        profile_device(torch, lambda: relax_ca(*relax_call["args"], **relax_call["kwargs"]),
-                       relax_call["s"], "[design] one relax_ca() call (128 designs, 200 "
-                       "iterations)")
-        laps.append(time.perf_counter())
+        launches = design_loop(torch, tmp)
         design_card_vs_cpu(torch, tmp)
-        laps.append(time.perf_counter())
-    loop_s, prof_score_s, prof_relax_s, check_s = (b - a for a, b in zip(laps, laps[1:]))
-    print(f"[design] phase {laps[-1] - laps[0]:.2f} s: the CLIs {loop_s:.2f} s, the profiles of "
-          f"the score and relax calls {prof_score_s:.2f} and {prof_relax_s:.2f} s, card-vs-CPU "
-          f"checks {check_s:.2f} s")
     return launches
 
 
 DATA_FAMILIES, DATA_PER_FAMILY = 8, 32  # the [data] corpus: 256 complexes
 DATA_STEPS = 14  # about two epochs: 231 training patches at batch 32 give 7 steps an epoch
-DATA_WINDOW = 7  # steps timed after the first epoch's validation pass
 
 
 class StepRecorder:
     """Wraps the step factory that fit() calls (DiffAb.make_train_step, or
     with pool=True make_pool_train_step) inside a training run, without
-    waiting for the card: each call of the step it makes records a CUDA
-    event at its entry (where the card reaches the step: a replayed step is
-    queued faster than the card runs it, so host times would read the
-    queue), its K1 and K2
-    launches, its loss, its arguments and a checksum of its batch (a pool
-    step's rows gathered for it; tensors, read after the run)."""
+    waiting for the card: each call of the step it makes records its K1
+    and K2 launches, its loss, its arguments and a checksum of its batch (a
+    pool step's rows gathered for it; tensors, read after the run)."""
 
     def __init__(self, factory, pool=False):
         self.factory, self.pool, self.calls = factory, pool, []
@@ -1421,14 +1248,10 @@ class StepRecorder:
         step = self.factory(harness, *args, **kwargs)
 
         def recorded(state, *step_args):
-            import torch
-
-            entry = torch.cuda.Event(enable_timing=True)
-            entry.record()
             before = k_launches()
             out, metrics = step(state, *step_args)
             batch = step_args[0].gather_rows(step_args[1]) if self.pool else step_args[0]
-            self.calls.append(dict(event=entry, loss=metrics["train/loss"],
+            self.calls.append(dict(loss=metrics["train/loss"],
                                    args=(harness, state, *step_args),
                                    rows=(batch.xyz.double().sum(), batch.seq_idx.sum()),
                                    launches=tuple(b - a for a, b in zip(before, k_launches()))))
@@ -1439,35 +1262,30 @@ class StepRecorder:
 def data_corpus(tmp):
     """[data] 1-3: the family corpus through cli.preprocess (a subprocess,
     one spawned worker per core, the C++ parser and featurizer), then the
-    C++ routes against the Python ones on 16 of the PDBs.  Returns (the
-    patch directory, complexes/s)."""
+    C++ routes against the Python ones on 16 of the PDBs.  Returns the
+    patch directory."""
     from diffab_pytorch_tpu_torch.data.synthetic import write_family_corpus
     from diffab_pytorch_tpu_torch.structure import antibody, geometry, pdb
 
     tag, n = "[data]", DATA_FAMILIES * DATA_PER_FAMILY
-    t0 = time.perf_counter()
     meta = write_family_corpus(os.path.join(tmp, "corpus"), n_families=DATA_FAMILIES,
                                n_per_family=DATA_PER_FAMILY, seed=0)
-    print(f"{tag} family corpus: {n} complexes (H, L, antigen A) and meta.csv written in "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"{tag} family corpus: {n} complexes (H, L, antigen A) and meta.csv written")
     patches = os.path.join(tmp, "patches")
     jobs = os.cpu_count() or 1
     cmd = [sys.executable, "-m", "diffab_pytorch_tpu_torch.cli.preprocess", "--meta", meta,
            "--data-dir", os.path.join(tmp, "corpus", "pdb"), "--out-dir", patches, "-j",
            str(jobs), "-k", str(L_MAIN)]
-    t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
     written = sorted(f for f in os.listdir(patches) if f.endswith(".npz")) \
         if os.path.isdir(patches) else []
     summary = proc.stdout.strip().splitlines()[-1:] or ["(no output)"]
-    print(f"{tag} cli.preprocess -j {jobs} -k {L_MAIN}: {summary[0]}; {len(written)} .npz in "
-          f"{wall:.2f} s: {n / wall:.2f} complexes/s (host: {jobs} spawned workers)")
+    print(f"{tag} cli.preprocess -j {jobs} -k {L_MAIN}: {summary[0]}; {len(written)} .npz "
+          f"({jobs} spawned workers)")
     if proc.returncode != 0 or len(written) != n or f"skipped 0" not in summary[0]:
         raise RuntimeError(f"{tag} cli.preprocess failed (rc {proc.returncode}):\n"
                            f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
 
-    t0 = time.perf_counter()
     d_xyz = d_geom = 0.0
     same = True
     for i in range(16):
@@ -1490,24 +1308,22 @@ def data_corpus(tmp):
     ok = same and d_xyz <= 1e-4 and d_geom <= 1e-5
     print(f"{tag} C++ vs Python on 16 PDBs: parser max|d xyz| {d_xyz:.2e} (tol 1e-4), the "
           f"rest equal {same}; featurizer max|d| {d_geom:.2e} (tol 1e-5); "
-          f"{time.perf_counter() - t0:.2f} s; {'ok' if ok else 'FAILED'}")
+          f"{'ok' if ok else 'FAILED'}")
     if not ok:
         raise RuntimeError(f"{tag} the C++ parser or featurizer disagrees with Python")
-    return patches, n / wall
+    return patches
 
 
-def data_train(torch, card, patches, tmp, pool):
+def data_train(torch, patches, tmp, pool):
     """[data] 4: `cli.train --production --max-steps 14` on the card through
     its main(), through the loader (pool False) or with --device-pool.
-    Returns ((K1, K2) launches of the training steps, steps/s, the
-    checkpoint directory, the recorded calls)."""
+    Returns ((K1, K2) launches of the training steps, the checkpoint
+    directory, the recorded calls)."""
     import contextlib
     import io
 
     from diffab_pytorch_tpu_torch import config as C
     from diffab_pytorch_tpu_torch.cli import train as train_cli
-    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
-    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
     from diffab_pytorch_tpu_torch.train import checkpoint as ckpt
     from diffab_pytorch_tpu_torch.train.harness import DiffAb
 
@@ -1521,26 +1337,17 @@ def data_train(torch, card, patches, tmp, pool):
     log = io.StringIO()
     try:
         setattr(DiffAb, factory, lambda self, *a, **k: rec(self, *a, **k))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
-        t0 = time.perf_counter()
+        zero_launches()
         with contextlib.redirect_stdout(log):
             rc = train_cli.main(argv)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        total = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+        total = k_launches()
     finally:
         setattr(DiffAb, factory, rec.factory)
     for line in log.getvalue().splitlines():
         if line.startswith(("[train]", "[trainer]")):
             print(f"{tag} {line}")
     calls = rec.calls
-    # steps/s over the steps after the first epoch's validation pass (steps
-    # 7..13, between the card reaching their entries), as [train] times
-    # steps after a warm-up
-    w0 = DATA_STEPS - DATA_WINDOW
-    steps_per_s = (DATA_WINDOW - 1) * 1e3 / calls[w0]["event"].elapsed_time(calls[-1]["event"])
     steps = (sum(c["launches"][0] for c in calls), sum(c["launches"][1] for c in calls))
     pcfg = C.production_config()
     n_layers, pb = pcfg.model.n_ipa_layers, pcfg.train.batch_size
@@ -1549,8 +1356,6 @@ def data_train(torch, card, patches, tmp, pool):
     n_evals = DATA_STEPS // steps_per_epoch  # one validation batch of n_val each
     losses = [float(c["loss"]) for c in calls]
     pool_batch = calls[0]["args"][2] if pool else None
-    pool_mb = (sum(v.nbytes for v in pool_batch.to_numpy().values() if v is not None) / 1e6
-               if pool else 0.0)
     saved = ckpt.load_model_config(ck)
     checks = {
         "rc": rc == 0,
@@ -1561,19 +1366,15 @@ def data_train(torch, card, patches, tmp, pool):
         and total == (n_layers * (DATA_STEPS + n_evals), 0),
         "pool_rows": not pool or pool_batch.batch_size == DATA_FAMILIES * DATA_PER_FAMILY - n_val,
     }
-    print(f"{tag}: cli.train {' '.join(argv[2:])}: wall {wall:.2f} s; steps {DATA_STEPS}, "
-          f"{steps_per_s:.3f} steps/s, {steps_per_s * pb:.1f} samples/s over steps "
-          f"{w0}-{DATA_STEPS - 1} (host clock, card: {card}); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
-          + (f"; pool on the card {pool_mb:.2f} MB ({pool_batch.batch_size} rows, "
-             f"{pool_mb * 1e3 / pool_batch.batch_size:.1f} KB a patch)" if pool else ""))
+    print(f"{tag}: cli.train {' '.join(argv[2:])}: {len(calls)} steps"
+          + (f"; pool on the card: {pool_batch.batch_size} rows" if pool else ""))
     print(f"{tag}: launches K1, K2: training steps {steps}, whole CLI {total} (expected "
           f"{(n_layers * DATA_STEPS, 0)}, and {n_evals} validation passes: "
           f"{(n_layers * (DATA_STEPS + n_evals), 0)}); losses {[round(v, 6) for v in losses]}")
     print(f"{tag}: checks {checks}")
     if not all(checks.values()):
         raise RuntimeError(f"{tag} failed a check: {checks}")
-    return steps, steps_per_s, ck, calls
+    return steps, ck, calls
 
 
 def data_fuse_false(torch, patches):
@@ -1604,7 +1405,7 @@ def data_fuse_false(torch, patches):
     return got
 
 
-def data_sample(torch, card, patches, ck, tmp):
+def data_sample(torch, patches, ck, tmp):
     """[data] 6: `cli.sample -n 16` on the card from the trained checkpoint:
     the recorded production model restores and the designs are written."""
     import contextlib
@@ -1612,21 +1413,17 @@ def data_sample(torch, card, patches, ck, tmp):
 
     from diffab_pytorch_tpu_torch import config as C
     from diffab_pytorch_tpu_torch.cli import sample as sample_cli
-    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
-    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
 
     cfg = C.production_config()
     patch = os.path.join(patches, sorted(os.listdir(patches))[0])
     out = os.path.join(tmp, "designs")
     argv = ["--patch", patch, "--checkpoint-dir", ck, "-n", "16", "-o", out]
     log = io.StringIO()
-    op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
-    t0 = time.perf_counter()
+    zero_launches()
     with contextlib.redirect_stdout(log):
         rc = sample_cli.main(argv)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    got = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+    got = k_launches()
     lines = log.getvalue().splitlines()
     names = sorted(f for f in os.listdir(out) if f.endswith(".pdb"))
     checks = {"rc": rc == 0, "recorded_model": any("recorded model config" in s for s in lines),
@@ -1634,7 +1431,7 @@ def data_sample(torch, card, patches, ck, tmp):
               "designs": names == [f"design_{i:04d}.pdb" for i in range(16)],
               "launches": got == (cfg.model.n_ipa_layers * cfg.diffusion.T, 0)}
     print(f"[data] cli.sample --patch {os.path.basename(patch)} -n 16 from the trained "
-          f"checkpoint: wall {wall:.2f} s (card: {card}); launches K1, K2 {got}; checks {checks}")
+          f"checkpoint: launches K1, K2 {got}; checks {checks}")
     if not all(checks.values()):
         raise RuntimeError(f"[data] sampling from the trained checkpoint failed: {checks}")
     return got
@@ -1743,55 +1540,21 @@ def data_card_vs_cpu(torch, patches):
         raise RuntimeError(f"{tag} a card-vs-CPU check failed")
 
 
-def data_phase(torch, card, tmp=None):
+def data_phase(torch, tmp=None):
     """[data]: the training data path on the card, from PDBs to designs (see
     data_corpus, data_train, data_fuse_false, data_sample and
     data_card_vs_cpu), in the directory `tmp` (default a temporary one;
-    the patches stay in <tmp>/patches).  Returns ({path: (K1, K2)
-    launches}, {pool: steps/s})."""
+    the patches stay in <tmp>/patches).  Returns {path: (K1, K2)
+    launches}."""
     import contextlib
-    import tempfile
 
-    from diffab_pytorch_tpu_torch.config import production_config
-    from diffab_pytorch_tpu_torch.data.dataset import PatchDataset
-
-    laps = [time.perf_counter()]
     launches = {}
     with (tempfile.TemporaryDirectory() if tmp is None else contextlib.nullcontext(tmp)) as tmp:
-        patches, _ = data_corpus(tmp)
-        laps.append(time.perf_counter())
-        rates, calls, busy = {}, {}, {}
+        patches = data_corpus(tmp)
+        calls, cks = {}, {}
         for pool in (False, True):
             key = "data_pool" if pool else "data_loader"
-            launches[key], rates[pool], ck, calls[pool] = data_train(
-                torch, card, patches, tmp, pool)
-            # the run's own step again: a replay of the graph fit() captured
-            harness, state, *args = calls[pool][-1]["args"]
-            if pool:
-                pool_batch, idx, _ = args
-                run = harness.make_pool_train_step()
-            else:
-                ck_loader = ck
-                run = harness.make_train_step()
-            busy[pool] = profile_device(
-                torch, lambda: run(state, *args), 1.0 / rates[pool], f"[data] one production "
-                f"training step ({'the pool step' if pool else 'on a loader batch'}, graphed; "
-                f"wall from the loop's rate)")
-        # the data path's own device work (CUDA events, calls queued
-        # behind a sleep): a pinned batch's copy (loader), the row gather
-        # (pool)
-        host_batch, _ = next(PatchDataset.from_dir(patches).batches(
-            production_config().train.batch_size, seed=0))
-        pinned = host_batch.pin_memory()
-        batch_mb = sum(v.nbytes for v in host_batch.to_numpy().values() if v is not None) / 1e6
-        copy_ms = cuda_time_ms(lambda: pinned.to("cuda", non_blocking=True), 20)
-        gather_ms = cuda_time_ms(lambda: pool_batch.gather_rows(idx), 20)
-        print(f"[data] the data path's device time: one batch's pinned host-to-card copy "
-              f"{copy_ms:.4f} ms ({batch_mb:.2f} MB), one step's row gather {gather_ms:.4f} ms"
-              + ("" if None in busy.values() else
-                 f"; against a step's {busy[False]:.1f} / {busy[True]:.1f} ms: "
-                 f"{copy_ms / busy[False]:.2%} (the loader issues it on its own stream) / "
-                 f"{gather_ms / busy[True]:.2%}"))
+            launches[key], cks[pool], calls[pool] = data_train(torch, patches, tmp, pool)
         # both paths run the same seeded shuffle over the same usable rows,
         # so step by step they must train on the same batch
         same_rows = all(all(bool(x == y) for x, y in zip(a["rows"], b["rows"]))
@@ -1803,21 +1566,10 @@ def data_phase(torch, card, tmp=None):
               f"same draws; a difference is the step's own run-to-run variation)")
         if not same_rows:
             raise RuntimeError("[data] the loader and the device pool fed different rows")
-        laps.append(time.perf_counter())
         launches["data_fuse_false"] = data_fuse_false(torch, patches)
-        launches["data_sample"] = data_sample(torch, card, patches, ck_loader, tmp)
-        laps.append(time.perf_counter())
+        launches["data_sample"] = data_sample(torch, patches, cks[False], tmp)
         data_card_vs_cpu(torch, patches)
-        laps.append(time.perf_counter())
-    pb = production_config().train.batch_size
-    print(f"[data] training steps/s: loader {rates[False]:.3f} ({rates[False] * pb:.1f} "
-          f"samples/s), device pool {rates[True]:.3f} ({rates[True] * pb:.1f} samples/s) "
-          f"(card: {card})")
-    corpus_s, train_s, rest_s, check_s = (b - a for a, b in zip(laps, laps[1:]))
-    print(f"[data] phase {laps[-1] - laps[0]:.2f} s: corpus and preprocessing {corpus_s:.2f} s, "
-          f"the two cli.train runs and profiles {train_s:.2f} s, fuse False and cli.sample "
-          f"{rest_s:.2f} s, card-vs-CPU checks {check_s:.2f} s")
-    return launches, rates
+    return launches
 
 
 SC_VARIANTS = {"early": {}, "geometry-only": dict(self_conditioning_sequence=False),
@@ -1873,7 +1625,6 @@ def selfcond_card_vs_cpu(torch, L=32, T=12):
     from diffab_pytorch_tpu_torch.train.harness import DiffAb
 
     tag = "[selfcond]"
-    t0 = time.perf_counter()
     tiny = C.tiny_config()
     b, bn = 4, 2
     batch = synthetic_batch(5, b, L, n_generate=8)
@@ -1997,13 +1748,12 @@ def selfcond_card_vs_cpu(torch, L=32, T=12):
             if not ok:
                 raise RuntimeError(f"{tag} {variant} {dt} fuse_ipa_layer={fuse}: the card "
                                    f"disagrees with the CPU plain path")
-    print(f"{tag} card vs CPU: {n_checks} checks of 4 variants x 2 flags x 2 dtypes passed in "
-          f"{time.perf_counter() - t0:.2f} s (float32 numbers: max|d| or loss |d| / gradient "
-          f"|d| / scale; bf16 and float32 forwards: card max/mean, CPU bf16-float32 max/mean, "
-          f"relative to scale)")
+    print(f"{tag} card vs CPU: {n_checks} checks of 4 variants x 2 flags x 2 dtypes passed "
+          f"(float32 numbers: max|d| or loss |d| / gradient |d| / scale; bf16 and float32 "
+          f"forwards: card max/mean, CPU bf16-float32 max/mean, relative to scale)")
 
 
-def selfcond_cli(torch, card, patches, tmp):
+def selfcond_cli(torch, patches, tmp):
     """[selfcond] 4: `cli.train --production --self-conditioning
     --sc-split-trunk --sc-onset 2 --sc-rate-warmup 4 --max-steps 8` on
     [data]'s patches through its main() (a StepRecorder counts K1 per
@@ -2015,8 +1765,6 @@ def selfcond_cli(torch, card, patches, tmp):
     from diffab_pytorch_tpu_torch import config as C
     from diffab_pytorch_tpu_torch.cli import sample as sample_cli
     from diffab_pytorch_tpu_torch.cli import train as train_cli
-    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
-    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
     from diffab_pytorch_tpu_torch.train import checkpoint as ckpt
     from diffab_pytorch_tpu_torch.train.harness import DiffAb
 
@@ -2029,14 +1777,11 @@ def selfcond_cli(torch, card, patches, tmp):
     log = io.StringIO()
     try:
         DiffAb.make_train_step = lambda self, *a, **k: rec(self, *a, **k)
-        torch.cuda.synchronize()
-        op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
-        t0 = time.perf_counter()
+        zero_launches()
         with contextlib.redirect_stdout(log):
             rc = train_cli.main(argv)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        total = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+        total = k_launches()
     finally:
         DiffAb.make_train_step = rec.factory
     for line in log.getvalue().splitlines():
@@ -2061,8 +1806,7 @@ def selfcond_cli(torch, card, patches, tmp):
         and total == (per_step * (SC_CLI_STEPS + n_evals), 0),
         "schedule": rates == [0.0, 0.0, 0.0, 0.125, 0.25, 0.375, 0.5, 0.5],
     }
-    print(f"{tag} train {' '.join(argv[2:])}: wall {wall:.2f} s (card: {card}); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches K1, K2: steps {steps} "
+    print(f"{tag} train {' '.join(argv[2:])}: launches K1, K2: steps {steps} "
           f"({per_step} a step), whole CLI {total} (with {n_evals} validation batch); sc rate by "
           f"step {rates}; losses {[round(v, 4) for v in losses]}; model_config.json "
           f"self_conditioning={saved.self_conditioning} sc_split_trunk={saved.sc_split_trunk}; "
@@ -2074,13 +1818,11 @@ def selfcond_cli(torch, card, patches, tmp):
     out = os.path.join(tmp, "designs_selfcond")
     sargv = ["--patch", patch, "--checkpoint-dir", ck, "-n", "16", "-o", out]
     log = io.StringIO()
-    op.fused_ipa_layer_packed.launches = k2.ipa_attention_core.launches = 0
-    t0 = time.perf_counter()
+    zero_launches()
     with contextlib.redirect_stdout(log):
         rc = sample_cli.main(sargv)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    got = (op.fused_ipa_layer_packed.launches, k2.ipa_attention_core.launches)
+    got = k_launches()
     lines = log.getvalue().splitlines()
     names = sorted(f for f in os.listdir(out) if f.endswith(".pdb"))
     checks = {"rc": rc == 0,
@@ -2088,15 +1830,14 @@ def selfcond_cli(torch, card, patches, tmp):
                                        for x in lines),
               "designs": names == [f"design_{i:04d}.pdb" for i in range(16)],
               "launches": got == (layer_calls(want_model, pcfg.diffusion.T), 0)}
-    print(f"{tag} sample -n 16 from that checkpoint: wall {wall:.2f} s (card: {card}); "
-          f"launches K1, K2 {got}; checks {checks}")
+    print(f"{tag} sample -n 16 from that checkpoint: launches K1, K2 {got}; checks {checks}")
     if not all(checks.values()):
         raise RuntimeError(f"{tag} cli.sample from the self-conditioned checkpoint failed: "
                            f"{checks}")
     return {"selfcond_cli_train": steps, "selfcond_cli_sample": got}
 
 
-def selfcond_phase(torch, card, patches, tmp, train_rate, designs_rate):
+def selfcond_phase(torch, patches, tmp):
     """[selfcond]: self-conditioning on the card.  1: every variant card vs
     CPU at tiny widths (selfcond_card_vs_cpu); 2: production_config()
     training with early fusion and with the split trunk (3 + 20 fit()
@@ -2104,55 +1845,26 @@ def selfcond_phase(torch, card, patches, tmp, train_rate, designs_rate):
     steps at fuse_ipa_layer=False (K2 24 a step); 3: the [main] sampling
     path with a self-conditioned default_config() in bf16, early and split
     (K1 600 and 1,200 a call); 4: cli.train and cli.sample (selfcond_cli).
-    Steps/s and designs/s are printed against the plain path run just
-    before them, and against this run's earlier [train] (K1) steps/s and
-    [main] designs/s (train_rate, designs_rate).  Returns {path: (K1, K2)}."""
-    laps = [time.perf_counter()]
+    Returns {path: (K1, K2)}."""
     selfcond_card_vs_cpu(torch)
-    laps.append(time.perf_counter())
-    # each path beside its plain counterpart run just before it: the host's
-    # speed drifts over a run, so [train] and [main] from minutes earlier
-    # are no reference for a ratio
-    launches, train_rates, sample_rates = {}, {}, {}
-    launches["selfcond_plain_train"], train_rates["plain"] = training_main_path(
-        torch, card, "[selfcond] train plain", None, L_MAIN, 3, 20, profile=False)
+    launches = {}
     for variant in ("early", "split"):
-        launches[f"selfcond_train_{variant}"], train_rates[variant] = training_main_path(
-            torch, card, f"[selfcond] train {variant}", None, L_MAIN, 3, 20,
+        launches[f"selfcond_train_{variant}"] = training_main_path(
+            torch, f"[selfcond] train {variant}", None, L_MAIN, 3, 20,
             model=sc_model_fields(variant))
     # the attention-core kernel at the split trunk's call pattern (K2 24 a step)
-    launches["selfcond_train_split_fuse_False"], _ = training_main_path(
-        torch, card, "[selfcond] train split", False, L_MAIN, 1, 4, profile=False,
-        model=sc_model_fields("split"))
-    laps.append(time.perf_counter())
-    launches["selfcond_plain_sample"], sample_rates["plain"] = sampling_main_path(
-        torch, card, "bfloat16", 2, "[selfcond] sample plain")
+    launches["selfcond_train_split_fuse_False"] = training_main_path(
+        torch, "[selfcond] train split", False, L_MAIN, 1, 4, model=sc_model_fields("split"))
     for variant in ("early", "split"):
-        launches[f"selfcond_sample_{variant}"], sample_rates[variant] = sampling_main_path(
-            torch, card, "bfloat16", 2, f"[selfcond] sample {variant}",
-            model=sc_model_fields(variant))
-    laps.append(time.perf_counter())
-    launches.update(selfcond_cli(torch, card, patches, tmp))
-    laps.append(time.perf_counter())
-    def ratios(rates, earlier):
-        return ", ".join(
-            f"{v} {rates[v]:.3f} ({rates[v] / rates['plain']:.3f}x the plain run before it, "
-            f"{rates[v] / earlier:.3f}x the earlier phase's)" for v in ("early", "split"))
-    print(f"[selfcond] training steps/s (production_config(), batch 32, L=128): plain "
-          f"{train_rates['plain']:.3f} ([train] earlier {train_rate:.3f}), "
-          f"{ratios(train_rates, train_rate)}; designs/s (128 designs, T=100, bf16): plain "
-          f"{sample_rates['plain']:.3f} ([main] earlier {designs_rate:.3f}), "
-          f"{ratios(sample_rates, designs_rate)} (card: {card})")
-    parts = ("card vs CPU", "training", "sampling", "the CLIs")
-    print(f"[selfcond] phase {laps[-1] - laps[0]:.2f} s: " + ", ".join(
-        f"{p} {b_ - a:.2f} s" for p, a, b_ in zip(parts, laps, laps[1:])))
+        launches[f"selfcond_sample_{variant}"] = sampling_main_path(
+            torch, "bfloat16", f"[selfcond] sample {variant}", model=sc_model_fields(variant))
+    launches.update(selfcond_cli(torch, patches, tmp))
     return launches
 
 
 # ---- [parallel]: data parallelism ----------------------------------------------------
 
 PAR_STEPS = 3  # DP training steps held against their reference in (a) and (b)
-PAR_TIMED = 20  # (a): timed steps after PAR_STEPS warm-up steps, DP and plain
 PAR_LOCAL = 64  # (b), (d): designs of the fan-out on each rank
 PAR_CLI_STEPS = 4  # (c): cli.train steps (an epoch of [data]'s patches is 7)
 PAR_CLI_DESIGNS = 16
@@ -2207,23 +1919,23 @@ def k1_paths_since(before):
                      "attend_twopass"), (a - b for a, b in zip(k1_paths(), before))))
 
 
-# (b, bp, L, d, h, bias dtype, masked keys, seed) of check_persistent_path
+# (b, bp, L, d, h, masked keys, seed) of check_persistent_path
 PERSISTENT_CASES = (
-    (N_DESIGNS, 1, L_MAIN, 128, 8, "bfloat16", 0, 60),  # the main sampling call
-    (N_DESIGNS, 1, 77, 128, 8, "float32", 9, 61),  # odd L: element-wise frames and stores
-    (N_DESIGNS, N_DESIGNS, L_MAIN, 128, 8, "bfloat16", 0, 62),  # a bias a design
-    (N_DESIGNS, N_DESIGNS, 77, 128, 8, "float32", 9, 63),
-    (N_DESIGNS, 1, L_MAIN, 128, 4, "bfloat16", 0, 64),  # a tp rank's 4 heads: 512 items
-    (N_DESIGNS, 1, L_MAIN, 64, 8, "bfloat16", 0, 65),  # a narrower x row
+    (N_DESIGNS, 1, L_MAIN, 128, 8, 0, 60),  # the main sampling call
+    (N_DESIGNS, 1, 77, 128, 8, 9, 61),  # odd L: element-wise frames and stores
+    (N_DESIGNS, N_DESIGNS, L_MAIN, 128, 8, 0, 62),  # a bias a design
+    (N_DESIGNS, N_DESIGNS, 77, 128, 8, 9, 63),
+    (N_DESIGNS, 1, L_MAIN, 128, 4, 0, 64),  # a tp rank's 4 heads: 512 items
+    (N_DESIGNS, 1, L_MAIN, 64, 8, 0, 65),  # a narrower x row
 )
 
 
 def check_persistent_path(torch, tag):
     """K1's persistent launch 1 against the plain version on the card
-    (PERSISTENT_CASES: the main sampling shape, b = 128, bp = 1, L = 128,
-    bf16 bias; L = 77, odd, with element-wise frame loads and attn stores, a
-    float32 bias and 9 padded keys; both again with a bias for each design,
-    b = bp = 128; 4 heads; d = 64), with check_layer's bf16 tolerances; each
+    (PERSISTENT_CASES: the main sampling shape, b = 128, bp = 1, L = 128;
+    L = 77, odd, with element-wise frame loads and attn stores and 9 padded
+    keys; both again with a bias for each design, b = bp = 128; 4 heads;
+    d = 64), with check_layer's bf16 tolerances; each
     call must have taken the persistent path (the counters: b h items, all
     but one per SM overlapped, no call of the per-item kernel).  Returns the
     largest error."""
@@ -2232,13 +1944,12 @@ def check_persistent_path(torch, tag):
     worst = 0.0
     n_sm = op._sm_count(torch.device("cuda"))
     with torch.no_grad():
-        for b, bp, L, d, h, bias_dtype, n_masked, seed in PERSISTENT_CASES:
-            a = layer_inputs(torch, b, bp, L, d, h, 32, 8, torch.bfloat16,
-                             getattr(torch, bias_dtype), seed, n_masked)
+        for b, bp, L, d, h, n_masked, seed in PERSISTENT_CASES:
+            a = layer_inputs(torch, b, bp, L, d, h, 32, 8, torch.bfloat16, seed, n_masked)
             before = k1_paths()
             worst = max(worst, check_layer(
-                torch, f"{tag} persistent launch 1 (b={b} bp={bp} L={L} d={d} h={h} bias "
-                f"{bias_dtype})", a, bf16=True))
+                torch, f"{tag} persistent launch 1 (b={b} bp={bp} L={L} d={d} h={h})", a,
+                bf16=True))
             got = k1_paths_since(before)
             items = b * h
             want = dict(items=items, overlapped=items - min(items, n_sm), fallback_calls=0,
@@ -2313,18 +2024,16 @@ def leaf_rel(a: dict, b: dict) -> float:
                      / v.detach().float().abs().max().clamp(min=1.0)) for k, v in b.items())
 
 
-def parallel_one_rank(torch, card, train_rate, designs_rate):
+def parallel_one_rank(torch):
     """[parallel] (a): NCCL, world size 1, in this process (a TCP store on
     a free port).  make_dp_train_step at production_config(), batch 32,
     L=128, against harness.train_step with the same draws for PAR_STEPS
     steps from the end of the warmup (`par_state`), bitwise (loss,
-    metrics, parameters, EMA), both under deterministic(); then PAR_STEPS + PAR_TIMED steps of each timed
-    (steps/s), the all_reduce's device ms a step (CUDA events around it,
-    5 more steps) and its bytes, one profiled step of each (device events).
+    metrics, parameters, EMA), both under deterministic().
     sample_fanout_sharded (128 designs, default_config() bf16, T=100)
-    against sample() from the same generator: rows equal, designs/s of
-    each; score_fanout_sharded against score_designs: equal.  Returns
-    {path: (K1, K2)}."""
+    against sample() from the same generator: rows equal;
+    score_fanout_sharded against score_designs: equal.  Returns {path:
+    (K1, K2)}."""
     import torch.distributed as dist
 
     from diffab_pytorch_tpu_torch.parallel.dp import (
@@ -2357,7 +2066,6 @@ def parallel_one_rank(torch, card, train_rate, designs_rate):
                              and all(torch.equal(dp_state.params[k], state.params[k])
                                      and torch.equal(dp_state.ema_params[k], state.ema_params[k])
                                      for k in state.params))
-        n_params = sum(v.numel() for v in state.params.values())
         want = (PAR_STEPS * layer_calls(harness.config.model), 0)
         print(f"{tag} NCCL world size 1: make_dp_train_step vs train_step, production_config() "
               f"(bf16, batch 32, L={L_MAIN}), {PAR_STEPS} steps with the same draws under "
@@ -2368,66 +2076,13 @@ def parallel_one_rank(torch, card, train_rate, designs_rate):
             raise RuntimeError(f"{tag} the one-rank DP step is not the single-device step")
         launches["parallel_dp_step_1rank"] = dp_launches
 
-        def timed(fn, st):
-            for s in range(PAR_STEPS):
-                st, _ = fn(st, batch, draws(100 + s))
-            torch.cuda.synchronize()
-            zero_launches()
-            t0 = time.perf_counter()
-            for s in range(PAR_TIMED):
-                st, m = fn(st, batch, draws(200 + s))
-            torch.cuda.synchronize()
-            return PAR_TIMED / (time.perf_counter() - t0), k_launches(), st, float(m["train/loss"])
-        rate_plain, _, state, _ = timed(harness.train_step, state)
-        rate_dp, dp_counts, dp_state, loss = timed(step, dp_state)
-        launches["parallel_dp_train_1rank"] = dp_counts
-        real, spans = dist.all_reduce, []
-
-        def all_reduce(t, *a, **k):
-            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            ev[0].record()
-            out = real(t, *a, **k)
-            ev[1].record()
-            spans.append((ev, t.numel() * t.element_size()))
-            return out
-        dist.all_reduce = all_reduce
-        try:
-            for s in range(5):
-                dp_state, _ = step(dp_state, batch, draws(300 + s))
-            torch.cuda.synchronize()
-        finally:
-            dist.all_reduce = real
-        ar_ms = sorted(a.elapsed_time(b) for (a, b), _ in spans)
-        nbytes = spans[0][1]
-        busy_plain, ev_plain = profile_device(
-            torch, lambda: harness.train_step(state, batch, draws(400)), 1 / rate_plain,
-            f"{tag} one plain training step", top=4, return_events=True)
-        busy_dp, ev_dp = profile_device(
-            torch, lambda: step(dp_state, batch, draws(401)), 1 / rate_dp,
-            f"{tag} one DP training step (1 rank)", top=6, return_events=True)
-        print(f"{tag} {PAR_TIMED} steps after {PAR_STEPS}: DP {rate_dp:.3f} steps/s, plain "
-              f"train_step {rate_plain:.3f} steps/s (ratio {rate_dp / rate_plain:.3f}; [train] "
-              f"earlier {train_rate:.3f}) on {card}; DP launches K1, K2 {dp_counts}; all_reduce "
-              f"of {n_params} parameters + metrics = {nbytes} bytes: device ms per step median "
-              f"{ar_ms[len(ar_ms) // 2]:.4f} (min {ar_ms[0]:.4f}, max {ar_ms[-1]:.4f}); device "
-              f"events per step DP {ev_dp} vs plain {ev_plain} "
-              f"(+{(ev_dp or 0) - (ev_plain or 0)}), busy ms {busy_dp} vs {busy_plain}; "
-              f"loss {loss:.4f}")
-        if dp_counts != (PAR_TIMED * layer_calls(harness.config.model), 0):
-            raise RuntimeError(f"{tag} DP steps launched K1, K2 {dp_counts}")
-
         fan, target = par_fan_setup(torch, "cuda")
         gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
-        fan.sample(None, target, gen(6), n_designs=N_DESIGNS)  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        fan.sample(None, target, gen(6), n_designs=N_DESIGNS)  # captures the step graphs
         plain = fan.sample(None, target, gen(7), n_designs=N_DESIGNS)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
         zero_launches()
         rows = sample_fanout_sharded(fan, None, target, gen(7), None, N_DESIGNS)
         torch.cuda.synchronize()
-        t2 = time.perf_counter()
         launches["parallel_fanout_1rank"] = k_launches()
         zero_launches()
         scores = score_fanout_sharded(fan, None, target, rows, gen(8))
@@ -2441,11 +2096,10 @@ def parallel_one_rank(torch, card, train_rate, designs_rate):
         want_score = (layer_calls(mcfg, 2 * len(default_t_grid(fan.config.diffusion.T))), 0)
         print(f"{tag} sample_fanout_sharded({N_DESIGNS} designs, default_config() bf16, "
               f"T={fan.config.diffusion.T}, L={L_MAIN}) vs sample() from the same generator: "
-              f"rows equal {same_rows}; {N_DESIGNS / (t2 - t1):.2f} designs/s vs "
-              f"{N_DESIGNS / (t1 - t0):.2f} ([main] earlier {designs_rate:.2f}) on {card}; "
-              f"launches K1, K2 {launches['parallel_fanout_1rank']} (expected {want_fan}); "
-              f"score_fanout_sharded vs score_designs: equal {same_scores}, launches "
-              f"{launches['parallel_score_1rank']} (expected {want_score})")
+              f"rows equal {same_rows}; launches K1, K2 {launches['parallel_fanout_1rank']} "
+              f"(expected {want_fan}); score_fanout_sharded vs score_designs: equal "
+              f"{same_scores}, launches {launches['parallel_score_1rank']} (expected "
+              f"{want_score})")
         if not (same_rows and same_scores and launches["parallel_fanout_1rank"] == want_fan
                 and launches["parallel_score_1rank"] == want_score):
             raise RuntimeError(f"{tag} the one-rank fan-out or scores differ from sample() / "
@@ -2490,6 +2144,32 @@ def plain_ipa_card_vs_cpu(torch):
               f"launches K1, K2 {k_launches()}; {'ok' if good else 'FAILED'}")
     if not ok:
         raise RuntimeError("[parallel] (e) the plain IPA branch on the card disagrees with the CPU")
+
+
+def run_workers(torch, flag, world, args, out, tag, stem="rank"):
+    """Run `world` processes of this script, `chip_smoke.py FLAG RANK WORLD
+    PORT *args` (a free local port for their store), wait for all of them
+    and return what each wrote to out/<stem><RANK>.pt; raises, with each
+    rank's output, if one failed."""
+    os.makedirs(out, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r),
+                               str(world), str(port), *args],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    if any(p.returncode != 0 for p in procs):
+        for r, log in enumerate(logs):
+            print(f"{tag} rank {r} exited {procs[r].returncode}:\n{log[-4000:]}")
+        raise RuntimeError(f"{tag} a worker failed")
+    return [torch.load(os.path.join(out, f"{stem}{r}.pt"), weights_only=False)
+            for r in range(world)]
 
 
 def parallel_worker(argv) -> int:
@@ -2552,7 +2232,7 @@ def parallel_worker(argv) -> int:
     return 0
 
 
-def parallel_ranks(torch, card, world, backend, tmp, tag):
+def parallel_ranks(torch, world, backend, tmp, tag):
     """[parallel] (b) / (d): `world` worker processes (parallel_worker) on
     `backend`, against the host loop in this process on the card:
     host_dp_train_step over the same shards and draws, PAR_STEPS steps at
@@ -2568,27 +2248,7 @@ def parallel_ranks(torch, card, world, backend, tmp, tag):
     from diffab_pytorch_tpu_torch.parallel.mesh import BatchSharding, put_global
 
     out = os.path.join(tmp, f"ranks_{backend}_{world}")
-    os.makedirs(out, exist_ok=True)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-worker",
-                               str(r), str(world), str(port), backend, out],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
-    try:
-        logs = [p.communicate(timeout=600)[0] for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    wall = time.perf_counter() - t0
-    if any(p.returncode != 0 for p in procs):
-        for r, log in enumerate(logs):
-            print(f"{tag} rank {r} exited {procs[r].returncode}:\n{log[-4000:]}")
-        raise RuntimeError(f"{tag} a worker failed")
-    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
-             for r in range(world)]
+    ranks = run_workers(torch, "--parallel-worker", world, [backend, out], out, tag)
 
     checks, launches = {}, {}
     for fuse, n_steps in ((None, PAR_STEPS), (False, 1)):
@@ -2634,7 +2294,7 @@ def parallel_ranks(torch, card, world, backend, tmp, tag):
     print(f"{tag} {world} ranks, {backend}: sample_fanout_sharded {world} x {PAR_LOCAL} designs "
           f"(default_config() bf16, T={fan.config.diffusion.T}) vs the host loop's rows in "
           f"rank order: equal on each rank {same}; launches K1, K2 per rank {counts} (expected "
-          f"{want}); workers' wall {wall:.2f} s (card: {card})")
+          f"{want})")
     if not all(checks.values()):
         raise RuntimeError(f"{tag} failed: {checks}")
     return launches
@@ -2674,7 +2334,7 @@ def run_clis(argv) -> int:
     return 0
 
 
-def parallel_clis(torch, card, patches, tmp):
+def parallel_clis(torch, patches, tmp):
     """[parallel] (c): `cli.train --production --max-steps PAR_CLI_STEPS`
     in this process, then `cli.train ... --data-parallel` and `cli.sample
     --data-parallel --rank -n PAR_CLI_DESIGNS` from its checkpoint under
@@ -2695,11 +2355,10 @@ def parallel_clis(torch, card, patches, tmp):
     ck_plain, ck_dp = os.path.join(tmp, "ck_par_plain"), os.path.join(tmp, "ck_par_dp")
     log = io.StringIO()
     zero_launches()
-    t0 = time.perf_counter()
     with deterministic(torch), contextlib.redirect_stdout(log):
         rc = train_cli.main(argv + ["--checkpoint-dir", ck_plain])
     torch.cuda.synchronize()
-    plain_s, plain_launches = time.perf_counter() - t0, k_launches()
+    plain_launches = k_launches()
 
     patch = os.path.join(patches, sorted(os.listdir(patches))[0])
     out = os.path.join(tmp, "designs_par")
@@ -2708,10 +2367,8 @@ def parallel_clis(torch, card, patches, tmp):
            *argv, "--checkpoint-dir", ck_dp, "--data-parallel", "--then",
            "diffab_pytorch_tpu_torch.cli.sample", "--patch", patch, "--checkpoint-dir", ck_dp,
            "-n", str(PAR_CLI_DESIGNS), "--rank", "-o", out, "--data-parallel"]
-    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                           env=dict(os.environ, PYTHONPATH=HERE))
-    dp_s = time.perf_counter() - t0
     if proc.returncode != 0:
         print(proc.stdout[-4000:], proc.stderr[-4000:])
         raise RuntimeError(f"{tag} the torchrun CLIs exited {proc.returncode}")
@@ -2740,48 +2397,37 @@ def parallel_clis(torch, card, patches, tmp):
         "designs": names == [f"design_{i:04d}.pdb" for i in range(PAR_CLI_DESIGNS)]
         + ["designs.fasta", "scores.json"],
     }
-    print(f"{tag} cli.train {' '.join(argv[2:])} in process {plain_s:.2f} s, launches K1, K2 "
+    print(f"{tag} cli.train {' '.join(argv[2:])} in process, launches K1, K2 "
           f"{plain_launches}; under torchrun --nproc-per-node 1 with --data-parallel, then "
-          f"cli.sample --data-parallel --rank -n {PAR_CLI_DESIGNS}: {dp_s:.2f} s for both, "
-          f"launches {counts} (expected {[want_train, want_sample]}); checkpoints at step "
-          f"{b.step} bitwise equal {equal}; {len(names)} files; checks {checks} (card: {card})")
+          f"cli.sample --data-parallel --rank -n {PAR_CLI_DESIGNS}: launches {counts} (expected "
+          f"{[want_train, want_sample]}); checkpoints at step {b.step} bitwise equal {equal}; "
+          f"{len(names)} files; checks {checks}")
     if not all(checks.values()):
         raise RuntimeError(f"{tag} failed: {checks}")
     return {"parallel_cli_train": counts[0], "parallel_cli_sample": counts[1]}
 
 
-def parallel_phase(torch, card, patches, tmp, train_rate, designs_rate):
+def parallel_phase(torch, patches, tmp):
     """[parallel]: (a) NCCL, world size 1, in process (parallel_one_rank);
     (e) the IPA layer's plain branch card vs CPU; (b) two ranks on the one
     card over gloo (NCCL refuses two ranks on one card); (c) the CLIs under
     torchrun; (d) one rank per card over NCCL when there is more than one
     card.  Returns {path: (K1, K2)}."""
-    laps = [time.perf_counter()]
-    launches = parallel_one_rank(torch, card, train_rate, designs_rate)
-    laps.append(time.perf_counter())
+    launches = parallel_one_rank(torch)
     plain_ipa_card_vs_cpu(torch)
-    laps.append(time.perf_counter())
-    launches.update(parallel_ranks(torch, card, 2, "gloo", tmp, "[parallel] (b)"))
-    laps.append(time.perf_counter())
-    launches.update(parallel_clis(torch, card, patches, tmp))
-    laps.append(time.perf_counter())
+    launches.update(parallel_ranks(torch, 2, "gloo", tmp, "[parallel] (b)"))
+    launches.update(parallel_clis(torch, patches, tmp))
     n_cards = torch.cuda.device_count()
     if n_cards > 1 and PAR_BATCH % n_cards == 0:
-        launches.update(parallel_ranks(torch, card, n_cards, "nccl", tmp, "[parallel] (d)"))
+        launches.update(parallel_ranks(torch, n_cards, "nccl", tmp, "[parallel] (d)"))
     else:
         print(f"[parallel] (d) {n_cards} card(s) on this machine: one rank per card over NCCL "
               f"needs more than one card (and a batch of {PAR_BATCH} divisible by their count); "
-              f"not run, multi-card scaling not measured")
-    laps.append(time.perf_counter())
-    parts = ("(a) NCCL one rank", "(e) plain IPA", "(b) two ranks gloo", "(c) CLIs",
-             "(d) one rank per card")
-    print(f"[parallel] phase {laps[-1] - laps[0]:.2f} s: " + ", ".join(
-        f"{p} {b_ - a:.2f} s" for p, a, b_ in zip(parts, laps, laps[1:])))
+              f"not run")
     return launches
 
 
 TP_STEPS = 3  # (a)-(c): tp steps held against their reference
-TP_TIMED = 5  # (b): timed steps a rank after the checked ones, and of train_step beside them
 TP_RUNS = (("float32", None), ("float32", False), ("bfloat16", None), ("bfloat16", False))
 TP_HEADS = (4, 2, 1)  # (e): one rank's heads at tp = 2, 4, 8 of the default h = 8
 # (b) bf16: two bf16 runs that round apart each sit about the bf16-float32 gap from
@@ -2790,7 +2436,7 @@ TP_HEADS = (4, 2, 1)  # (e): one rank's heads at tp = 2, 4, 8 of the default h =
 TP_BF16_FACTOR = 2.0
 
 
-def tp_one_rank(torch, card):
+def tp_one_rank(torch):
     """[tp] (a): NCCL, world size 1, in this process: make_mesh(1) and
     make_sharded_train_step at production_config() (bf16, batch 32, L=128)
     from the end of the warmup, against train_step with the same draws for
@@ -2834,7 +2480,7 @@ def tp_one_rank(torch, card):
                   f"fuse_ipa_layer={fuse}, {TP_STEPS} steps from the warmup's end under "
                   f"deterministic algorithms: metrics, parameters and EMA bitwise equal by step "
                   f"{equal}; launches K1, K2 {counts} (expected {want}); "
-                  f"{'ok' if ok else 'FAILED'} (card: {card})")
+                  f"{'ok' if ok else 'FAILED'}")
             if not ok:
                 raise RuntimeError(f"{tag} the tp = 1 step is not the single-device step")
     finally:
@@ -2921,7 +2567,7 @@ def tp_replay(torch, device, dtype, fuse, batch, dp, tp, steps):
 
 
 def tp_worker(argv) -> int:
-    """One rank of [tp] (b), (c) or (f), started by tp_start: chip_smoke.py
+    """One rank of [tp] (b), (c) or (f), started by run_workers: chip_smoke.py
     --tp-worker RANK WORLD PORT TP BACKEND OUT_DIR.  Gloo on the one card
     (or NCCL, one card a rank), the (dp, tp) mesh over WORLD ranks; for
     each of TP_RUNS (tp = WORLD) or float32 at the K1 flag (dp x tp): the
@@ -2930,9 +2576,8 @@ def tp_worker(argv) -> int:
     over tp), with the replicated leaves checked bit-identical over the
     mesh after each step; then (tp = WORLD, the first run) the sharded
     checkpoint saved and restored into the mesh; then the collectives of
-    one step (count and bytes), TP_TIMED timed steps, one profiled step and
-    the peak memory; last, on rank 0, the checked steps replayed
-    single-device (`tp_replay`).  Writes what it holds to
+    one step (count and bytes); last, on rank 0, the checked steps
+    replayed single-device (`tp_replay`).  Writes what it holds to
     OUT_DIR/rank<RANK>.pt."""
     import datetime
 
@@ -2967,7 +2612,6 @@ def tp_worker(argv) -> int:
         mesh = make_mesh(tp)
         res = {}
         for i, (dtype, fuse) in enumerate(TP_RUNS if tp == world else TP_RUNS[:1]):
-            torch.cuda.reset_peak_memory_stats()
             harness, batch = par_train_setup(torch, device, fuse, dtype)
             local = tp_harness(harness, head_shard(harness.config.model, mesh))
             rows = put_global(batch, batch_sharding(mesh.dp_group))
@@ -3028,17 +2672,7 @@ def tp_worker(argv) -> int:
             finally:
                 for n, f in real.items():
                     setattr(dist, n, f)
-            t0 = time.perf_counter()
-            for s in range(TP_TIMED):
-                state, m = step(state, rows, draws(200 + s))
-            torch.cuda.synchronize()
-            rate = TP_TIMED / (time.perf_counter() - t0)
-            busy, events = profile_device(torch, lambda: step(state, rows, draws(300)), 1 / rate,
-                                          f"[tp] rank {rank} one step", top=0,
-                                          return_events=True)
-            run.update(collectives=seen, rate=rate, busy_ms=busy, events=events,
-                       peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                       loss=float(m["train/loss"]))
+            run["collectives"] = seen
             del state, local
             if rank == 0:
                 run["check"] = tp_replay(torch, device, dtype, fuse, batch,
@@ -3050,57 +2684,10 @@ def tp_worker(argv) -> int:
     return 0
 
 
-def tp_start(world, tp, backend, tmp):
-    """Start `world` tp_worker processes; returns (processes, out dir, start)."""
-    out = os.path.join(tmp, f"tp_{backend}_{world}_{tp}")
-    os.makedirs(out, exist_ok=True)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-worker", str(r),
-                               str(world), str(port), str(tp), backend, out],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
-    return procs, out, time.perf_counter()
-
-
-def tp_join(torch, procs, out, t0, tag):
-    try:
-        logs = [p.communicate(timeout=600)[0] for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    wall = time.perf_counter() - t0
-    if any(p.returncode != 0 for p in procs):
-        for r, log in enumerate(logs):
-            print(f"{tag} rank {r} exited {procs[r].returncode}:\n{log[-4000:]}")
-        raise RuntimeError(f"{tag} a worker failed")
-    for log in logs[:1]:
-        for line in log.splitlines():
-            if line.startswith("[profile]"):
-                print(f"{tag} {line}")
-    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
-            for r in range(len(procs))], wall
-
-
 def grad_l2(a: dict, b: dict) -> float:
     """|a - b| / |b| over all leaves together."""
     num = sum(float((a[k].float() - v.float()).square().sum()) for k, v in b.items())
     return (num / max(sum(float(v.float().square().sum()) for v in b.values()), 1e-30)) ** 0.5
-
-
-def tp_plain_rate(torch, dtype, fuse):
-    """train_step's steps/s on the card over TP_TIMED steps after one,
-    beside the tp step's (same config, batch and draws)."""
-    harness, batch = par_train_setup(torch, "cuda", fuse, dtype)
-    state = par_state(harness)
-    state, _ = harness.train_step(state, batch, par_draws(torch, harness, batch, 100, 0))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for s in range(TP_TIMED):
-        state, _ = harness.train_step(state, batch, par_draws(torch, harness, batch, 200 + s, 0))
-    torch.cuda.synchronize()
-    return TP_TIMED / (time.perf_counter() - t0)
 
 
 def update_l2(a: dict, b: dict, before: dict) -> float:
@@ -3149,24 +2736,15 @@ def tp_rule(dtype, fuse, check) -> tuple[bool, str]:
                 f"{col('metrics')} (tol 2^-8)")
 
 
-def tp_run_line(tag, backend, name, got, rate_plain, card):
-    """The collectives, rates, busy ms, events, idle share and peak memory
-    of a run's ranks."""
+def tp_collectives_line(tag, backend, name, got):
+    """The collectives a step of a run's first rank: count and bytes."""
     coll = got[0]["collectives"]
     by_kind = {k: (sum(1 for c in coll if c[0] == k), sum(c[1] for c in coll if c[0] == k))
                for k in ("all_reduce", "all_gather")}
-    idle = [None if g["busy_ms"] is None
-            else round(max(0.0, 1 - g["busy_ms"] / 1e3 * g["rate"]), 3) for g in got]
-    how = ("gloo through host memory, the ranks sharing the card; not an NCCL figure"
-           if backend == "gloo" else "NCCL, one card a rank")
-    print(f"{tag} {name}: collectives a step per rank {by_kind} (count, bytes); steps/s per "
-          f"rank {[round(g['rate'], 3) for g in got]} ({how}) vs train_step {rate_plain:.3f}; "
-          f"busy ms a step per rank {[round(g['busy_ms'] or 0, 3) for g in got]}, device "
-          f"events {[g['events'] for g in got]}, idle share {idle}; peak memory per rank "
-          f"{[round(g['peak_gb'], 3) for g in got]} GB (card: {card})")
+    print(f"{tag} {name}: collectives a step per rank {by_kind} (count, bytes; {backend})")
 
 
-def tp_two_ranks(torch, card, tmp, backend="gloo", tag="[tp] (b)"):
+def tp_two_ranks(torch, tmp, backend="gloo", tag="[tp] (b)"):
     """[tp] (b) and (d) (or (f): NCCL, one card a rank): two tp_worker ranks
     at tp = 2 (4 heads a rank) for TP_RUNS, each checked step held to
     train_step's gradients and update on the card from the same state with
@@ -3177,8 +2755,8 @@ def tp_two_ranks(torch, card, tmp, backend="gloo", tag="[tp] (b)"):
     single-device the gathered state, bitwise.  Returns {path: (K1, K2)}."""
     from diffab_pytorch_tpu_torch.train import checkpoint as ckpt
 
-    procs, out, t0 = tp_start(2, 2, backend, tmp)
-    ranks, wall = tp_join(torch, procs, out, t0, tag)
+    out = os.path.join(tmp, f"tp_{backend}_2_2")
+    ranks = run_workers(torch, "--tp-worker", 2, ["2", backend, out], out, tag)
     launches, checks = {}, {}
     for dtype, fuse in TP_RUNS:
         name = f"{dtype}_{fuse}"
@@ -3197,7 +2775,7 @@ def tp_two_ranks(torch, card, tmp, backend="gloo", tag="[tp] (b)"):
               f"{[f'{v:.2e}' for v in lrs]}, each replayed on the card from the same "
               f"state: {rule}; launches K1, K2 per rank {counts} (expected {want}); "
               f"{'ok' if ok else 'FAILED'}")
-        tp_run_line(tag, backend, name, got, tp_plain_rate(torch, dtype, fuse), card)
+        tp_collectives_line(tag, backend, name, got)
     name = "_".join(map(str, TP_RUNS[0]))
     restored = [r[name]["restored_equal"] for r in ranks]
     back = ckpt.restore_checkpoint(os.path.join(out, "ck_tp"), "cpu")
@@ -3210,21 +2788,21 @@ def tp_two_ranks(torch, card, tmp, backend="gloo", tag="[tp] (b)"):
     print(f"{tag} (d) the sharded state after the {name} steps saved (gathered over tp, "
           f"rank 0 writes): restored into the 2 ranks equal to their parts bitwise "
           f"{restored}; restored single-device equal to the gathered state bitwise {single} "
-          f"(step {back.step}); workers' wall {wall:.2f} s")
+          f"(step {back.step})")
     if not all(checks.values()):
         raise RuntimeError(f"{tag} failed: {checks}")
     return launches
 
 
-def tp_dp_by_tp(torch, card, tmp):
+def tp_dp_by_tp(torch, tmp):
     """[tp] (c): four tp_worker ranks over gloo on the card, dp = 2 x
     tp = 2, float32 at the K1 flag, each of TP_STEPS steps held to the
     host DP step (`host_dp_loss_and_grads` over the two dp shards with
     their draws, then the update) on the card from the same state
     (`tp_replay`, `tp_rule`).  Returns {path: (K1, K2)}."""
     tag = "[tp] (c)"
-    procs, out, t0 = tp_start(4, 2, "gloo", tmp)
-    ranks, wall = tp_join(torch, procs, out, t0, tag)
+    out = os.path.join(tmp, "tp_gloo_4_2")
+    ranks = run_workers(torch, "--tp-worker", 4, ["2", "gloo", out], out, tag)
     got = [r["float32_None"] for r in ranks]
     counts = [g["launches"] for g in got]
     want = (TP_STEPS * 6, 0)
@@ -3233,8 +2811,8 @@ def tp_dp_by_tp(torch, card, tmp):
     print(f"{tag} 4 ranks, gloo on the card, dp = 2 x tp = 2, production_config() float32, "
           f"2 x 16 rows, {TP_STEPS} steps, each replayed with the host DP step on the card "
           f"from the same state: {rule}; launches K1, K2 per rank {counts} (expected {want}); "
-          f"workers' wall {wall:.2f} s; {'ok' if ok else 'FAILED'}")
-    tp_run_line(tag, "gloo", "float32_None", got, tp_plain_rate(torch, "float32", None), card)
+          f"{'ok' if ok else 'FAILED'}")
+    tp_collectives_line(tag, "gloo", "float32_None", got)
     if not ok:
         raise RuntimeError(f"{tag} the dp x tp step disagrees with the host DP step")
     return {"tp_gloo4_dp2_tp2": counts[0]}
@@ -3256,10 +2834,10 @@ def tp_kernels(torch, card, pb):
             bf = dtype == torch.bfloat16
             name = f"[tp] (e) {'bf16' if bf else 'f32'} h={h} L={L} b={b} bp={bp}"
             err1 = max(err1, check_layer(
-                torch, f"{name} K1", layer_inputs(torch, b, bp, L, 128, h, 32, 8, dtype, dtype,
+                torch, f"{name} K1", layer_inputs(torch, b, bp, L, 128, h, 32, 8, dtype,
                                                   600 + i, 8), bf16=bf))
             err2 = max(err2, check_attention(
-                torch, f"{name} K2", attention_inputs(torch, b, bp, L, h, 32, 8, dtype, dtype,
+                torch, f"{name} K2", attention_inputs(torch, b, bp, L, h, 32, 8, dtype,
                                                       700 + i, 8), 8, bf16=bf))
         tp_head_halves(torch)
     times = {h: kernel_times(torch, card, pb, h=h) for h in TP_HEADS}
@@ -3279,7 +2857,7 @@ def tp_head_halves(torch):
 
     for b, bp in ((32, 32), (N_DESIGNS, 1)):
         for dtype in (torch.float32, torch.bfloat16):
-            a = layer_inputs(torch, b, bp, L_MAIN, 128, 8, 32, 8, dtype, dtype, 800 + b, 8)
+            a = layer_inputs(torch, b, bp, L_MAIN, 128, 8, 32, 8, dtype, 800 + b, 8)
             w = a["wts"]
             fh = w.w_out.shape[0] // w.n_head
             acc8, attn8 = op.fused_ipa_layer_packed(**a)
@@ -3309,13 +2887,9 @@ def tp_phase(torch, card, tmp, k1_times, k2_times):
     `k2_times` from phase 7); (f) one rank per card over NCCL where there
     are several cards.  Returns ({path: (K1, K2)}, K1 error, K2 error,
     {h: times})."""
-    laps = [time.perf_counter()]
-    launches = tp_one_rank(torch, card)
-    laps.append(time.perf_counter())
-    launches.update(tp_two_ranks(torch, card, tmp))
-    laps.append(time.perf_counter())
-    launches.update(tp_dp_by_tp(torch, card, tmp))
-    laps.append(time.perf_counter())
+    launches = tp_one_rank(torch)
+    launches.update(tp_two_ranks(torch, tmp))
+    launches.update(tp_dp_by_tp(torch, tmp))
     err1, err2, times = tp_kernels(torch, card, PAR_BATCH)
     for label in ("sample", "train"):
         t4 = times[4]
@@ -3327,24 +2901,17 @@ def tp_phase(torch, card, tmp, k1_times, k2_times):
               f"{k2_times[('bfloat16', label)]['ms']:.4f} ms (bound "
               f"{t4[2][('bfloat16', label)]['bound_ms']:.5f} vs "
               f"{k2_times[('bfloat16', label)]['bound_ms']:.5f})")
-    laps.append(time.perf_counter())
     n_cards = torch.cuda.device_count()
     if n_cards > 1:
-        launches.update(tp_two_ranks(torch, card, tmp, "nccl", "[tp] (f)"))
+        launches.update(tp_two_ranks(torch, tmp, "nccl", "[tp] (f)"))
     else:
         print(f"[tp] (f) {n_cards} card on this machine: tp = 2 over NCCL, one rank per card, "
-              f"needs two cards or more; not run, no cross-card tp number measured")
-    laps.append(time.perf_counter())
-    parts = ("(a) NCCL one rank", "(b)+(d) two ranks gloo", "(c) dp x tp", "(e) kernels",
-             "(f) one rank per card")
-    print(f"[tp] phase {laps[-1] - laps[0]:.2f} s: " + ", ".join(
-        f"{p} {b_ - a:.2f} s" for p, a, b_ in zip(parts, laps, laps[1:])))
+              f"needs two cards or more; not run")
     return launches, err1, err2, times
 
 
 REST_TARGETS = 8  # (a): targets of sample_sharded, each its own seed
 REST_K = 4  # (b): steps_per_call
-REST_TIMED_CALLS = 3  # (b): timed k = 4 calls, against REST_K times as many k = 1 calls
 REST_RECIPE = dict(n_steps=25)  # (c): the 25-step recipe of bench.py, traced and timed
 REST_COMBOS_PER = 4  # (d): instances of each train combination in the corpus
 REST_CLI_STEPS = 4  # (d): cli.train steps on the corpus
@@ -3381,13 +2948,12 @@ def rest_worker(rank, world, device, out) -> None:
                os.path.join(out, f"rest{rank}.pt"))
 
 
-def rest_sample_sharded(torch, card, tmp, designs_rate):
+def rest_sample_sharded(torch, tmp):
     """[rest] (a): sample_sharded of REST_TARGETS 128-residue targets
     (default_config() bf16, T=100, one design each).  NCCL at world size 1
     in this process: bitwise sample() on the same batch from the same
-    generator, K1 at b = bp = REST_TARGETS, designs/s of each beside
-    [main]'s.  Then two gloo ranks sharing the card (--parallel-worker ...
-    rest processes), REST_TARGETS / 2 targets each, against the host loop
+    generator, K1 at b = bp = REST_TARGETS.  Then two gloo ranks sharing
+    the card (--parallel-worker ... rest processes), REST_TARGETS / 2 targets each, against the host loop
     of each rank's sample() from its rank generator: bitwise, as [parallel]
     (b) holds the fan-out (sampling has no backward pass, so no atomics).
     Returns {path: (K1, K2)}."""
@@ -3407,16 +2973,11 @@ def rest_sample_sharded(torch, card, tmp, designs_rate):
     dist.init_process_group("nccl", store=dist.TCPStore("127.0.0.1", 0, 1, True), rank=0,
                             world_size=1)
     try:
-        sample_sharded(fan, None, targets, gen(30), None)  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        sample_sharded(fan, None, targets, gen(30), None)  # captures the step graphs
         plain = fan.sample(None, targets, gen(31))
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
         zero_launches()
         rows = sample_sharded(fan, None, targets, gen(31), None)
         torch.cuda.synchronize()
-        t2 = time.perf_counter()
         launches["rest/sample_sharded"] = k_launches()
     finally:
         dist.destroy_process_group()
@@ -3424,34 +2985,13 @@ def rest_sample_sharded(torch, card, tmp, designs_rate):
     finite = bool(torch.isfinite(rows.translations).all() and torch.isfinite(rows.orientations).all())
     print(f"{tag} NCCL world size 1: sample_sharded({REST_TARGETS} targets of L={L_MAIN}, "
           f"default_config() bf16, T={T}) vs sample() on the same batch from the same generator: "
-          f"rows bitwise equal {same}, finite {finite}; {REST_TARGETS / (t2 - t1):.3f} designs/s "
-          f"vs sample() {REST_TARGETS / (t1 - t0):.3f} ([main] earlier {designs_rate:.3f} at "
-          f"{N_DESIGNS} designs of one target) on {card}; launches K1, K2 "
+          f"rows bitwise equal {same}, finite {finite}; launches K1, K2 "
           f"{launches['rest/sample_sharded']} (expected {want}: b = bp = {REST_TARGETS})")
     if not (same and finite and launches["rest/sample_sharded"] == want):
         raise RuntimeError(f"{tag} the one-rank sample_sharded is not sample()")
 
     out = os.path.join(tmp, "rest_ranks")
-    os.makedirs(out, exist_ok=True)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-worker",
-                               str(r), "2", str(port), "gloo", out, "rest"],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(2)]
-    try:
-        logs = [p.communicate(timeout=600)[0] for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    wall = time.perf_counter() - t0
-    if any(p.returncode != 0 for p in procs):
-        for r, log in enumerate(logs):
-            print(f"{tag} rank {r} exited {procs[r].returncode}:\n{log[-4000:]}")
-        raise RuntimeError(f"{tag} a worker failed")
-    ranks = [torch.load(os.path.join(out, f"rest{r}.pt"), weights_only=False) for r in range(2)]
+    ranks = run_workers(torch, "--parallel-worker", 2, ["gloo", out, "rest"], out, tag, "rest")
     parts = [fan.sample(None, put_global(targets, BatchSharding(r, 2)),
                         rank_generator(gen(31), r)) for r in range(2)]
     host = [torch.cat([getattr(p, f) for p in parts]).cpu()
@@ -3463,22 +3003,19 @@ def rest_sample_sharded(torch, card, tmp, designs_rate):
     print(f"{tag} 2 ranks, gloo, sharing the card: sample_sharded 2 x {REST_TARGETS // 2} "
           f"targets vs the host loop of each rank's sample() from its rank generator: bitwise "
           f"equal on each rank {same} (no tolerance: the same kernels on the same rows); "
-          f"launches K1, K2 per rank {counts} (expected {want2}: b = bp = {REST_TARGETS // 2}); "
-          f"workers' wall {wall:.2f} s (card: {card})")
+          f"launches K1, K2 per rank {counts} (expected {want2}: b = bp = {REST_TARGETS // 2})")
     if not (all(same) and all(c == want2 for c in counts)):
         raise RuntimeError(f"{tag} the two-rank sample_sharded differs from the host loop")
     return launches
 
 
-def rest_steps_per_call(torch, card, train_rate):
+def rest_steps_per_call(torch):
     """[rest] (b): pool_train_step(steps_per_call=REST_K) at
     production_config(), batch 32, rows drawn from a device pool of
     [train]'s batch, from the warmup's end (`par_state`) under
     deterministic algorithms: bitwise the chain of REST_K one-step calls
     (state, Adam moments, EMA and the stacked metrics); K1 6 a step; one
-    call at fuse_ipa_layer=False (K2); then REST_TIMED_CALLS calls of each
-    k timed outside the deterministic mode, steps/s beside [train]'s.
-    Returns {path: (K1, K2)}."""
+    call at fuse_ipa_layer=False (K2).  Returns {path: (K1, K2)}."""
     tag = "[rest] (b)"
     launches = {}
     for fuse in (None, False):
@@ -3524,34 +3061,14 @@ def rest_steps_per_call(torch, card, train_rate):
               f"(expected {want}); checks {checks}")
         if not all(checks.values()):
             raise RuntimeError(f"{tag} steps_per_call={REST_K} is not the one-step chain")
-        if fuse is not None:
-            continue
-        # one call's arguments at each k: all REST_K steps, or step j's rows
-        calls = {REST_K: lambda j: (idx, draws), 1: lambda j: (idx[j % REST_K], draws[j % REST_K])}
-        rates = {}
-        for k in (REST_K, 1, REST_K, 1):  # interleaved: the host's speed drifts
-            state, _ = harness.pool_train_step(par_state(harness), pool, *calls[k](0),
-                                               steps_per_call=k)  # warm-up
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            n_calls = REST_TIMED_CALLS * REST_K // k
-            for j in range(n_calls):
-                state, _ = harness.pool_train_step(state, pool, *calls[k](j), steps_per_call=k)
-            torch.cuda.synchronize()
-            rates.setdefault(k, []).append(n_calls * k / (time.perf_counter() - t0))
-        print(f"{tag} steps/s over {REST_TIMED_CALLS * REST_K} steps, interleaved runs: "
-              f"steps_per_call={REST_K} {[f'{r:.3f}' for r in rates[REST_K]]}, one-step calls "
-              f"{[f'{r:.3f}' for r in rates[1]]} (ratio of means "
-              f"{sum(rates[REST_K]) / sum(rates[1]):.3f}; [train] earlier {train_rate:.3f}) "
-              f"on {card}")
     return launches
 
 
 def rest_tools(torch, card, tmp):
     """[rest] (c): the debug and profiling tools on the card.  checked_fn
     around one production training step (batch 32, deterministic
-    algorithms): its state and metrics bitwise the unwrapped step's, its
-    time beside the unwrapped step's; with one parameter set to NaN it
+    algorithms): its state and metrics bitwise the unwrapped step's; with
+    one parameter set to NaN it
     raises FloatingPointError naming an op; assert_all_finite on the state.
     trace() around one eager sample() (graphs=False: a replay runs no
     Python, so no host scope) of the 25-step recipe (128 designs of
@@ -3569,16 +3086,10 @@ def rest_tools(torch, card, tmp):
     draws = par_draws(torch, harness, batch, 0, 0)
     step = checked_fn(harness.train_step)
     with deterministic(torch):
-        harness.train_step(par_state(harness), batch, draws)  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         plain, m_plain = harness.train_step(par_state(harness), batch, draws)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
         zero_launches()
         checked, m_checked = step(par_state(harness), batch, draws)
         torch.cuda.synchronize()
-        t2 = time.perf_counter()
         launches["rest/checked"] = k_launches()
     same = (all(torch.equal(m_plain[k], m_checked[k]) for k in m_plain)
             and all(torch.equal(plain.params[k], checked.params[k])
@@ -3602,8 +3113,7 @@ def rest_tools(torch, card, tmp):
     want = (layer_calls(harness.config.model), 0)
     print(f"{tag} checked_fn(train_step), production_config() (bf16, batch 32, L={L_MAIN}) "
           f"under deterministic algorithms: state and metrics bitwise the unwrapped step's "
-          f"{same}; {t2 - t1:.4f} s vs {t1 - t0:.4f} s unwrapped ({(t2 - t1) / (t1 - t0):.1f}x) "
-          f"on {card}; launches K1, K2 {launches['rest/checked']} (expected {want}); "
+          f"{same}; launches K1, K2 {launches['rest/checked']} (expected {want}); "
           f"assert_all_finite passed on its state; with {name}[0, 0] = NaN it raised: {raised!r}; "
           f"assert_all_finite: {flagged!r}")
     if not (same and raised and raised.startswith("nan produced by ") and flagged
@@ -3620,12 +3130,10 @@ def rest_tools(torch, card, tmp):
     log_dir = os.path.join(tmp, "rest_trace")
     try:
         zero_launches()
-        t0 = time.perf_counter()
         # eager: a replayed graph runs no Python between its kernels, so its
         # trace holds the kernels but none of the host's scopes
         with trace(log_dir):
             out = run(False)
-        trace_s = time.perf_counter() - t0
         launches["rest/trace"] = k_launches()
     finally:
         del fan.model.denoise
@@ -3660,7 +3168,7 @@ def rest_tools(torch, card, tmp):
           f"{os.path.getsize(path)} bytes of Chrome trace, {len(events)} events, "
           f"'denoiser' scopes {n_scope} on the host (expected {len(t_seq)}) and {n_scope_gpu} "
           f"on the card, {K1_LAUNCHES[0]} events {n_k1}; "
-          f"traced call {trace_s:.3f} s; launches K1, K2 {launches['rest/trace']} (expected "
+          f"launches K1, K2 {launches['rest/trace']} (expected "
           f"{want}); seconds a call: block_and_time {per_call:.4f}, StepTimer {timer_s:.4f}, "
           f"CUDA events {event_s:.4f} on {card}; checks {checks}")
     if not all(checks.values()):
@@ -3668,7 +3176,7 @@ def rest_tools(torch, card, tmp):
     return launches
 
 
-def rest_corpus(torch, card, tmp):
+def rest_corpus(torch, tmp):
     """[rest] (d): the compositional corpus (write_combo_corpus,
     REST_COMBOS_PER instances of each train combination) through
     `cli.preprocess -k 128` (a subprocess, one worker per core), `cli.train
@@ -3688,20 +3196,16 @@ def rest_corpus(torch, card, tmp):
 
     tag = "[rest] (d)"
     root = os.path.join(tmp, "combo")
-    t0 = time.perf_counter()
     man = write_combo_corpus(root, n_per_combo=REST_COMBOS_PER)
     n = len(man["train_combos"]) * REST_COMBOS_PER + len(man["heldout_combos"]) * man[
         "n_val_instances"]
-    write_s = time.perf_counter() - t0
     patches = os.path.join(tmp, "combo_patches")
     jobs = os.cpu_count() or 1
-    t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "diffab_pytorch_tpu_torch.cli.preprocess",
                            "--meta", os.path.join(root, "meta.csv"), "--data-dir",
                            os.path.join(root, "pdb"), "--out-dir", patches, "-j", str(jobs),
                            "-k", str(L_MAIN)], cwd=HERE, capture_output=True, text=True,
                           timeout=600)
-    prep_s = time.perf_counter() - t0
     written = sorted(f for f in os.listdir(patches) if f.endswith(".npz")) \
         if os.path.isdir(patches) else []
     if proc.returncode != 0 or len(written) != n:
@@ -3724,12 +3228,10 @@ def rest_corpus(torch, card, tmp):
         DiffAb.make_train_step = lambda self, *a, **k: rec(self, *a, **k)
         loader_mod.PrefetchLoader.__init__ = recorded
         zero_launches()
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(log):
             rc = train_cli.main(["--data-dir", patches, "--production", "--max-steps",
                                  str(REST_CLI_STEPS), "--checkpoint-dir", ck])
         torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
     finally:
         DiffAb.make_train_step = rec.factory
         loader_mod.PrefetchLoader.__init__ = init
@@ -3745,11 +3247,9 @@ def rest_corpus(torch, card, tmp):
     out = os.path.join(tmp, "combo_designs")
     slog = io.StringIO()
     zero_launches()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(slog):
         src = sample_cli.main(["--patch", patch, "--checkpoint-dir", ck, "-n", "16", "-o", out])
     torch.cuda.synchronize()
-    sample_s = time.perf_counter() - t0
     launches["rest/corpus_sample"] = k_launches()
     designs = sorted(f for f in os.listdir(out) if f.endswith(".pdb"))
     checks = {
@@ -3763,13 +3263,11 @@ def rest_corpus(torch, card, tmp):
         "sample_launches": launches["rest/corpus_sample"] == (
             layer_calls(pcfg.model, pcfg.diffusion.T), 0),
     }
-    print(f"{tag} write_combo_corpus(n_per_combo={REST_COMBOS_PER}): {n} complexes in "
-          f"{write_s:.2f} s; cli.preprocess -j {jobs} -k {L_MAIN}: {len(written)} .npz in "
-          f"{prep_s:.2f} s; cli.train --production --max-steps {REST_CLI_STEPS}: {train_s:.2f} s, "
-          f"losses {[round(v, 4) for v in losses]}, launches K1, K2 of the steps {steps}; "
-          f"cli.sample -n 16 on {os.path.basename(patch)} (a held-out combination): "
-          f"{sample_s:.2f} s, launches {launches['rest/corpus_sample']} (card: {card}); "
-          f"checks {checks}")
+    print(f"{tag} write_combo_corpus(n_per_combo={REST_COMBOS_PER}): {n} complexes; "
+          f"cli.preprocess -j {jobs} -k {L_MAIN}: {len(written)} .npz; cli.train --production "
+          f"--max-steps {REST_CLI_STEPS}: losses {[round(v, 4) for v in losses]}, launches K1, "
+          f"K2 of the steps {steps}; cli.sample -n 16 on {os.path.basename(patch)} (a held-out "
+          f"combination): launches {launches['rest/corpus_sample']}; checks {checks}")
     if not all(checks.values()):
         for line in (log.getvalue() + slog.getvalue()).splitlines()[-20:]:
             print(f"{tag} {line}")
@@ -3795,27 +3293,18 @@ def align_stream_pool(torch):
     return capture, taken + 31
 
 
-def rest_phase(torch, card, tmp, train_rate, designs_rate):
+def rest_phase(torch, card, tmp):
     """[rest]: (a) sample_sharded, (b) steps_per_call, (c) the debug and
     profiling tools, (d) the compositional corpus through the CLIs.
     Returns {path: (K1, K2)}."""
-    laps = [time.perf_counter()]
-    launches = rest_sample_sharded(torch, card, tmp, designs_rate)
-    laps.append(time.perf_counter())
-    launches.update(rest_steps_per_call(torch, card, train_rate))
-    laps.append(time.perf_counter())
+    launches = rest_sample_sharded(torch, tmp)
+    launches.update(rest_steps_per_call(torch))
     launches.update(rest_tools(torch, card, tmp))
-    laps.append(time.perf_counter())
-    launches.update(rest_corpus(torch, card, tmp))
-    laps.append(time.perf_counter())
-    parts = ("(a) sample_sharded", "(b) steps_per_call", "(c) tools", "(d) corpus")
-    print(f"[rest] phase {laps[-1] - laps[0]:.2f} s: " + ", ".join(
-        f"{p} {b_ - a:.2f} s" for p, a, b_ in zip(parts, laps, laps[1:])))
+    launches.update(rest_corpus(torch, tmp))
     return launches
 
 
 GRAPH_TRAIN_STEPS = 5  # [graph] (b): training steps held bitwise against train_step
-GRAPH_TIMED = 10  # [graph] (c): timed training steps a path
 GRAPH_UPDATE_STEPS = 3  # [graph] (b): updates held bitwise against the host-float update
 GRAPH_FIT_STEPS = 3  # [graph] (c): steps of each fit() run whose memory is read
 
@@ -3825,77 +3314,51 @@ def last_entry(cache):
     return next(reversed(cache.entries.values()))
 
 
-def capture_seconds():
-    """Seconds spent in CUDA graph captures so far (the `graphs.capture_s`
-    counter of utils/profiling.py)."""
-    from diffab_pytorch_tpu_torch.utils import profiling
-
-    return profiling.counters().get("graphs.capture_s", 0.0)
-
-
-def graph_sample(torch, card, tag, sched, tables, compute_dtype, n_designs, L, model=None,
-                 k1_per_call=None, other_weights=False, profile_eager=True,
-                 profile_graphed=True, **opts):
-    """[graph] (a) and (c) for one sample() configuration (default_config(),
-    its model in `compute_dtype` and changed by `model`, one synthetic
+def graph_sample(torch, tag, sched, tables, compute_dtype, n_designs, L, model=None,
+                 k1_per_call=None, other_weights=False, profiler_count=False, **opts):
+    """[graph] (a) for one sample() configuration (default_config(), its
+    model in `compute_dtype` and changed by `model`, one synthetic
     L-residue target, default_config()'s schedule and tables), under
-    deterministic algorithms (the sampler's kernels are the default mode's;
-    [main] times the default mode): an eager call (graphs=False), a graphed
-    call (warm-up and capture), two replays and a second eager call, all
-    bitwise the first, the launch counts equal (K1 `k1_per_call`, also in
-    the profiler at L = 128); with `other_weights` a graphed call after new
-    weights are written into the same tensors, bitwise its eager call.
-    Timed in turns (eager, graph, graph, eager); with `profile_graphed` one
-    graphed call profiled, with `profile_eager` one eager call (a profile of
-    a 50k-event eager call takes ~15 s); the capture's seconds, the
-    pool's size and the process's peak memory (allocated: over the first
-    eager call, over the replays; the pool's segments apart).  Returns the
-    readings."""
+    deterministic algorithms (the sampler's kernels are the default
+    mode's): an eager call (graphs=False), a graphed call (warm-up and
+    capture), two replays and a second eager call, all bitwise the first,
+    the launch counts equal (K1 `k1_per_call`; with `profiler_count` the
+    profiler's count of K1's kernels in a graphed call too); with
+    `other_weights` a graphed call after new weights are written into the
+    same tensors, bitwise its eager call.  Returns {"k1_paths": K1's path
+    counters of a replay}."""
     from diffab_pytorch_tpu_torch import config as C
     from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
     from diffab_pytorch_tpu_torch.models.diffab import DiffAbModel
     from diffab_pytorch_tpu_torch.sampling import sampler
     from diffab_pytorch_tpu_torch.weights import init_parameters
 
-    t_start = time.perf_counter()
     mcfg = dataclasses.replace(C.default_config().model, compute_dtype=compute_dtype,
                                **(model or {}))
     net = init_parameters(DiffAbModel(mcfg), torch.Generator().manual_seed(0))
     target = synthetic_batch(0, 1, L, mcfg.n_atoms, n_generate=N_GENERATE, device="cuda")
-    walls = {False: [], None: []}
 
     paths = {}  # K1's launch-1 path counters of the last call, eager (False) / graphed (None)
 
-    def run(graphs, seed=7, timed=False):
+    def run(graphs, seed=7):
         torch.cuda.synchronize()
         zero_launches()
         before = k1_paths()
-        t0 = time.perf_counter()
         out = sampler.sample(net, sched, tables, target, n_designs=n_designs, graphs=graphs,
                              generator=torch.Generator(device="cuda").manual_seed(seed), **opts)
         torch.cuda.synchronize()
-        if timed:
-            walls[graphs].append(time.perf_counter() - t0)
         paths[graphs] = k1_paths_since(before)
         return out, k_launches()
 
     def equal(a, b):
         return all(torch.equal(x, y) for x, y in zip(a, b) if x is not None)
 
-    peak = {}
     with deterministic(torch):
-        torch.cuda.reset_peak_memory_stats()
-        e1, k_eager = run(False, timed=True)
-        peak[False] = torch.cuda.max_memory_allocated() / 1e9
-        captured0 = capture_seconds()
+        e1, k_eager = run(False)
         g1, k_first = run(None)
-        capture_s = capture_seconds() - captured0
-        cache = sampler.chain_graphs(net)
-        torch.cuda.reset_peak_memory_stats()
-        (g2, k_replay), (g3, _) = run(None, timed=True), run(None, timed=True)
+        (g2, k_replay), (g3, _) = run(None), run(None)
         paths_replay = paths[None]
-        peak[None] = torch.cuda.max_memory_allocated() / 1e9
-        e2, _ = run(False, timed=True)
+        e2, _ = run(False)
         checks = {"eager_twice": equal(e1, e2), "graphed_first": equal(g1, e1),
                   "graphed_replays": equal(g2, e1) and equal(g3, e1),
                   "launches": k_first == k_replay == k_eager
@@ -3913,56 +3376,32 @@ def graph_sample(torch, card, tag, sched, tables, compute_dtype, n_designs, L, m
           f"paths a replay {paths_replay}, an eager call {paths[False]}")
     if not all(checks.values()):
         raise RuntimeError(f"{tag} graphed sample() against eager failed: {checks}")
-    wall_e, wall_g = min(walls[False]), min(walls[None])
-    busy_e = ev_e = None
-    if profile_eager:
-        busy_e, ev_e = profile_device(torch, lambda: run(False), wall_e,
-                                      f"{tag} one eager call", top=3, return_events=True)
-    # the profiler can drop a replay's events (never add one): its K1 count
-    # must reach the counter's in one of three profiled calls at L = 128 (a
-    # reading at L = 256, where it dropped more); a run whose profiler
-    # counted nothing fails
-    seen, busy_g, ev_g = [], None, None
-    for _ in range((3 if L == L_MAIN and k1_per_call else 1) if profile_graphed else 0):
-        busy_g, ev_g, k1_prof = profile_device(torch, lambda: run(None), wall_g,
-                                               f"{tag} one graphed call", top=3,
-                                               return_events=True, count_of=K1_LAUNCHES[0])
-        seen.append(k1_prof)
-        if k1_prof == k1_per_call:
-            break
-    if seen and L == L_MAIN and k1_per_call is not None:
+    if profiler_count:
+        # the profiler can drop a replay's events (never add one): its K1
+        # count must reach the counter's in one of three profiled calls; a
+        # run whose profiler counted nothing fails
+        seen = []
+        for _ in range(3):
+            seen.append(profiled_kernels(torch, lambda: run(None), K1_LAUNCHES[0]))
+            if seen[-1] == k1_per_call:
+                break
         print(f"{tag}: the profiler's K1 count by profiled call {seen}, the counter "
               f"{k1_per_call} a call")
         if k1_per_call not in seen:
             raise RuntimeError(f"{tag} the profiler saw {seen} K1 launches in "
                                f"{len(seen)} calls, the counter {k1_per_call} a call")
-    idle = lambda busy, wall: None if busy is None else max(0.0, 1 - busy / (wall * 1e3))
-    out = dict(eager_rate=n_designs / wall_e, graph_rate=n_designs / wall_g,
-               eager_busy=busy_e, graph_busy=busy_g, eager_events=ev_e, graph_events=ev_g,
-               eager_idle=idle(busy_e, wall_e), graph_idle=idle(busy_g, wall_g),
-               capture_s=capture_s, pool_gb=cache.pool_bytes / 1e9, eager_peak_gb=peak[False],
-               graph_peak_gb=peak[None], k1_profiler=seen, k1_paths=paths_replay)
-    print(f"{tag}: designs/s eager {out['eager_rate']:.3f}, graphed {out['graph_rate']:.3f} "
-          f"({out['graph_rate'] / out['eager_rate']:.2f}x; calls eager "
-          f"{', '.join(f'{w:.4f}' for w in walls[False])} s, graphed "
-          f"{', '.join(f'{w:.4f}' for w in walls[None])} s); capture {capture_s:.3f} s, "
-          f"pool {out['pool_gb']:.3f} GB; peak memory eager {peak[False]:.2f} GB, graphed "
-          f"{peak[None]:.2f} GB (card: {card}); {time.perf_counter() - t_start:.1f} s")
-    return out
+    return {"k1_paths": paths_replay}
 
 
-def graph_train(torch, card, tag, compute_dtype, fuse, timed, pool_check):
-    """[graph] (b) and (c) for production_config() training ([train]'s
+def graph_train(torch, tag, compute_dtype, fuse, pool_check):
+    """[graph] (b) for production_config() training ([train]'s
     batch: 32 synthetic L=128 patches) in `compute_dtype` at
     fuse_ipa_layer `fuse`: under deterministic algorithms, from one seeded
     init, GRAPH_TRAIN_STEPS steps of make_train_step() bitwise the eager
     train_step's (parameters, moments, EMA, metrics); two calls of
     make_pool_train_step(steps_per_call=4), each one replay of four bodies
     after the first call's capture, bitwise eight eager steps; the eval
-    step (the pool steps with `pool_check`). With `timed`, in the default
-    mode: eager and graphed steps/s in turns, the pool step's, a profile of
-    each, the captures' seconds, the pools' sizes and the peak memory.
-    Returns the readings."""
+    step (the pool steps with `pool_check`)."""
     from diffab_pytorch_tpu_torch import config as C
     from diffab_pytorch_tpu_torch.data.batch import synthetic_batch
     from diffab_pytorch_tpu_torch.train.harness import DiffAb
@@ -4040,64 +3479,6 @@ def graph_train(torch, card, tag, compute_dtype, fuse, timed, pool_check):
           f"{counts}); {pool_line}make_eval_step bitwise eval_step {checks['eval']}")
     if not all(checks.values()):
         raise RuntimeError(f"{tag} graphed training against eager failed: {checks}")
-    if not timed:
-        return None
-
-    state = harness.init(0)
-    step = harness.make_train_step()
-    rates, peaks = {"eager": [], "graphed": []}, {}
-    captured0 = capture_seconds()
-    for name in ("eager", "graphed", "graphed", "eager"):
-        fn = harness.train_step if name == "eager" else step
-        for j in range(2):
-            state, _ = fn(state, batch, draws[j])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for j in range(GRAPH_TIMED):
-            state, _ = fn(state, batch, draws[j % 8])
-        torch.cuda.synchronize()
-        rates[name].append(GRAPH_TIMED / (time.perf_counter() - t0))
-        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
-    train_capture_s = capture_seconds() - captured0
-    captured0 = capture_seconds()
-    state, _ = pool_step(state, pool, idx[:4], draws[:4])  # the default mode's capture
-    pool_capture_s = capture_seconds() - captured0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for c in range(3):
-        state, _ = pool_step(state, pool, idx[4 * (c % 2):4 * (c % 2) + 4],
-                             draws[4 * (c % 2):4 * (c % 2) + 4])
-    torch.cuda.synchronize()
-    pool_rate = 12 / (time.perf_counter() - t0)
-    pool_entry = last_entry(harness._step_graphs)
-    best = {k: max(v) for k, v in rates.items()}
-    box = [state]
-
-    def one(fn):
-        def go():
-            box[0], _ = fn(box[0], batch, draws[0])
-        return go
-    busy_e, ev_e = profile_device(torch, one(harness.train_step), 1 / best["eager"],
-                                  f"{tag} one eager training step", top=3, return_events=True)
-    busy_g, ev_g = profile_device(torch, one(step), 1 / best["graphed"],
-                                  f"{tag} one graphed training step", top=3, return_events=True)
-    idle = lambda busy, rate: None if busy is None else max(0.0, 1 - busy * rate / 1e3)
-    out = dict(eager_rate=best["eager"], graph_rate=best["graphed"], pool_rate=pool_rate,
-               eager_busy=busy_e, graph_busy=busy_g, eager_events=ev_e, graph_events=ev_g,
-               eager_idle=idle(busy_e, best["eager"]), graph_idle=idle(busy_g, best["graphed"]),
-               capture_s=train_capture_s, pool_gb=harness._step_graphs.pool_bytes / 1e9,
-               pool_capture_s=pool_capture_s, pool_pool_gb=pool_entry.pool_bytes / 1e9,
-               eager_peak_gb=peaks["eager"], graph_peak_gb=peaks["graphed"])
-    print(f"{tag}: steps/s eager {', '.join(f'{r:.3f}' for r in rates['eager'])}, graphed "
-          f"{', '.join(f'{r:.3f}' for r in rates['graphed'])} "
-          f"({best['graphed'] / best['eager']:.2f}x "
-          f"best to best), steps_per_call=4 {pool_rate:.3f} ({pool_rate / best['graphed']:.2f}x "
-          f"the one-step graph); capture {train_capture_s:.3f} s, k=4 "
-          f"{pool_capture_s:.3f} s (the pool grew {out['pool_pool_gb']:.3f} GB in it); "
-          f"the pool of the harness's captures {out['pool_gb']:.3f} GB; peak memory eager "
-          f"{peaks['eager']:.2f} GB, graphed {peaks['graphed']:.2f} GB (card: {card})")
-    return out
 
 
 def host_float_update(torch, harness, state, grads):
@@ -4227,75 +3608,51 @@ def graph_fit_memory(torch, card):
 def graph_phase(torch, card):
     """[graph] (phase 17): the compiled step bodies.  (a) the graphed
     sample() bitwise the eager one (graphs=False) from the same generator
-    seed under deterministic algorithms: [main] in bf16 and float32 (K1 600
-    a call, the profiler's count agreeing), the [fast] recipes, [main-256],
+    seed under deterministic algorithms: [main] in bf16 (K1 600 a call, the
+    profiler's count agreeing) and float32, the [fast] recipes, [main-256],
     self-conditioning (early fusion; the split trunk with Heun) at two IPA
     layers, and fuse_ipa_layer=False on the 25-step recipe; (b)
     make_train_step and make_eval_step bitwise their eager chains at both
-    flags and dtypes, make_pool_train_step(4) at both flags in bf16; (c)
-    each path's rate graphed beside eager (sampling timed under
-    deterministic algorithms, training in the default mode), busy ms, idle
-    share and events of a graphed call of each path not profiled in an
-    earlier phase and of an eager one at [main] bf16, chord-10, sc early and
-    the training steps (an eager call runs the same kernels; profiling the
-    others' eager calls would take ~60 s), capture seconds, pool size and
-    peak memory.  Returns {path: readings}."""
+    flags and dtypes, make_pool_train_step(4) at both flags in bf16, and
+    apply_gradients bitwise the host-float update; (c) the card's reserved
+    memory across fit() runs (graph_fit_memory)."""
     from diffab_pytorch_tpu_torch import config as C
     from diffab_pytorch_tpu_torch.diffusion.orientation import make_orientation_tables
     from diffab_pytorch_tpu_torch.diffusion.schedule import cosine_variance_schedule
 
-    t0 = time.perf_counter()
     d = C.default_config().diffusion
     sched = cosine_variance_schedule(d.T, s=d.s, beta_max=d.beta_max, device="cuda")
     tables = make_orientation_tables(sched)
-    run = lambda label, *args, **kw: graph_sample(torch, card, f"[graph] (a) {label}", sched,
-                                                  tables, *args, **kw)
-    # [main-f32], [main-256] and the [fast] recipes' graphed calls are
-    # profiled in their own phases above, on these shapes
+    run = lambda label, *args, **kw: graph_sample(torch, f"[graph] (a) {label}", sched, tables,
+                                                  *args, **kw)
     check_persistent_path(torch, "[graph]")
-    out = {"main bfloat16": run("[main] bfloat16", "bfloat16", N_DESIGNS, L_MAIN,
-                                k1_per_call=600, other_weights=True),
-           "main float32": run("[main] float32", "float32", N_DESIGNS, L_MAIN, k1_per_call=600,
-                               profile_eager=False, profile_graphed=False)}
+    run("[main] bfloat16", "bfloat16", N_DESIGNS, L_MAIN, k1_per_call=600, other_weights=True,
+        profiler_count=True)
+    run("[main] float32", "float32", N_DESIGNS, L_MAIN, k1_per_call=600)
     for name, n_designs, opts in FAST_RECIPES:
-        out[f"fast {name}"] = run(f"[fast] {name}", "bfloat16", n_designs, L_MAIN,
-                                  profile_eager=name == FAST_RECIPES[0][0],
-                                  profile_graphed=False, **opts)
-    out["main-256"] = run("[main-256]", "bfloat16", N_DESIGNS, 256, k1_per_call=600,
-                          profile_eager=False, profile_graphed=False)
+        run(f"[fast] {name}", "bfloat16", n_designs, L_MAIN, **opts)
+    run("[main-256]", "bfloat16", N_DESIGNS, 256, k1_per_call=600)
     small = dict(n_ipa_layers=2)
-    out["sc early"] = run("sc early", "bfloat16", 32, L_MAIN,
-                          model=dict(small, **sc_model_fields("early")), n_steps=25, sc_t_max=60)
-    out["sc split"] = run("sc split", "bfloat16", 32, L_MAIN,
-                          model=dict(small, **sc_model_fields("split")), n_steps=20, sc_t_max=60,
-                          coord_solver="heun", coord_solver_t_min=10, profile_eager=False)
-    out["25-step fuse False"] = run("[fast] 25-step fuse_ipa_layer=False", "bfloat16",
-                                    N_DESIGNS, L_MAIN, model=dict(fuse_ipa_layer=False),
-                                    n_steps=25, profile_eager=False)
-    laps = {"(a)": time.perf_counter() - t0}
+    run("sc early", "bfloat16", 32, L_MAIN, model=dict(small, **sc_model_fields("early")),
+        n_steps=25, sc_t_max=60)
+    run("sc split", "bfloat16", 32, L_MAIN, model=dict(small, **sc_model_fields("split")),
+        n_steps=20, sc_t_max=60, coord_solver="heun", coord_solver_t_min=10)
+    run("[fast] 25-step fuse_ipa_layer=False", "bfloat16", N_DESIGNS, L_MAIN,
+        model=dict(fuse_ipa_layer=False), n_steps=25)
     for dtype in ("bfloat16", "float32"):
         for fuse in (None, False):
-            bf16 = dtype == "bfloat16"
-            reading = graph_train(torch, card, f"[graph] (b) train {dtype} fuse={fuse}", dtype,
-                                  fuse, timed=bf16, pool_check=bf16)
-            if reading:
-                out[f"train fuse {fuse}"] = reading
+            graph_train(torch, f"[graph] (b) train {dtype} fuse={fuse}", dtype, fuse,
+                        pool_check=dtype == "bfloat16")
     if not graph_update_check(torch, card):
         raise RuntimeError("[graph] (b) apply_gradients is not the host-float update bitwise")
     if not graph_fit_memory(torch, card):
         raise RuntimeError("[graph] (c) the card's memory grew across fit() runs")
-    laps["(b)-(c) training"] = time.perf_counter() - t0 - laps["(a)"]
-    print(f"[graph] phase {time.perf_counter() - t0:.2f} s: sampling {laps['(a)']:.2f} s, "
-          f"training {laps['(b)-(c) training']:.2f} s")
-    print("[graph] " + json.dumps({k: {n: (round(v, 6) if isinstance(v, float) else v)
-                                       for n, v in r.items()} for k, r in out.items()}))
-    return out
 
 
 def kernel_times(torch, card, pb, h=8):
     """Per-launch times at L = 128, the main paths' shapes (b = 128, bp = 1
-    and b = bp = pb): K1 in bf16 (also host-paced, and its two launches
-    apart by the profiler) and float32, K2 in both dtypes, each beside its
+    and b = bp = pb): K1 in bf16 (its two launches also apart by the
+    profiler) and float32, K2 in both dtypes, each beside its
     plain version and its bound; K1 is held to its plain version at
     b = 128 first.  `h`: the heads of a call (8, the default width's; 4, 2,
     1 for one tp rank's at tp = 2, 4, 8).  Returns (K1 bf16 times, K1
@@ -4309,8 +3666,8 @@ def kernel_times(torch, card, pb, h=8):
     k1_times = {}
     for label, b, bp, seed in (("sample", N_DESIGNS, 1, 4), ("train", pb, pb, 6)):
         with torch.no_grad():
-            a = layer_inputs(torch, b, bp, **main_shape, dtype=torch.bfloat16,
-                             bias_dtype=torch.bfloat16, seed=seed, n_masked=0)
+            a = layer_inputs(torch, b, bp, **main_shape, dtype=torch.bfloat16, seed=seed,
+                             n_masked=0)
             if label == "sample":
                 err_bf16 = check_layer(torch, f"main bf16 (b=128 bp=1 L=128{heads})", a,
                                        bf16=True)
@@ -4318,18 +3675,14 @@ def kernel_times(torch, card, pb, h=8):
             km = cuda_time_ms(kern, 20)
             pm = cuda_time_ms(lambda a=a: op.fused_ipa_layer_packed_reference(**a), 5)
             km2 = cuda_time_ms(kern, 20)
-            host_paced = cuda_time_ms(kern, 20, queued=False)
             tl = device_timeline(torch, kern, 20, K1_LAUNCHES)
-        fl, nb = ipa_layer_flops_bytes(b, bp, **main_shape, itemsize=2, bias_itemsize=2)
-        bnd, by, t_o, t_b = bound_ms(fl, nb, "bfloat16")
+        fl, nb = work.ipa_layer_flops_bytes(b, bp, **main_shape, itemsize=2, bias_itemsize=2)
+        bnd, by, t_o, t_b = bound_parts(fl, nb, "bfloat16")
         k1_times[label] = dict(ms=min(km, km2), plain_ms=pm, bound_ms=bnd, bound_by=by,
-                               host_paced_ms=host_paced,
                                launch_ms=tl and {n: tl[n] for n in K1_LAUNCHES})
         print(f"[time] ipa_fused_layer b={b} bp={bp} L=128{heads} bf16 ({label} shape) on "
               f"{card}: "
               f"kernel {km:.4f} / {km2:.4f} ms (CUDA events, 20 calls queued behind a sleep), "
-              f"{host_paced:.4f} ms issued call by call from the host (the earlier design's "
-              f"method), "
               f"plain version {pm:.4f} ms, bound {bnd:.4f} ms ({fl / 1e9:.2f} GFLOP -> "
               f"{t_o:.4f} ms, {nb / 1e6:.2f} MB -> {t_b:.4f} ms; bound by {by}), "
               f"{bnd / min(km, km2):.3%} of bound")
@@ -4347,16 +3700,13 @@ def kernel_times(torch, card, pb, h=8):
             + f"; {tl['events_per_call']:.2f} device events per call, {tl['kernels_ms']:.4f} ms "
             f"in all; card idle between them per call: " + ", ".join(
                 f"before {k} {v:.4f} ms" for k, v in tl["idle_before_ms"].items()))
-    if h == 8:
-        print("[earlier] ipa_fused_layer b=128 bp=1 L=128 bf16: 0.7938 ms per call with the "
-              "earlier CUDA-core design (PERF.md, K1 row; CUDA events, calls issued by the host)")
 
     # K1's float32 route (3xTF32), timed as bf16 above
     k1_f32 = {}
     for label, b, bp, seed in (("sample", N_DESIGNS, 1, 4), ("train", pb, pb, 6)):
         with torch.no_grad():
-            a = layer_inputs(torch, b, bp, **main_shape, dtype=torch.float32,
-                             bias_dtype=torch.float32, seed=seed, n_masked=0)
+            a = layer_inputs(torch, b, bp, **main_shape, dtype=torch.float32, seed=seed,
+                             n_masked=0)
             if label == "sample":
                 err_f32 = check_layer(torch, f"main f32 (b=128 bp=1 L=128{heads})", a,
                                       bf16=False)
@@ -4364,18 +3714,14 @@ def kernel_times(torch, card, pb, h=8):
             km = cuda_time_ms(kern, 20)
             pm = cuda_time_ms(lambda a=a: op.fused_ipa_layer_packed_reference(**a), 5)
             km2 = cuda_time_ms(kern, 20)
-        fl, nb = ipa_layer_flops_bytes(b, bp, **main_shape, itemsize=4, bias_itemsize=4)
-        bnd, by, t_o, t_b = bound_ms(fl, nb, "float32")
+        fl, nb = work.ipa_layer_flops_bytes(b, bp, **main_shape, itemsize=4, bias_itemsize=4)
+        bnd, by, t_o, t_b = bound_parts(fl, nb, "float32")
         k1_f32[label] = dict(ms=min(km, km2), plain_ms=pm, bound_ms=bnd, bound_by=by)
         print(f"[time] ipa_fused_layer b={b} bp={bp} L=128{heads} f32 ({label} shape) on "
               f"{card}: "
               f"kernel {km:.4f} / {km2:.4f} ms, plain version {pm:.4f} ms, bound {bnd:.4f} ms "
               f"({fl / 1e9:.2f} GFLOP at the 3xTF32 rate -> {t_o:.4f} ms, {nb / 1e6:.2f} MB -> "
               f"{t_b:.4f} ms; bound by {by}), {bnd / min(km, km2):.3%} of bound")
-    if h == 8:
-        print("[earlier] ipa_fused_layer L=128 f32 with the earlier CUDA-core design (three "
-              "launches): 0.9785-0.9824 ms at b=128 bp=1 and 0.3148-0.3155 ms at b=bp=32 "
-              "(PERF.md, K1 row; CUDA events, queued; H100 80GB HBM3, 700 W)")
 
     # K2 in both dtypes
     k2_times = {}
@@ -4383,14 +3729,14 @@ def kernel_times(torch, card, pb, h=8):
         dname = str(dtype).removeprefix("torch.")
         for label, b, bp in (("train", pb, pb), ("sample", N_DESIGNS, 1)):
             with torch.no_grad():
-                aargs = attention_inputs(torch, b, bp, **att_shape, dtype=dtype,
-                                         bias_dtype=dtype, seed=30 + b, n_masked=0)
+                aargs = attention_inputs(torch, b, bp, **att_shape, dtype=dtype, seed=30 + b,
+                                         n_masked=0)
                 km = cuda_time_ms(lambda: k2.ipa_attention_core(**aargs), 20)
                 pm = cuda_time_ms(lambda: k2.ipa_attention_core_reference(**aargs), 5)
                 km2 = cuda_time_ms(lambda: k2.ipa_attention_core(**aargs), 20)
             fl, nb = attention_flops_bytes(b, bp, **att_shape, itemsize=dtype.itemsize,
                                            bias_itemsize=dtype.itemsize)
-            bnd, by, t_o, t_b = bound_ms(fl, nb, dname)
+            bnd, by, t_o, t_b = bound_parts(fl, nb, dname)
             k2_times[(dname, label)] = dict(ms=min(km, km2), plain_ms=pm, bound_ms=bnd,
                                             bound_by=by)
             print(f"[time] ipa_attention b={b} bp={bp} L=128{heads} {dname} ({label} shape) on "
@@ -4398,10 +3744,6 @@ def kernel_times(torch, card, pb, h=8):
                   f"kernel {km:.4f} / {km2:.4f} ms, plain version {pm:.4f} ms, bound "
                   f"{bnd:.4f} ms ({fl / 1e9:.2f} GFLOP -> {t_o:.4f} ms, {nb / 1e6:.2f} MB -> "
                   f"{t_b:.4f} ms; bound by {by}), {bnd / min(km, km2):.3%} of bound")
-    if h == 8:
-        print("[earlier] ipa_attention with the earlier CUDA-core design: bf16 0.1064-0.1071 ms "
-              "at b=bp=32 and 0.4235-0.4263 ms at b=128 bp=1; float32 0.1152-0.1159 / "
-              "0.4263-0.4293 ms (PERF.md, K2 row; CUDA events, queued; H100 80GB HBM3, 700 W)")
 
     return k1_times, k1_f32, k2_times, err_bf16, err_f32
 
@@ -4455,7 +3797,7 @@ def ga_long_checks(torch):
             worst = max(worst, check_layer(
                 torch, f"[ga] (a) K1 directions f32 (b={b} bp={bp} L={L} d={d} h={h} ds={ds} "
                 f"P={p})",
-                layer_inputs(torch, b, bp, L, d, h, ds, p, torch.float32, torch.float32,
+                layer_inputs(torch, b, bp, L, d, h, ds, p, torch.float32,
                              seed, 9, directions=True), bf16=False))
             got = k1_paths_since(before)
             onepass = op.attend_path(torch.float32, L, ds, p) == op.ATTEND_ONEPASS
@@ -4480,7 +3822,7 @@ def attend_time(torch, card, iters=20):
     b, bp, L, h, ds, p = 100, 1, 256, 12, 32, 8
     names = ("layer_heads_kernel", "attend_kernel", "out_proj_kernel")
     with torch.no_grad():
-        a = layer_inputs(torch, b, bp, L, 128, h, ds, p, torch.float32, torch.float32, 98, 0,
+        a = layer_inputs(torch, b, bp, L, 128, h, ds, p, torch.float32, 98, 0,
                          directions=True)
         kern = lambda: op.fused_ipa_layer_packed(**a)
         km = cuda_time_ms(kern, iters)
@@ -4494,7 +3836,7 @@ def attend_time(torch, card, iters=20):
     fp, fvp, fh = -(-(fv + 3) // 8) * 8, -(-fv // 8) * 8, -(-(ds + 7 * p) // 8) * 8
     flops = 2 * b * h * L * L * (2 * fv + 3)
     n_bytes = 4 * (b * h * L * L + b * h * (2 * fp + fvp) * L + b * L * h * fh)
-    bnd, by, t_o, t_b = bound_ms(flops, n_bytes, "float32")
+    bnd, by, t_o, t_b = bound_parts(flops, n_bytes, "float32")
     att = tl and tl["attend_kernel"]
     out = dict(call_ms=min(km, km2), launch_ms=tl and {n: tl[n] for n in names},
                attend_bound_ms=bnd)
@@ -4541,30 +3883,29 @@ def ga_phase(torch, card):
     from diffab_pytorch_tpu_torch.train.trainer import fit
     from diffab_pytorch_tpu_torch.utils import profiling
 
-    t0 = time.perf_counter()
     worst = 0.0
     with torch.no_grad():
         for dtype, seed in ((torch.float32, 90), (torch.bfloat16, 91)):
             worst = max(worst, check_layer(
                 torch, f"[ga] (a) K1 directions {dtype} (b=100 bp=1 L=256 h=12)",
-                layer_inputs(torch, 100, 1, 256, 128, 12, 32, 8, dtype, dtype, seed, 9,
+                layer_inputs(torch, 100, 1, 256, 128, 12, 32, 8, dtype, seed, 9,
                              directions=True), bf16=dtype == torch.bfloat16))
         worst = max(worst, check_layer(
             torch, "[ga] (a) K1 directions f32 L=77 d=30 (b=8 bp=2 h=12)",
-            layer_inputs(torch, 8, 2, 77, 30, 12, 32, 8, torch.float32, torch.float32, 92, 9,
+            layer_inputs(torch, 8, 2, 77, 30, 12, 32, 8, torch.float32, 92, 9,
                          directions=True), bf16=False))
         before = k1_paths()
         worst = max(worst, check_layer(
             torch, "[ga] (a) K1 directions bf16 (b=128 bp=1 L=128 h=8)",
-            layer_inputs(torch, N_DESIGNS, 1, L_MAIN, 128, 8, 32, 8, torch.bfloat16,
-                         torch.bfloat16, 93, 0, directions=True), bf16=True))
+            layer_inputs(torch, N_DESIGNS, 1, L_MAIN, 128, 8, 32, 8, torch.bfloat16, 93, 0,
+                         directions=True), bf16=True))
         got = k1_paths_since(before)
         print(f"[ga] (a) K1 paths of that call: {got} (the per-item kernel: no items, one call)")
         if got != dict(items=0, overlapped=0, fallback_calls=1, attend_onepass=0,
                        attend_twopass=0):
             raise RuntimeError(f"[ga] (a) K1 with direction rows took the persistent path: {got}")
     worst = max(worst, ga_long_checks(torch))
-    la = layer_inputs(torch, 4, 4, L_MAIN, 128, 12, 32, 8, torch.float32, torch.float32, 94, 8,
+    la = layer_inputs(torch, 4, 4, L_MAIN, 128, 12, 32, 8, torch.float32, 94, 8,
                       directions=True)
     shape = (12, 32, 8, True)
     layer_fn = lambda impl: (lambda x, wq, wo, g, bias, rot, trans, mask, st: impl(
@@ -4578,8 +3919,8 @@ def ga_phase(torch, card):
     sched = cosine_variance_schedule(d.T, s=d.s, beta_max=d.beta_max, device="cuda")
     tables = make_orientation_tables(sched)
     blocks0 = profiling.counters().get("ga.blocks", 0)
-    gs = graph_sample(torch, card, "[ga] (b)", sched, tables, "float32", 8, 256, model=GA_MODEL,
-                      k1_per_call=600, profile_eager=False, profile_graphed=False)
+    gs = graph_sample(torch, "[ga] (b)", sched, tables, "float32", 8, 256, model=GA_MODEL,
+                      k1_per_call=600)
     blocks = profiling.counters().get("ga.blocks", 0) - blocks0
     print(f"[ga] (b) ga.blocks over those 5 calls (eager, graphed, 2 replays, eager): {blocks}")
     if blocks != 5 * 600:
@@ -4598,12 +3939,7 @@ def ga_phase(torch, card):
         state = h.init(0)
         batch = assemble_batch([load_patch(paths[0])], cdrs, device="cuda")[0]
         gen = torch.Generator(device="cuda")
-        for k in range(2):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            res = h.sample(state.params, batch, generator=gen.manual_seed(k), n_designs=100)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t1
+        res = h.sample(state.params, batch, generator=gen.manual_seed(0), n_designs=100)
         scores = h.score_designs(state.params, batch, res, generator=gen.manual_seed(9)).score
         torch.cuda.synchronize()
         ok = all(bool(torch.isfinite(t).all()) for t in (res.translations, res.orientations,
@@ -4611,9 +3947,8 @@ def ga_phase(torch, card):
         ds = PatchDataset(paths, cdrs_to_generate=cdrs)
         rows = [b for b, _ in ds.batches(4, shuffle=False, epochs=1)]
         state = fit(h, rows, max_steps=3, state=state, seed=1)
-        print(f"[ga] (c) official_config(): sample() 100 designs of a six-CDR L=256 patch "
-              f"{wall:.3f} s ({100 / wall:.2f} designs/s, second call), score_designs "
-              f"finite {ok}, fit() to step {state.step} (card: {card})")
+        print(f"[ga] (c) official_config(): sample() 100 designs of a six-CDR L=256 patch and "
+              f"score_designs finite {ok}, fit() to step {state.step}")
         if not ok or state.step != 3:
             raise RuntimeError("[ga] (c) the official network's entry points failed")
         ck = os.path.join(tmp, "ck")
@@ -4624,8 +3959,7 @@ def ga_phase(torch, card):
         print(f"[ga] (c) cli.train --official and cli.sample --official: exit {rc}")
         if rc:
             raise RuntimeError("[ga] (c) the --official CLIs failed")
-    print(f"[ga] phase {time.perf_counter() - t0:.2f} s; K1 with direction rows: largest "
-          f"error {worst:.3e}")
+    print(f"[ga] K1 with direction rows: largest error {worst:.3e}")
     return worst
 
 
@@ -4679,86 +4013,73 @@ def main() -> int:
     # ---- 3. kernel vs plain version ----------------------------------------
     main_shape = dict(L=L_MAIN, d=128, h=8, ds=32, p=8)
     att_shape = dict(L=L_MAIN, h=8, ds=32, p=8)
+    f32, b16 = torch.float32, torch.bfloat16
     with torch.no_grad():
         check_layer(torch, "tiny f32 (b=2 bp=1 L=24 d=32 h=4 ds=8 p=4)",
-                    layer_inputs(torch, 2, 1, 24, 32, 4, 8, 4, torch.float32,
-                                 torch.float32, 0, 5), bf16=False)
+                    layer_inputs(torch, 2, 1, 24, 32, 4, 8, 4, f32, 0, 5), bf16=False)
         err_f32 = check_layer(torch, "main f32 (b=8 bp=1 L=128)",
-                              layer_inputs(torch, 8, 1, **main_shape, dtype=torch.float32,
-                                           bias_dtype=torch.float32, seed=1, n_masked=16),
-                              bf16=False)
+                              layer_inputs(torch, 8, 1, **main_shape, dtype=f32, seed=1,
+                                           n_masked=16), bf16=False)
         err_bf16 = check_layer(torch, "main bf16 (b=8 bp=1 L=128)",
-                               layer_inputs(torch, 8, 1, **main_shape, dtype=torch.bfloat16,
-                                            bias_dtype=torch.bfloat16, seed=2, n_masked=16),
-                               bf16=True)
-        check_layer(torch, "main bf16 with f32 bias (b=8 bp=2 L=128)",
-                    layer_inputs(torch, 8, 2, **main_shape, dtype=torch.bfloat16,
-                                 bias_dtype=torch.float32, seed=3, n_masked=0),
-                    bf16=True)
+                               layer_inputs(torch, 8, 1, **main_shape, dtype=b16, seed=2,
+                                            n_masked=16), bf16=True)
+        err_bf16 = max(err_bf16, check_layer(
+            torch, "main bf16 (b=8 bp=2 L=128)",
+            layer_inputs(torch, 8, 2, **main_shape, dtype=b16, seed=3, n_masked=0), bf16=True))
         err_bf16 = max(err_bf16, check_layer(
             torch, "train bf16 (b=32 bp=32 L=128)",
-            layer_inputs(torch, 32, 32, **main_shape, dtype=torch.bfloat16,
-                         bias_dtype=torch.bfloat16, seed=5, n_masked=8), bf16=True))
+            layer_inputs(torch, 32, 32, **main_shape, dtype=b16, seed=5, n_masked=8), bf16=True))
         err_bf16 = max(err_bf16, check_layer(
             torch, "tiny bf16 (b=2 bp=1 L=24 d=32 h=4 ds=8 p=4)",
-            layer_inputs(torch, 2, 1, 24, 32, 4, 8, 4, torch.bfloat16, torch.bfloat16, 7, 5),
-            bf16=True))
+            layer_inputs(torch, 2, 1, 24, 32, 4, 8, 4, b16, 7, 5), bf16=True))
         err_bf16 = max(err_bf16, check_layer(
-            torch, "bf16 L=77 with f32 bias (b=8 bp=2)",
-            layer_inputs(torch, 8, 2, 77, 128, 8, 32, 8, torch.bfloat16, torch.float32, 8, 9),
-            bf16=True))
+            torch, "bf16 L=77 (b=8 bp=2)",
+            layer_inputs(torch, 8, 2, 77, 128, 8, 32, 8, b16, 8, 9), bf16=True))
         # float32 at the tile edges: L % 8 != 0 with d % 4 != 0 (x read
         # element by element), the training shape, and the widest shape the
         # gate takes (ds + 3P = 64, P = 21) at narrow d and h
         err_f32 = max(err_f32, check_layer(
             torch, "f32 L=77 d=30 (b=8 bp=2 h=8 ds=32 p=8)",
-            layer_inputs(torch, 8, 2, 77, 30, 8, 32, 8, torch.float32, torch.float32, 9, 9),
-            bf16=False))
+            layer_inputs(torch, 8, 2, 77, 30, 8, 32, 8, f32, 9, 9), bf16=False))
         err_f32 = max(err_f32, check_layer(
             torch, "train f32 (b=32 bp=32 L=128)",
-            layer_inputs(torch, 32, 32, **main_shape, dtype=torch.float32,
-                         bias_dtype=torch.float32, seed=18, n_masked=8), bf16=False))
+            layer_inputs(torch, 32, 32, **main_shape, dtype=f32, seed=18, n_masked=8),
+            bf16=False))
         err_f32 = max(err_f32, check_layer(
             torch, "widest f32 (b=4 bp=1 L=128 d=20 h=2 ds=1 p=21)",
-            layer_inputs(torch, 4, 1, 128, 20, 2, 1, 21, torch.float32, torch.float32, 19, 11),
-            bf16=False))
+            layer_inputs(torch, 4, 1, 128, 20, 2, 1, 21, f32, 19, 11), bf16=False))
 
         check_attention(torch, "K2 tiny f32 (b=2 bp=1 L=24 h=4 ds=8 p=4)",
-                        attention_inputs(torch, 2, 1, 24, 4, 8, 4, torch.float32,
-                                         torch.float32, 10, 5), 5, bf16=False)
+                        attention_inputs(torch, 2, 1, 24, 4, 8, 4, f32, 10, 5), 5, bf16=False)
         k2_err_f32 = check_attention(
             torch, "K2 main f32 (b=8 bp=2 L=128)",
-            attention_inputs(torch, 8, 2, **att_shape, dtype=torch.float32,
-                             bias_dtype=torch.float32, seed=11, n_masked=16), 16, bf16=False)
+            attention_inputs(torch, 8, 2, **att_shape, dtype=f32, seed=11, n_masked=16), 16,
+            bf16=False)
         k2_err_bf16 = check_attention(
             torch, "K2 train bf16 (b=32 bp=32 L=128)",
-            attention_inputs(torch, 32, 32, **att_shape, dtype=torch.bfloat16,
-                             bias_dtype=torch.bfloat16, seed=12, n_masked=8), 8, bf16=True)
+            attention_inputs(torch, 32, 32, **att_shape, dtype=b16, seed=12, n_masked=8), 8,
+            bf16=True)
         k2_err_bf16 = max(k2_err_bf16, check_attention(
             torch, "K2 sample bf16 (b=128 bp=1 L=128)",
-            attention_inputs(torch, 128, 1, **att_shape, dtype=torch.bfloat16,
-                             bias_dtype=torch.bfloat16, seed=13, n_masked=16), 16, bf16=True))
-        check_attention(torch, "K2 bf16 with f32 bias (b=8 bp=2 L=128)",
-                        attention_inputs(torch, 8, 2, **att_shape, dtype=torch.bfloat16,
-                                         bias_dtype=torch.float32, seed=14, n_masked=0), 0,
-                        bf16=True)
+            attention_inputs(torch, 128, 1, **att_shape, dtype=b16, seed=13, n_masked=16), 16,
+            bf16=True))
+        k2_err_bf16 = max(k2_err_bf16, check_attention(
+            torch, "K2 bf16 (b=8 bp=2 L=128)",
+            attention_inputs(torch, 8, 2, **att_shape, dtype=b16, seed=14, n_masked=0), 0,
+            bf16=True))
         # the tile edges: L below one 16-row tile of a warp, L % 8 != 0
         k2_err_bf16 = max(k2_err_bf16, check_attention(
             torch, "K2 tiny bf16 (b=2 bp=1 L=24 h=4 ds=8 p=4)",
-            attention_inputs(torch, 2, 1, 24, 4, 8, 4, torch.bfloat16, torch.bfloat16, 15, 5),
-            5, bf16=True))
+            attention_inputs(torch, 2, 1, 24, 4, 8, 4, b16, 15, 5), 5, bf16=True))
         k2_err_bf16 = max(k2_err_bf16, check_attention(
-            torch, "K2 bf16 L=77 with f32 bias (b=8 bp=2)",
-            attention_inputs(torch, 8, 2, 77, 8, 32, 8, torch.bfloat16, torch.float32, 16, 9),
-            9, bf16=True))
+            torch, "K2 bf16 L=77 (b=8 bp=2)",
+            attention_inputs(torch, 8, 2, 77, 8, 32, 8, b16, 16, 9), 9, bf16=True))
         k2_err_f32 = max(k2_err_f32, check_attention(
             torch, "K2 f32 L=77 (b=8 bp=2)",
-            attention_inputs(torch, 8, 2, 77, 8, 32, 8, torch.float32, torch.float32, 17, 9),
-            9, bf16=False))
+            attention_inputs(torch, 8, 2, 77, 8, 32, 8, f32, 17, 9), 9, bf16=False))
 
     # autograd Functions (kernel forward, recomputed plain backward)
-    la = layer_inputs(torch, 4, 4, **main_shape, dtype=torch.float32,
-                      bias_dtype=torch.float32, seed=20, n_masked=8)
+    la = layer_inputs(torch, 4, 4, **main_shape, dtype=f32, seed=20, n_masked=8)
     shape = (la["wts"].n_head, la["wts"].d_scalar, la["wts"].n_point)
     layer_fn = lambda impl: (lambda x, wq, wo, g, bias, rot, trans, mask, st: impl(
         x, rot, trans, mask, op.LayerKernelWeights(wq, wo, g, *shape), bias, st))
@@ -4766,8 +4087,7 @@ def main() -> int:
                 layer_fn(op.fused_ipa_layer_packed_reference),
                 [la["x"], la["wts"].w_qkv, la["wts"].w_out, la["wts"].g, la["bias"]],
                 (la["rot"], la["trans"], la["mask"], la["scale_total"]))
-    aa = attention_inputs(torch, 4, 4, **att_shape, dtype=torch.float32,
-                          bias_dtype=torch.float32, seed=21, n_masked=8)
+    aa = attention_inputs(torch, 4, 4, **att_shape, dtype=f32, seed=21, n_masked=8)
     check_grads(torch, "K2 attention core f32 (b=4 L=128)", k2.ipa_attention_core,
                 k2.ipa_attention_core_reference,
                 [aa["q_aug"], aa["k_aug"], aa["v_s"], aa["v_p"], aa["bias"]],
@@ -4780,20 +4100,15 @@ def main() -> int:
     e2e_train_check(torch, "[e2e-train]", 32)
 
     # ---- 5. sampling main path, bf16 then float32 --------------------------------------
-    launches = {}
-    launches["sample"], designs_per_s = sampling_main_path(torch, card, "bfloat16", 3, "[main]")
-    launches["sample_f32"], designs_per_s_f32 = sampling_main_path(torch, card, "float32", 2,
-                                                                   "[main-f32]")
+    launches = {"sample": sampling_main_path(torch, "bfloat16", "[main]"),
+                "sample_f32": sampling_main_path(torch, "float32", "[main-f32]")}
 
     # ---- 6. training main path: production_config(), both flags -------------------
-    n_warm, n_timed = 3, 20
-    pb = C.production_config().train.batch_size
-    train_rates = {}
     for fuse in (None, False):
-        launches[f"train_fuse_{fuse}"], train_rates[fuse] = training_main_path(
-            torch, card, "[train]", fuse, L_MAIN, n_warm, n_timed)
+        launches[f"train_fuse_{fuse}"] = training_main_path(torch, "[train]", fuse, L_MAIN, 3, 20)
 
     # ---- 7. per-launch times at L = 128 ---------------------------------------------
+    pb = C.production_config().train.batch_size
     k1_times, k1_f32, k2_times, e_bf16, e_f32 = kernel_times(torch, card, pb)
     err_bf16, err_f32 = max(err_bf16, e_bf16), max(err_f32, e_f32)
 
@@ -4813,38 +4128,36 @@ def main() -> int:
         e2e_sample_check(torch, "[fast]", 32, 20, single_chain=True, **opts)
 
     # ---- 10. L = 256 and the fast recipes at full width ---------------------------------
-    launches["sample_L256"], designs_per_s_256 = sampling_main_path(
-        torch, card, "bfloat16", 2, "[main-256]", L=256)
+    launches["sample_L256"] = sampling_main_path(torch, "bfloat16", "[main-256]", L=256)
+    # the captured bf16 training steps at L = 256, K1 and K2 (the K2 capture
+    # was once invalidated in one run of three, PERF.md §7)
     for fuse in (None, False):
-        launches[f"train_L256_fuse_{fuse}"], _ = training_main_path(
-            torch, card, "[main-256] train", fuse, 256, 2, 4, batch_size=8, profile=False)
+        launches[f"train_L256_fuse_{fuse}"] = training_main_path(
+            torch, "[main-256] train", fuse, 256, 2, 4, batch_size=8)
     # K1 at the widest shape the recipes give it (b = n_designs, bp = 1)
     b_fast = max(n for _, n, _ in FAST_RECIPES)
     with torch.no_grad():
         err_bf16 = max(err_bf16, check_layer(
             torch, f"[fast] bf16 (b={b_fast} bp=1 L=128)",
-            layer_inputs(torch, b_fast, 1, **main_shape, dtype=torch.bfloat16,
-                         bias_dtype=torch.bfloat16, seed=22, n_masked=8), bf16=True))
-    fast_rates = {}
+            layer_inputs(torch, b_fast, 1, **main_shape, dtype=b16, seed=22, n_masked=8),
+            bf16=True))
     for name, n_designs, opts in FAST_RECIPES:
-        launches[f"sample_{name}"], fast_rates[name] = sampling_main_path(
-            torch, card, "bfloat16", 2, f"[fast] {name}", n_designs=n_designs, **opts)
+        launches[f"sample_{name}"] = sampling_main_path(
+            torch, "bfloat16", f"[fast] {name}", n_designs=n_designs, **opts)
 
     # ---- 11. the design loop: cli.sample --rank and cli.evaluate --------------------------
-    launches.update(design_phase(torch, card))
+    launches.update(design_phase(torch))
 
     # ---- 12. the training data path: PDBs -> patches -> cli.train -> cli.sample -------------
     with tempfile.TemporaryDirectory() as tmp:
-        data_launches, data_rates = data_phase(torch, card, tmp)
-        launches.update(data_launches)
+        launches.update(data_phase(torch, tmp))
+        patches = os.path.join(tmp, "patches")
 
         # ---- 13. self-conditioning ----------------------------------------------------------
-        launches.update(selfcond_phase(torch, card, os.path.join(tmp, "patches"), tmp,
-                                       train_rates[None], designs_per_s))
+        launches.update(selfcond_phase(torch, patches, tmp))
 
         # ---- 14. data parallelism -------------------------------------------------------------
-        launches.update(parallel_phase(torch, card, os.path.join(tmp, "patches"), tmp,
-                                       train_rates[None], designs_per_s))
+        launches.update(parallel_phase(torch, patches, tmp))
 
         # ---- 15. tensor parallelism -----------------------------------------------------------
         tp_launches, err1_tp, err2_tp, tp_times = tp_phase(torch, card, tmp, k1_times,
@@ -4852,7 +4165,7 @@ def main() -> int:
         launches.update(tp_launches)
 
         # ---- 16. the rest of the JAX package: sample_sharded, steps_per_call, tools, corpus ---
-        launches.update(rest_phase(torch, card, tmp, train_rates[None], designs_per_s))
+        launches.update(rest_phase(torch, card, tmp))
 
     # ---- 17. the compiled step bodies: graphed against eager --------------------------
     graph_phase(torch, card)
@@ -4907,13 +4220,6 @@ def main() -> int:
                      for h, t in tp_times.items()},
     }]
     print(json.dumps({"kernels": kernels}))
-    print(f"[main] L=256: designs/s {designs_per_s_256:.3f} (bf16); few-step recipes: "
-          + ", ".join(f"{name} {rate:.3f} designs/s" for name, rate in fast_rates.items())
-          + f" (card: {card})")
-    print(f"[main] designs/s {designs_per_s:.3f} (bf16) / {designs_per_s_f32:.3f} (float32); "
-          f"training steps/s {train_rates[None]:.3f} (fused layer) / {train_rates[False]:.3f} "
-          f"(attention core), from patches {data_rates[False]:.3f} (loader) / "
-          f"{data_rates[True]:.3f} (device pool) (card: {card})")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

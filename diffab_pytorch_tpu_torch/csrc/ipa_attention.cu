@@ -141,13 +141,13 @@ __device__ __forceinline__ void write_outputs(const float (&o)[MAX_V_TILES][4], 
 }
 
 // L <= MAX_L: one block per (head, design) holds every query row and key
-template <typename T, typename TB>
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
 attention_kernel(const T* __restrict__ q_aug,  // (b, h, F, L)
                  const T* __restrict__ k_aug,  // (b, h, F, L)
                  const T* __restrict__ v_s,    // (b, h, ds, L)
                  const T* __restrict__ v_p,    // (b, h, 3P, L)
-                 const TB* __restrict__ bias,  // (bp, h, L, L)
+                 const T* __restrict__ bias,   // (bp, h, L, L)
                  T* __restrict__ out_s,        // (b, h, ds, L)
                  T* __restrict__ out_p,        // (b, h, 3P, L)
                  T* __restrict__ attn,         // (b, h, L, L)
@@ -176,8 +176,7 @@ attention_kernel(const T* __restrict__ q_aug,  // (b, h, F, L)
 
   float s[MAX_KEY_TILES][4];
   logits<T>(qa, D.ts, m0, ka, D.ts, D.FP, D.LP, lane, s);
-  softmax_rows<T, TB>(s, bias + ((size_t)target * h + hh) * L * L, L, D.LP, m0, scale_total,
-                      lane);
+  softmax_rows<T>(s, bias + ((size_t)target * h + hh) * L * L, L, D.LP, m0, scale_total, lane);
   store_weights<T>(s, attn + g * L * L, L, m0, 0, D.LP, lane, wtile, D.as);
   float o[MAX_V_TILES][4];
   weighted_sums<T>(s, va, D.ts, D.FVP, D.LP, lane, o);
@@ -188,11 +187,11 @@ attention_kernel(const T* __restrict__ q_aug,  // (b, h, F, L)
 // keys streamed through the tiles in chunks (ipa_tc::chunked_attention);
 // the tiles are those of L = CHUNK (D is made for CHUNK, D.L is the
 // patch's L)
-template <typename T, typename TB>
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
 attention_chunked_kernel(const T* __restrict__ q_aug, const T* __restrict__ k_aug,
                          const T* __restrict__ v_s, const T* __restrict__ v_p,
-                         const TB* __restrict__ bias, T* __restrict__ out_s,
+                         const T* __restrict__ bias, T* __restrict__ out_s,
                          T* __restrict__ out_p, T* __restrict__ attn, const Dims D, int h,
                          int n_designs, float scale_total) {
   const int hh = blockIdx.x, design = blockIdx.y, target = design / n_designs;
@@ -207,16 +206,16 @@ attention_chunked_kernel(const T* __restrict__ q_aug, const T* __restrict__ k_au
   T* wtile = reinterpret_cast<T*>(smem + 2 * D.qk_bytes + D.v_bytes + warp * D.warp_bytes);
 
   float o[MAX_V_TILES][4];
-  chunked_attention<T, TB>(q_aug + g * F * L, k_aug + g * F * L, F, D.FP, v_s + g * ds * L, ds,
-                           v_p + g * p3 * L, p3, D.FVP, L, L, L,
-                           bias + ((size_t)target * h + hh) * L * L, attn + g * L * L, q0,
-                           scale_total, qa, ka, va, D.ts, wtile, D.as, tid, THREADS, o);
+  chunked_attention<T>(q_aug + g * F * L, k_aug + g * F * L, F, D.FP, v_s + g * ds * L, ds,
+                       v_p + g * p3 * L, p3, D.FVP, L, L, L,
+                       bias + ((size_t)target * h + hh) * L * L, attn + g * L * L, q0,
+                       scale_total, qa, ka, va, D.ts, wtile, D.as, tid, THREADS, o);
   const int i0 = q0 + 16 * warp;
   if (i0 >= round_up(L, 16)) return;  // warp-uniform; no block barrier follows
   write_outputs<T>(o, qa + 16 * warp, D, out_s, out_p, g, i0, tid % 32, L % 8 == 0);
 }
 
-template <typename T, typename TB>
+template <typename T>
 int run(const void* q_aug, const void* k_aug, const void* v_s, const void* v_p,
         const void* bias, void* out_s, void* out_p, void* attn, int b, int bp, int L, int h,
         int F, int ds, int p3, float scale_total, cudaStream_t stream) {
@@ -224,14 +223,14 @@ int run(const void* q_aug, const void* k_aug, const void* v_s, const void* v_p,
   Dims D = attention_dims<T>(chunked ? CHUNK : L, F, ds, p3);
   D.L = L;
   if (D.FVP > D.FP || D.total > 232448) return cudaErrorInvalidValue;
-  auto kernel = chunked ? attention_chunked_kernel<T, TB> : attention_kernel<T, TB>;
+  auto kernel = chunked ? attention_chunked_kernel<T> : attention_kernel<T>;
   if (D.total > 48 * 1024) {
     const cudaError_t err = ptx::allow_dynamic_smem(kernel, D.total);
     if (err != cudaSuccess) return err;
   }
   kernel<<<dim3(h, b, (L + CHUNK - 1) / CHUNK), THREADS, D.total, stream>>>(
       static_cast<const T*>(q_aug), static_cast<const T*>(k_aug),
-      static_cast<const T*>(v_s), static_cast<const T*>(v_p), static_cast<const TB*>(bias),
+      static_cast<const T*>(v_s), static_cast<const T*>(v_p), static_cast<const T*>(bias),
       static_cast<T*>(out_s), static_cast<T*>(out_p), static_cast<T*>(attn), D, h, b / bp,
       scale_total);
   return cudaGetLastError();
@@ -241,25 +240,23 @@ int run(const void* q_aug, const void* k_aug, const void* v_s, const void* v_p,
 
 extern "C" {
 
-// dtype / bias_dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t
-// (0 on success); cudaErrorInvalidValue for shapes the kernel does not take.
-int ipa_attention_forward(int dtype, int bias_dtype, const void* q_aug, const void* k_aug,
-                          const void* v_s, const void* v_p, const void* bias, void* out_s,
-                          void* out_p, void* attn, int b, int bp, int L, int h, int F,
-                          int ds, int p3, float scale_total, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16, of every operand, the bias included.
+// Returns a cudaError_t (0 on success); cudaErrorInvalidValue for shapes the
+// kernel does not take.
+int ipa_attention_forward(int dtype, const void* q_aug, const void* k_aug, const void* v_s,
+                          const void* v_p, const void* bias, void* out_s, void* out_p,
+                          void* attn, int b, int bp, int L, int h, int F, int ds, int p3,
+                          float scale_total, void* stream) {
   if (L < 1 || bp < 1 || b % bp != 0 || h < 1 || ds < 0 || p3 < 0 ||
       ds + p3 < 1 || ds + p3 > MAX_FV || F <= ds + p3 || F > MAX_F)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && bias_dtype == 0)
-    return run<float, float>(q_aug, k_aug, v_s, v_p, bias, out_s, out_p, attn, b, bp, L, h,
-                             F, ds, p3, scale_total, s);
-  if (dtype == 1 && bias_dtype == 1)
-    return run<bf16, bf16>(q_aug, k_aug, v_s, v_p, bias, out_s, out_p, attn, b, bp, L, h, F,
-                           ds, p3, scale_total, s);
-  if (dtype == 1 && bias_dtype == 0)
-    return run<bf16, float>(q_aug, k_aug, v_s, v_p, bias, out_s, out_p, attn, b, bp, L, h, F,
-                            ds, p3, scale_total, s);
+  if (dtype == 0)
+    return run<float>(q_aug, k_aug, v_s, v_p, bias, out_s, out_p, attn, b, bp, L, h, F, ds, p3,
+                      scale_total, s);
+  if (dtype == 1)
+    return run<bf16>(q_aug, k_aug, v_s, v_p, bias, out_s, out_p, attn, b, bp, L, h, F, ds, p3,
+                     scale_total, s);
   return cudaErrorInvalidValue;
 }
 

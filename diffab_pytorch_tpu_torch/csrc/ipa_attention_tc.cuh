@@ -159,9 +159,9 @@ __device__ __forceinline__ void logits(const T* __restrict__ qa, int qs, int qco
 // keys >= L get -inf.  TAKE_MAX: mx[hr] takes the max of each row's new
 // values in the same loop (the L <= MAX_L softmax: a separate max loop
 // there costs predicate spills; the chunked core is faster with one)
-template <typename TB, int NT, bool TAKE_MAX = false>
+template <typename T, int NT, bool TAKE_MAX = false>
 __device__ __forceinline__ void add_bias(float (&s)[NT][4],
-                                           const TB* __restrict__ bias_h, int L, int i0, int j0,
+                                           const T* __restrict__ bias_h, int L, int i0, int j0,
                                            int KW, float scale_total, int lane,
                                            float* mx = nullptr) {
   const int key_tiles = KW / 8, r0 = i0 + lane / 4;
@@ -175,10 +175,10 @@ __device__ __forceinline__ void add_bias(float (&s)[NT][4],
         float b0 = 0.f, b1 = 0.f;
         if (i < L) {
           if (even) {
-            if (j < L) load_f2<TB>(bias_h + (size_t)i * L + j, b0, b1);
+            if (j < L) load_f2<T>(bias_h + (size_t)i * L + j, b0, b1);
           } else {
-            if (j < L) b0 = load_f<TB>(bias_h + (size_t)i * L + j);
-            if (j + 1 < L) b1 = load_f<TB>(bias_h + (size_t)i * L + j + 1);
+            if (j < L) b0 = load_f<T>(bias_h + (size_t)i * L + j);
+            if (j + 1 < L) b1 = load_f<T>(bias_h + (size_t)i * L + j + 1);
           }
         }
         const float v0 = j < L ? (s[nt][2 * hr] + b0) * scale_total : -INFINITY;
@@ -196,13 +196,13 @@ __device__ __forceinline__ void add_bias(float (&s)[NT][4],
 // the weights are left rounded to T.  One reciprocal per row: a division per
 // weight takes the slow path on the many denormal exponentials of a peaked
 // row, and e * (1 / sum) is within one f32 ulp of the quotient.
-template <typename T, typename TB>
+template <typename T>
 __device__ __forceinline__ void softmax_rows(float (&s)[MAX_KEY_TILES][4],
-                                             const TB* __restrict__ bias_h, int L, int LP,
+                                             const T* __restrict__ bias_h, int L, int LP,
                                              int m0, float scale_total, int lane) {
   const int key_tiles = LP / 8;
   float mx[2] = {-INFINITY, -INFINITY};
-  add_bias<TB, MAX_KEY_TILES, true>(s, bias_h, L, m0, 0, LP, scale_total, lane, mx);
+  add_bias<T, MAX_KEY_TILES, true>(s, bias_h, L, m0, 0, LP, scale_total, lane, mx);
   float sum[2] = {0.f, 0.f};
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -444,11 +444,11 @@ __device__ __forceinline__ void chunk_weights(float (&s)[NT][4], int KW,
 // o = attn [v1 | v2] of the warp's 16 rows, q0 + 16 warp .. (nothing for a
 // warp past the chunk's padded rows), and qa holding the warp's own query
 // columns, which only this warp reads.
-template <typename T, typename TB>
+template <typename T>
 __device__ __forceinline__ void chunked_attention(
     const T* __restrict__ q, const T* __restrict__ k, int F, int FP,
     const T* __restrict__ v1, int n1, const T* __restrict__ v2, int n2, int FVP, int ld,
-    int n_cols, int L, const TB* __restrict__ bias_h, T* __restrict__ attn_h, int q0,
+    int n_cols, int L, const T* __restrict__ bias_h, T* __restrict__ attn_h, int q0,
     float scale_total, T* qa, T* ka, T* va, int ts, T* tile, int as, int tid, int n_threads,
     float (&o)[MAX_V_TILES][4]) {
   const int LP = round_up(L, 16), lane = tid % 32, m0 = 16 * (tid / 32), i0 = q0 + m0;
@@ -468,7 +468,7 @@ __device__ __forceinline__ void chunked_attention(
       for (int h0 = 0; h0 < KW; h0 += SUB) {
         const int SW = KW - h0 < SUB ? KW - h0 : SUB;
         logits<T>(qa, ts, m0, ka + h0, ts, FP, SW, lane, s);
-        add_bias<TB>(s, bias_h, L, i0, j0 + h0, SW, scale_total, lane);
+        add_bias<T>(s, bias_h, L, i0, j0 + h0, SW, scale_total, lane);
         chunk_max_sum(s, SW, m, l);
       }
     }
@@ -496,7 +496,7 @@ __device__ __forceinline__ void chunked_attention(
       for (int h0 = 0; h0 < KW; h0 += SUB) {
         const int SW = KW - h0 < SUB ? KW - h0 : SUB;
         logits<T>(qa, ts, m0, ka + h0, ts, FP, SW, lane, s);
-        add_bias<TB>(s, bias_h, L, i0, j0 + h0, SW, scale_total, lane);
+        add_bias<T>(s, bias_h, L, i0, j0 + h0, SW, scale_total, lane);
         chunk_weights<T>(s, SW, m, l);
         store_weights<T>(s, attn_h, L, i0, j0 + h0, SW, lane, tile, as);
         __syncwarp();  // the bf16 staging tile is rewritten next

@@ -146,12 +146,12 @@ template <typename T> ChunkDims chunk_dims(int L, int h, int ds, int p, bool dir
   return D;
 }
 
-template <typename T, typename TB, bool DIR = false>
+template <typename T, bool DIR = false>
 __global__ void __launch_bounds__(256, 2)
 attend_kernel(const T* __restrict__ opnd,   // q, k (b, h, FP, LS), v (b, h, FVP, LS)
               const T* __restrict__ rot,    // (b, L, 3, 3)
               const T* __restrict__ trans,  // (b, L, 3)
-              const TB* __restrict__ bias,  // (bp, h, L, L)
+              const T* __restrict__ bias,   // (bp, h, L, L)
               T* __restrict__ feat,         // (b L, h FH)
               T* __restrict__ attn,         // (b, h, L, L)
               const ChunkDims D, int n_designs, float scale_total) {
@@ -179,8 +179,8 @@ attend_kernel(const T* __restrict__ opnd,   // q, k (b, h, FP, LS), v (b, h, FVP
   const T* q = opnd + gi * D.FP * LS;
   const T* v = opnd + 2 * qk + gi * D.FVP * LS;
   float o[ipa_tc::MAX_V_TILES][4];
-  ipa_tc::chunked_attention<T, TB>(q, q + qk, D.FP, D.FP, v, D.FVP, v, 0, D.FVP, LS, LS, L,
-                                   bias + ((size_t)target * h + hh) * L * L,
+  ipa_tc::chunked_attention<T>(q, q + qk, D.FP, D.FP, v, D.FVP, v, 0, D.FVP, LS, LS, L,
+                               bias + ((size_t)target * h + hh) * L * L,
                                    attn + gi * L * L, q0, scale_total, qa, ka, va, D.ts,
                                    reinterpret_cast<T*>(wbuf), D.as, tid, 256, o);
   const int m0 = 16 * warp, i0 = q0 + m0;
@@ -210,17 +210,17 @@ attend_kernel(const T* __restrict__ opnd,   // q, k (b, h, FP, LS), v (b, h, FVP
                                     (size_t)h * D.FH, lane);
 }
 
-template <typename T, typename TB>
+template <typename T>
 cudaError_t run_attend(const void* opnd, const void* rot, const void* trans,
                        const void* bias, void* feat, void* attn, int b, int bp, int L, int h,
                        int ds, int p, float scale_total, bool dir, cudaStream_t stream) {
   const ChunkDims D = chunk_dims<T>(L, h, ds, p, dir);
-  auto kernel = dir ? attend_kernel<T, TB, true> : attend_kernel<T, TB, false>;
+  auto kernel = dir ? attend_kernel<T, true> : attend_kernel<T, false>;
   cudaError_t err = ptx::allow_dynamic_smem(kernel, D.total);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(h, b, (L + CHUNK - 1) / CHUNK), 256, D.total, stream>>>(
       static_cast<const T*>(opnd), static_cast<const T*>(rot), static_cast<const T*>(trans),
-      static_cast<const TB*>(bias), static_cast<T*>(feat), static_cast<T*>(attn), D, b / bp,
+      static_cast<const T*>(bias), static_cast<T*>(feat), static_cast<T*>(attn), D, b / bp,
       scale_total);
   return cudaGetLastError();
 }
@@ -386,7 +386,7 @@ int run_f32(const void* x, const void* rot, const void* trans, const void* mask,
     err = onepass_fits(L, ds, p)
               ? run_attend_onepass(opnd, rot, trans, bias, feat, attn, b, bp, L, h, ds, p,
                                    scale_total, dir, stream)
-              : run_attend<float, float>(opnd, rot, trans, bias, feat, attn, b, bp, L, h, ds, p,
+              : run_attend<float>(opnd, rot, trans, bias, feat, attn, b, bp, L, h, ds, p,
                                          scale_total, dir, stream);
     if (err != cudaSuccess) return err;
   }
@@ -403,7 +403,6 @@ int run_f32(const void* x, const void* rot, const void* trans, const void* mask,
 // persistent_blocks > 0: launch 1 is tc_pp::persistent_layer_heads_kernel on
 // that many blocks (the wrapper's choice, ops/ipa_fused_layer.py
 // takes_persistent); 0: tc::layer_heads_kernel, one block per (head, design)
-template <typename TB>
 int run_bf16(const void* x, const void* rot, const void* trans, const void* mask,
              const void* w_qkv, const void* w_out, const float* g, const void* bias,
              void* feat, void* acc, void* attn, void* opnd, int b, int bp, int L, int d, int h,
@@ -415,7 +414,7 @@ int run_bf16(const void* x, const void* rot, const void* trans, const void* mask
   cudaError_t err;
   if (persistent_blocks > 0) {
     const tc_pp::Dims P = tc_pp::persistent_dims(L, d, h);
-    auto heads = tc_pp::persistent_layer_heads_kernel<TB>;
+    auto heads = tc_pp::persistent_layer_heads_kernel;
     if ((err = ptx::allow_dynamic_smem(heads, P.total)) != cudaSuccess) return err;
     bool frames_vec = L % 8 == 0;
     for (const void* t : {rot, trans, mask})
@@ -423,25 +422,25 @@ int run_bf16(const void* x, const void* rot, const void* trans, const void* mask
     heads<<<persistent_blocks, tc_pp::THREADS, P.total, stream>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(rot),
         static_cast<const bf16*>(trans), static_cast<const bf16*>(mask),
-        static_cast<const bf16*>(w_qkv), g, static_cast<const TB*>(bias),
+        static_cast<const bf16*>(w_qkv), g, static_cast<const bf16*>(bias),
         static_cast<bf16*>(feat), static_cast<bf16*>(attn), P, b, b / bp, scale_total,
         nk_scale, frames_vec);
   } else {
-    auto heads = chunked ? tc::layer_heads_kernel<TB, true>
-                 : dir   ? tc::layer_heads_kernel<TB, false, true>
-                         : tc::layer_heads_kernel<TB, false>;
+    auto heads = chunked ? tc::layer_heads_kernel<true>
+                 : dir   ? tc::layer_heads_kernel<false, true>
+                         : tc::layer_heads_kernel<false>;
     if ((err = ptx::allow_dynamic_smem(heads, D.total)) != cudaSuccess) return err;
     const int x_vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
     heads<<<dim3(h, b, (L + CHUNK - 1) / CHUNK), tc::THREADS, D.total, stream>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(rot),
         static_cast<const bf16*>(trans), static_cast<const bf16*>(mask),
-        static_cast<const bf16*>(w_qkv), g, static_cast<const TB*>(bias),
+        static_cast<const bf16*>(w_qkv), g, static_cast<const bf16*>(bias),
         static_cast<bf16*>(feat), static_cast<bf16*>(attn), D, b / bp, scale_total, nk_scale,
         x_vec, static_cast<bf16*>(opnd));
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (chunked && (err = run_attend<bf16, TB>(opnd, rot, trans, bias, feat, attn, b, bp, L, h,
-                                             ds, p, scale_total, dir, stream)) != cudaSuccess)
+  if (chunked && (err = run_attend<bf16>(opnd, rot, trans, bias, feat, attn, b, bp, L, h, ds,
+                                         p, scale_total, dir, stream)) != cudaSuccess)
     return err;
 
   const int M = b * L, NP = round_up(d, 8);
@@ -469,22 +468,22 @@ bool persistent_ok(int L, int d, int h, int ds, int p, const void* x) {
 
 extern "C" {
 
-// The layer on the head-major weights.  dtype / bias_dtype: 0 = float32,
-// 1 = bfloat16 (float32 takes a float32 bias only).  feat is (b L, h FH)
-// scratch in the compute dtype; for L > 128 opnd is scratch for the
-// operands, ipa_fused_layer_scratch_elems elements of the compute dtype
-// (unread otherwise).  Returns a cudaError_t (0 on success);
+// The layer on the head-major weights.  dtype: 0 = float32, 1 = bfloat16;
+// every operand but g (float32), the bias included, is in that dtype.  feat
+// is (b L, h FH) scratch in the compute dtype; for L > 128 opnd is scratch
+// for the operands, ipa_fused_layer_scratch_elems elements of the compute
+// dtype (unread otherwise).  Returns a cudaError_t (0 on success);
 // cudaErrorInvalidValue for shapes the kernel does not take.
 // persistent_blocks > 0 runs launch 1 as the persistent kernel on that many
 // blocks (bf16 and its shapes only, no direction rows), 0 as one block per
 // (head, design).  dir = 1: w_out holds direction rows per head and feat
 // FH = ds + 7 P rounded up to 8 columns a head (else ds + 4 P).
-int ipa_fused_layer_forward(int dtype, int bias_dtype, const void* x, const void* rot,
-                            const void* trans, const void* mask, const void* w_qkv,
-                            const void* w_out, const float* g, const void* bias, void* feat,
-                            void* acc, void* attn, void* opnd, int b, int bp, int L, int d,
-                            int h, int ds, int p, float scale_total, float nk_scale,
-                            int persistent_blocks, int dir, void* stream) {
+int ipa_fused_layer_forward(int dtype, const void* x, const void* rot, const void* trans,
+                            const void* mask, const void* w_qkv, const void* w_out,
+                            const float* g, const void* bias, void* feat, void* acc, void* attn,
+                            void* opnd, int b, int bp, int L, int d, int h, int ds, int p,
+                            float scale_total, float nk_scale, int persistent_blocks, int dir,
+                            void* stream) {
   if (!shape_ok(b, bp, L, d, h, ds, p)) return cudaErrorInvalidValue;
   if (persistent_blocks > 0 && (dtype != 1 || dir || !persistent_ok(L, d, h, ds, p, x)))
     return cudaErrorInvalidValue;
@@ -493,7 +492,7 @@ int ipa_fused_layer_forward(int dtype, int bias_dtype, const void* x, const void
     if (reinterpret_cast<uintptr_t>(t) % 16) return cudaErrorMisalignedAddress;  // cp.async
   const int rows = chunked ? CHUNK : L;  // launch 1's rows per block
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && bias_dtype == 0) {
+  if (dtype == 0) {
     if (tf32x3::layer_dims(rows, d, h, ds, p).total > 232448 ||
         (chunked && chunk_dims<float>(L, h, ds, p).total > 232448))
       return cudaErrorInvalidValue;
@@ -504,15 +503,8 @@ int ipa_fused_layer_forward(int dtype, int bias_dtype, const void* x, const void
   if (tc::layer_dims(rows, d, h, ds, p).total > 232448 ||
       (chunked && chunk_dims<bf16>(L, h, ds, p).total > 232448))
     return cudaErrorInvalidValue;
-  if (bias_dtype == 1)
-    return run_bf16<bf16>(x, rot, trans, mask, w_qkv, w_out, g, bias, feat, acc, attn, opnd,
-                          b, bp, L, d, h, ds, p, scale_total, nk_scale, persistent_blocks,
-                          dir != 0, s);
-  if (bias_dtype == 0)
-    return run_bf16<float>(x, rot, trans, mask, w_qkv, w_out, g, bias, feat, acc, attn, opnd,
-                           b, bp, L, d, h, ds, p, scale_total, nk_scale, persistent_blocks,
-                           dir != 0, s);
-  return cudaErrorInvalidValue;
+  return run_bf16(x, rot, trans, mask, w_qkv, w_out, g, bias, feat, acc, attn, opnd, b, bp, L,
+                  d, h, ds, p, scale_total, nk_scale, persistent_blocks, dir != 0, s);
 }
 
 // Elements of the operand scratch for L > 128 (0 up to 128): q and k

@@ -113,7 +113,7 @@ inline Dims layer_dims(int L, int d, int h, int ds, int p, bool dir = false) {
 // then v (b, h, FVP, LS), LS = D.L rounded up to 16, padded rows included
 // (finite; their keys get weight 0 in the chunked core).  DIR: the
 // epilogue writes the point directions too (ipa_fused_layer_features.cuh)
-template <typename TB, bool CHUNKED = false, bool DIR = false>
+template <bool CHUNKED = false, bool DIR = false>
 __global__ void __launch_bounds__(THREADS, 2)
 layer_heads_kernel(const bf16* __restrict__ x,        // (b, L, d)
                    const bf16* __restrict__ rot,      // (b, L, 3, 3)
@@ -121,7 +121,7 @@ layer_heads_kernel(const bf16* __restrict__ x,        // (b, L, d)
                    const bf16* __restrict__ mask,     // (b, L)
                    const bf16* __restrict__ w_qkv,    // (h, d, 3 FVP)
                    const float* __restrict__ g,       // (h,)
-                   const TB* __restrict__ bias,       // (bp, h, L, L)
+                   const bf16* __restrict__ bias,     // (bp, h, L, L)
                    bf16* __restrict__ feat,           // (b L, h FH)
                    bf16* __restrict__ attn,           // (b, h, L, L)
                    const Dims D, int n_designs, float scale_total, float nk_scale,
@@ -339,7 +339,7 @@ layer_heads_kernel(const bf16* __restrict__ x,        // (b, L, d)
   }
 
   const int r0 = m0 + lane / 4;  // this thread's rows r0 and r0 + 8
-  const TB* bias_h = bias + ((size_t)target * h + hh) * L * L;
+  const bf16* bias_h = bias + ((size_t)target * h + hh) * L * L;
   const bool even = L % 2 == 0;
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -351,10 +351,10 @@ layer_heads_kernel(const bf16* __restrict__ x,        // (b, L, d)
         float b0 = 0.f, b1 = 0.f;
         if (i < L) {
           if (even) {
-            if (j < L) load_f2<TB>(bias_h + (size_t)i * L + j, b0, b1);
+            if (j < L) load_f2<bf16>(bias_h + (size_t)i * L + j, b0, b1);
           } else {
-            if (j < L) b0 = load_f<TB>(bias_h + (size_t)i * L + j);
-            if (j + 1 < L) b1 = load_f<TB>(bias_h + (size_t)i * L + j + 1);
+            if (j < L) b0 = load_f<bf16>(bias_h + (size_t)i * L + j);
+            if (j + 1 < L) b1 = load_f<bf16>(bias_h + (size_t)i * L + j + 1);
           }
         }
         const float v0 = j < L ? (s[nt][2 * hr] + b0) * scale_total : -INFINITY;

@@ -291,7 +291,7 @@ layer_heads_kernel(const float* __restrict__ x,        // (b, L, d)
   // ---- c, d. the attention core ------------------------------------------------
   float s[MAX_KEY_TILES][4];
   ipa_tc::logits<float>(qa, ts, m0, ka, ts, FP, LP, lane, s);
-  ipa_tc::softmax_rows<float, float>(s, bias + ((size_t)target * h + hh) * L * L, L, LP, m0,
+  ipa_tc::softmax_rows<float>(s, bias + ((size_t)target * h + hh) * L * L, L, LP, m0,
                                      scale_total, lane);
   ipa_tc::store_weights<float>(s, attn + ((size_t)design * h + hh) * L * L, L, m0, 0, LP,
                                lane, nullptr, 0);

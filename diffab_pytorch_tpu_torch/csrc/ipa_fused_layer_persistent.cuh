@@ -113,9 +113,8 @@ __device__ __forceinline__ void st_pair(unsigned char* tile, int off, float a, f
 __device__ __forceinline__ float rnd(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 __device__ __forceinline__ float ld_bf(const bf16* p) { return __bfloat162float(*p); }
 
-// Two neighbouring bias values as loaded (bf16: one 32-bit word), and as f32
-template <typename TB> struct BiasPair;
-template <> struct BiasPair<bf16> {
+// Two neighbouring bias values as loaded (one 32-bit word), and as f32
+struct BiasPair {
   uint32_t w;
   __device__ __forceinline__ void load(const bf16* p, bool pair, const bf16* q) {
     w = pair ? *reinterpret_cast<const uint32_t*>(p)
@@ -124,14 +123,6 @@ template <> struct BiasPair<bf16> {
   }
   __device__ __forceinline__ float lo() const { return __uint_as_float(w << 16); }
   __device__ __forceinline__ float hi() const { return __uint_as_float(w & 0xffff0000u); }
-};
-template <> struct BiasPair<float> {
-  float2 v;
-  __device__ __forceinline__ void load(const float* p, bool pair, const float* q) {
-    v = pair ? *reinterpret_cast<const float2*>(p) : make_float2(*p, *q);
-  }
-  __device__ __forceinline__ float lo() const { return v.x; }
-  __device__ __forceinline__ float hi() const { return v.y; }
 };
 
 // A row's 4-byte words w[k] (columns 8 (4 m + k) + 2 tq, +1 in lane tq of a
@@ -157,7 +148,6 @@ __device__ __forceinline__ void block_items(long long items, int blk, int G, lon
   last = items * (blk + 1) / G;
 }
 
-template <typename TB>
 __global__ void __launch_bounds__(THREADS, 1)
 persistent_layer_heads_kernel(const bf16* __restrict__ x,      // (b, L, d)
                               const bf16* __restrict__ rot,    // (b, L, 3, 3)
@@ -165,7 +155,7 @@ persistent_layer_heads_kernel(const bf16* __restrict__ x,      // (b, L, d)
                               const bf16* __restrict__ mask,   // (b, L)
                               const bf16* __restrict__ w_qkv,  // (h, d, 3 FV)
                               const float* __restrict__ g,     // (h,)
-                              const TB* __restrict__ bias,     // (bp, h, L, L)
+                              const bf16* __restrict__ bias,   // (bp, h, L, L)
                               bf16* __restrict__ feat,         // (b L, h FH)
                               bf16* __restrict__ attn,         // (b, h, L, L)
                               const Dims D, int b, int n_designs, float scale_total,
@@ -374,19 +364,19 @@ persistent_layer_heads_kernel(const bf16* __restrict__ x,      // (b, L, d)
     named_bar_sync(1 + c, 128);
 
     // ---- c, d, e. attention, one half of the query rows at a time -------------------
-    const TB* bias_h = bias + ((size_t)target * h + hh) * L * L;
+    const bf16* bias_h = bias + ((size_t)target * h + hh) * L * L;
     bf16* attn_h = attn + ((size_t)design * h + hh) * L * L;
     bf16* feat_h = feat + row_base * h * FH + (size_t)hh * FH;
     const bool even = L % 2 == 0;
     // the bias of a half's logits in this thread's places (rows >= L read row
     // L - 1, keys >= L are masked below: no branches)
-    auto load_bias = [&](int hf, BiasPair<TB> (&bp)[16][2]) {
+    auto load_bias = [&](int hf, BiasPair (&bp)[16][2]) {
 #pragma unroll
       for (int nt = 0; nt < 16; ++nt) {
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
           const int i = min(hf * 64 + 16 * wq + gq + hr * 8, L - 1), jj = nt * 8 + 2 * tq;
-          const TB* src = bias_h + (size_t)i * L;
+          const bf16* src = bias_h + (size_t)i * L;
           if (even) bp[nt][hr].load(src + min(jj, L - 2), true, nullptr);
           else bp[nt][hr].load(src + min(jj, L - 1), false, src + min(jj + 1, L - 1));
         }
@@ -404,7 +394,7 @@ persistent_layer_heads_kernel(const bf16* __restrict__ x,      // (b, L, d)
                       ks > 0);
       }
       wgmma_commit();
-      BiasPair<TB> bb[16][2];  // loaded while the products run
+      BiasPair bb[16][2];  // loaded while the products run
       load_bias(hf, bb);
       const int r0 = hf * 64 + 16 * wq + gq;  // rows r0 and r0 + 8
       wgmma_wait<0>();

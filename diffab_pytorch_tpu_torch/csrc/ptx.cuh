@@ -258,11 +258,11 @@ template <> __device__ __forceinline__ void store2<bf16>(bf16* p, float a, float
 
 // one element of a read-only input, as float (a plain load: __ldg here
 // made the float32 attention kernel ~6% slower on the H100)
-template <typename TB> __device__ __forceinline__ float load_f(const TB* p) {
-  return to_f<TB>(*p);
+template <typename T> __device__ __forceinline__ float load_f(const T* p) {
+  return to_f<T>(*p);
 }
 // two neighbours at an even element index
-template <typename TB> __device__ __forceinline__ void load_f2(const TB* p, float& a, float& b);
+template <typename T> __device__ __forceinline__ void load_f2(const T* p, float& a, float& b);
 template <> __device__ __forceinline__ void load_f2<float>(const float* p, float& a, float& b) {
   const float2 v = __ldg(reinterpret_cast<const float2*>(p));
   a = v.x, b = v.y;

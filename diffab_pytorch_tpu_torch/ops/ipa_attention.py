@@ -112,8 +112,8 @@ def _check(q_aug, k_aug, v_s, v_p, bias):
     if bias.dim() != 4 or tuple(bias.shape[1:]) != (h, L, L) or b % bp:
         raise ValueError(f"bias: expected (bp, {h}, {L}, {L}) with b % bp == 0, "
                          f"got {tuple(bias.shape)}")
-    if bias.dtype not in (torch.float32, dt):
-        raise TypeError(f"bias dtype {bias.dtype} is neither float32 nor {dt}")
+    if bias.dtype != dt:
+        raise TypeError(f"bias dtype {bias.dtype} is not the compute dtype {dt}")
     tensors = (q_aug, k_aug, v_s, v_p, bias)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -142,7 +142,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.ipa_attention_forward
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i, i] + [p] * 8 + [i] * 7 + [f, p]
+        fn.argtypes = [i] + [p] * 8 + [i] * 7 + [f, p]
         fn.restype = ctypes.c_int
         lib.ipa_attention_error_string.argtypes = [ctypes.c_int]
         lib.ipa_attention_error_string.restype = ctypes.c_char_p
@@ -161,7 +161,7 @@ def _launch(q_aug, k_aug, v_s, v_p, bias, scale_total):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ipa_attention_forward(
-            _DTYPE_CODE[dt], _DTYPE_CODE[bias.dtype],
+            _DTYPE_CODE[dt],
             *(t.data_ptr() for t in (q_aug, k_aug, v_s, v_p, bias, out_s, out_p, attn)),
             b, bias.shape[0], L, h, n_feat, ds, p3, float(scale_total), stream,
         )

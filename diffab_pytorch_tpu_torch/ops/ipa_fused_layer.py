@@ -344,8 +344,8 @@ def _check(x, rot, trans, mask, wts, bias):
     if bias.dim() != 4 or tuple(bias.shape[1:]) != (h, L, L) or b % bp:
         raise ValueError(f"bias: expected (bp, {h}, {L}, {L}) with b % bp == 0, "
                          f"got {tuple(bias.shape)}")
-    if bias.dtype not in (torch.float32, dt):
-        raise TypeError(f"bias dtype {bias.dtype} is neither float32 nor {dt}")
+    if bias.dtype != dt:
+        raise TypeError(f"bias dtype {bias.dtype} is not the compute dtype {dt}")
     tensors = (x, rot, trans, mask, bias, wts.w_qkv, wts.w_out, wts.g)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -358,7 +358,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("ipa_fused_layer")
     if lib.ipa_fused_layer_forward.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ipa_fused_layer_forward.argtypes = [i, i] + [p] * 12 + [i] * 7 + [f, f, i, i, p]
+        lib.ipa_fused_layer_forward.argtypes = [i] + [p] * 12 + [i] * 7 + [f, f, i, i, p]
         lib.ipa_fused_layer_forward.restype = ctypes.c_int
         lib.ipa_fused_layer_scratch_elems.argtypes = [i] * 6
         lib.ipa_fused_layer_scratch_elems.restype = ctypes.c_longlong
@@ -397,7 +397,7 @@ def _launch(x, rot, trans, mask, wts, bias, scale_total):
             persistent = n_sm
     with torch.cuda.device(dev):
         err = lib.ipa_fused_layer_forward(
-            _DTYPE_CODE[dt], _DTYPE_CODE[bias.dtype], *ptrs,
+            _DTYPE_CODE[dt], *ptrs,
             b, bias.shape[0], L, d, h, ds, p, float(scale_total),
             float(-_NEG_INF / float(scale_total)), persistent, int(wts.directions),
             torch.cuda.current_stream(dev).cuda_stream)

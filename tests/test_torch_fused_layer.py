@@ -214,6 +214,36 @@ def test_wrapper_rejects_a_pack_of_the_wrong_shape():
             k1.fused_ipa_layer_packed(wts=bad, **args)
 
 
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_wrapper_takes_the_bias_in_the_compute_dtype_only(kernel):
+    """Both kernels read the pair bias in the compute dtype: a bf16 call with
+    a float32 bias is refused by the wrapper on every device, while the
+    plain versions (the references) still take it."""
+    from diffab_pytorch_tpu_torch.ops import ipa_attention as k2
+
+    b, bp, L, d, h, ds, p = 4, 2, 20, 32, 4, 8, 4
+    args = {k: v.bfloat16() for k, v in _layer_inputs(5, b, bp, L, d, h, 3).items()}
+    bias = args.pop("bias")
+    if kernel == "K1":
+        wts = k1.pack_layer_weights(*_native_weights(6, d, h, ds, p), *_scales(ds, p)[:2],
+                                    torch.bfloat16)
+        call = lambda fn, bias: fn(wts=wts, bias=bias, scale_total=_scales(ds, p)[2], **args)
+        wrapper, plain = k1.fused_ipa_layer_packed, k1.fused_ipa_layer_packed_reference
+    else:
+        g = torch.Generator().manual_seed(7)
+        proj = ([torch.randn(b, L, h, ds, generator=g) for _ in range(3)]
+                + [torch.randn(b, L, h, p, 3, generator=g) for _ in range(3)])
+        ops = k2.augmented_operands(*(t.bfloat16() for t in proj), torch.rand(h) + 0.5,
+                                    args["mask"], *_scales(ds, p))
+        call = lambda fn, bias: fn(*ops, bias, _scales(ds, p)[2])
+        wrapper, plain = k2.ipa_attention_core, k2.ipa_attention_core_reference
+    with pytest.raises(TypeError, match="compute dtype"):
+        call(wrapper, bias.float())
+    got, want = call(wrapper, bias), call(plain, bias)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(t.dtype == torch.bfloat16 for t in call(plain, bias.float()))
+
+
 def _tf32_layer(x, rot, trans, mask, wts, bias, scale_total, products):
     """The float32 kernel's arithmetic in plain PyTorch: the plain version
     with every product (projection, logits, weighted sums, output
