@@ -15,9 +15,11 @@ Phases (any failure raises and the script exits non-zero):
   3. each kernel against its plain PyTorch version on the card, at tiny
      shapes in float32 and bfloat16, at an L that is not a multiple of 16,
      at the main paths' shapes, with a bias a target and a bias for two,
-     and (K1) at the widest shape its gate takes, with the tolerances
-     stated below; then each kernel's autograd Function against autograd
-     of its plain version (float32, b=4, L=128);
+     and (K1) at the widest shape its gate takes (L = 128 and 77) and with
+     x read element by element at the default widths, with the tolerances
+     stated below (K1 float32 against its plain version in float64); then
+     each kernel's autograd Function against autograd of its plain version
+     (float32, b=4, L=128);
   4. end-to-end checks: one default_config()-width denoiser forward (6
      layers, 8 designs of one L=128 target) on the card against the CPU
      plain path, in bf16 and in float32; on small inputs, sample() on the
@@ -30,7 +32,8 @@ Phases (any failure raises and the script exits non-zero):
      128-residue target, T=100, seeded random weights (K1's persistent
      launch 1 against its plain version first); launch counts, K1's path
      counters and output checks of one call; then the same in float32,
-     the default compute dtype ([main-f32]);
+     the default compute dtype ([main-f32], K1 at its shape against the
+     float64 plain version first);
   6. [train] the training main path, once per flag: production_config()
      (bf16, batch 32, L=128) from a seeded init on one synthetic batch, 3
      + 20 steps through fit(); launch counts, loss trajectory and state
@@ -155,8 +158,9 @@ Phases (any failure raises and the script exits non-zero):
      from new states (the capture pool must not grow a run);
   18. [ga]: the official DiffAb network (official_config()): K1 with
      direction rows against its plain version (b = 100, h = 12, L = 256 in
-     both dtypes; L = 77; b = 128, L = 128 in bf16 off the persistent
-     path; float32 at L = 129, 200, 256, 384, b = 100 and b = bp = 32, on
+     both dtypes; L = 77 and b = 100, L = 128 in float32; b = 128, L = 128
+     in bf16 off the persistent path; float32 at L = 129, 200, 256, 384,
+     b = 100 and b = bp = 32, on
      the attention path each books) and through its autograd Function,
      sample() graphed bitwise eager with 600 GA blocks and 600 one-pass
      attention calls a call, the official call's K1 launches timed
@@ -217,8 +221,10 @@ K1_DESIGN = ("two launches on head-major weights, every product on the tensor co
              "warp's 16 x L logits and float32 softmax in registers, P [v_s|v_p] from register "
              "fragments, inverse frames and norms, per-head features out. 2: the output "
              "projection as a cp.async double-buffered tensor-core GEMM. bf16: mma.sync "
-             "m16n8k16 bf16->f32 (ldmatrix). float32: 3xTF32 on mma.sync m16n8k8 (operands "
-             "split into big + small tf32 as loaded, three products), float32-exact to 1e-4")
+             "m16n8k16 bf16->f32 (ldmatrix). float32: 3xTF32 on mma.sync m16n8k8 (W_h split once "
+             "a block into 16-byte tf32 pairs through a three-stage cp.async ring, the other "
+             "operands split as loaded, three products a tile with their terms interleaved "
+             "across tiles), float32-exact to 1e-4")
 K2_DESIGN = ("one launch, one block of 8 warps per (head, design) (all 128 query rows), "
              "operands copied feature-major into padded shared tiles by cp.async, each warp's "
              "16 x L logits and float32 softmax in registers, P [v_s|v_p] from register "
@@ -378,14 +384,13 @@ def check_layer(torch, name, args, bf16: bool):
     step (2^-8 on weights, 2^-7 of the output scale on acc); a wrong
     kernel misses on most elements.
 
-    float32 beyond 128 residues (the chunked path) is held to the plain
-    version computed in float64, so that the check measures the kernel and
-    not the float32 plain version's own cancellation in |q|^2 + |k|^2 -
-    2 q.k; the 1e-4 rule stays."""
+    float32 is held to the plain version computed in float64, so that the
+    check measures the kernel and not the float32 plain version's own
+    cancellation in |q|^2 + |k|^2 - 2 q.k; the 1e-4 rule stays."""
     from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
 
     acc_k, attn_k = op.fused_ipa_layer_packed(**args)
-    exact = not bf16 and args["x"].shape[1] > 128
+    exact = not bf16
     if exact:
         wts = args["wts"]
         wts = wts._replace(w_qkv=wts.w_qkv.double(), w_out=wts.w_out.double(),
@@ -415,6 +420,34 @@ def check_layer(torch, name, args, bf16: bool):
     if share_attn > allowed or share_acc > allowed or padded != 0.0:
         raise RuntimeError(f"{name}: kernel disagrees with its plain version")
     return max(d_attn.max().item(), d_acc.max().item())
+
+
+def layer_outputs(torch, args):
+    """One K1 call through the library entry as the wrapper launches it,
+    returning (acc, attn, feat): feat, the per-head features launch 1
+    writes, is the wrapper's scratch.  Float32 without the persistent
+    launch 1, on entry points older checkouts of the port share, so that
+    two trees' launch 1 can be compared bit for bit (load this file from
+    inside each checkout and call it on the same layer_inputs)."""
+    from diffab_pytorch_tpu_torch.ops import ipa_fused_layer as op
+
+    x, wts, bias = args["x"], args["wts"], args["bias"]
+    b, L, d = x.shape
+    h, ds, p = wts.n_head, wts.d_scalar, wts.n_point
+    acc = torch.empty_like(x)
+    attn = torch.empty((b, h, L, L), device=x.device)
+    feat = torch.empty((b * L, h * op.feature_width(ds, p, wts.directions)), device=x.device)
+    scratch = torch.empty(max(1, op.scratch_elems(torch.float32, b, L, h, ds, p)),
+                          device=x.device)
+    ptrs = [t.data_ptr() for t in (x, args["rot"], args["trans"], args["mask"], wts.w_qkv,
+                                   wts.w_out, wts.g, bias, feat, acc, attn, scratch)]
+    st = float(args["scale_total"])
+    err = op._library().ipa_fused_layer_forward(
+        0, *ptrs, b, bias.shape[0], L, d, h, ds, p, st, -op._NEG_INF / st, 0,
+        int(wts.directions), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"ipa_fused_layer_forward failed ({err})")
+    return acc, attn, feat
 
 
 def attention_inputs(torch, b, bp, L, h, ds, p, dtype, seed, n_masked):
@@ -907,6 +940,12 @@ def sampling_main_path(torch, compute_dtype, tag, L=L_MAIN, n_designs=N_DESIGNS,
 
     if tag == "[main]" and compute_dtype == "bfloat16":
         check_persistent_path(torch, tag)
+    if tag == "[main-f32]":
+        with torch.no_grad():
+            check_layer(torch, f"{tag} K1 f32 (b={n_designs} bp=1 L={L})",
+                        layer_inputs(torch, n_designs, 1, L, mcfg.d_residue_emb, mcfg.n_head,
+                                     mcfg.d_scalar_per_head, mcfg.n_query_point_per_head,
+                                     torch.float32, 25, 8), bf16=False)
     run(10)
     torch.cuda.synchronize()
     zero_launches()
@@ -3857,7 +3896,8 @@ def ga_phase(torch, card):
     heads with point directions, the quaternion rotation head, six CDRs, L =
     256, float32) on the card.  (a) K1 with direction rows against its plain
     version: b = 100, h = 12, L = 256 in float32 and bf16 (the chunked path),
-    L = 77 in float32 at d = 30, and b = 128, L = 128 in bf16, where the
+    L = 77 in float32 at d = 30, b = 100, L = 128 in float32, and b = 128,
+    L = 128 in bf16, where the
     persistent launch 1 would take the call without direction rows: it must
     take the per-item kernel (the counters); float32 at h = 12 and L = 129,
     200, 256, 384 (ga_long_checks, each booking its attention path); then
@@ -3893,6 +3933,10 @@ def ga_phase(torch, card):
         worst = max(worst, check_layer(
             torch, "[ga] (a) K1 directions f32 L=77 d=30 (b=8 bp=2 h=12)",
             layer_inputs(torch, 8, 2, 77, 30, 12, 32, 8, torch.float32, 92, 9,
+                         directions=True), bf16=False))
+        worst = max(worst, check_layer(
+            torch, "[ga] (a) K1 directions f32 (b=100 bp=1 L=128 h=12)",
+            layer_inputs(torch, 100, 1, L_MAIN, 128, 12, 32, 8, torch.float32, 96, 9,
                          directions=True), bf16=False))
         before = k1_paths()
         worst = max(worst, check_layer(
@@ -4048,6 +4092,13 @@ def main() -> int:
         err_f32 = max(err_f32, check_layer(
             torch, "widest f32 (b=4 bp=1 L=128 d=20 h=2 ds=1 p=21)",
             layer_inputs(torch, 4, 1, 128, 20, 2, 1, 21, f32, 19, 11), bf16=False))
+        err_f32 = max(err_f32, check_layer(
+            torch, "widest f32 L=77 (b=4 bp=2 d=20 h=2 ds=1 p=21)",
+            layer_inputs(torch, 4, 2, 77, 20, 2, 1, 21, f32, 23, 9), bf16=False))
+        # the default widths' fixed slices with x read element by element
+        err_f32 = max(err_f32, check_layer(
+            torch, "f32 L=128 d=30 (b=8 bp=2 h=8 ds=32 p=8)",
+            layer_inputs(torch, 8, 2, 128, 30, 8, 32, 8, f32, 24, 9), bf16=False))
 
         check_attention(torch, "K2 tiny f32 (b=2 bp=1 L=24 h=4 ds=8 p=4)",
                         attention_inputs(torch, 2, 1, 24, 4, 8, 4, f32, 10, 5), 5, bf16=False)

@@ -67,7 +67,8 @@
 // attn store, weighted sums, epilogue) one after another with barriers
 // between them, with 16 warps per SM to hide the waits; the float32 route
 // issues six times the mma.sync instructions of bf16 for the same tiles
-// (k8 against k16, three products) and splits each operand it loads.
+// (k8 against k16, three products) and splits its operands into tf32
+// pairs (launch 1's W_h once a block, the others as they are loaded).
 // mma.sync rather than wgmma, and the feature round trip (a cluster
 // reduction of the output projection would remove it), are the other
 // things both leave on the table.
@@ -369,9 +370,13 @@ int run_f32(const void* x, const void* rot, const void* trans, const void* mask,
   const bool chunked = L > ipa_tc::MAX_L;
   tf32x3::Dims D = tf32x3::layer_dims(chunked ? CHUNK : L, d, h, ds, p, dir);
   D.L = L;
-  auto heads = chunked ? tf32x3::layer_heads_kernel<true>
-               : dir   ? tf32x3::layer_heads_kernel<false, true>
-                       : tf32x3::layer_heads_kernel<false>;
+  const bool fixed = tf32x3::fixed_widths(D);
+  auto heads = chunked ? (fixed ? tf32x3::layer_heads_kernel<true, false, true>
+                                : tf32x3::layer_heads_kernel<true, false, false>)
+               : dir   ? (fixed ? tf32x3::layer_heads_kernel<false, true, true>
+                                : tf32x3::layer_heads_kernel<false, true, false>)
+                       : (fixed ? tf32x3::layer_heads_kernel<false, false, true>
+                                : tf32x3::layer_heads_kernel<false, false, false>);
   cudaError_t err = ptx::allow_dynamic_smem(heads, D.total);
   if (err != cudaSuccess) return err;
   const int x_vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;

@@ -1,6 +1,6 @@
 // The fused IPA layer's epilogue, shared by its kernels (launch 1 of both
 // dtype routes, ipa_fused_layer_bf16.cuh and ipa_fused_layer_f32.cuh, and
-// the long-patch attention kernel of ipa_fused_layer.cu): from a warp's
+// the long-patch attention kernels of ipa_fused_layer.cu): from a warp's
 // weighted sums [out_s | out_p] to the head's features [out_s | loc | nrm]
 // in feat, through the inverse frames and the point norms; with DIR (the
 // official DiffAb block's point directions) [out_s | loc | nrm | dir],
@@ -79,25 +79,28 @@ __device__ __forceinline__ void write_features(const float* ot, int rstr, int cs
 // same expressions as write_features, so the same values; for the
 // one-pass attention kernel (ipa_fused_layer.cu), where write_features'
 // per-column lanes, each recomputing a row's rotation for every column,
-// took a fifth of the block's time.  Consecutive lanes write consecutive
-// columns of a row (points pp of one coordinate, scalars c).
+// took a fifth of the block's time, and the float32 launch 1 at L <= 128
+// (feature c of row r at ot[r rstr + c cstr]).  Consecutive lanes write
+// consecutive columns of a row (points pp of one coordinate, scalars c).
 template <bool DIR = false>
 __device__ __forceinline__ void write_features_by_item(const float* ot, int rstr,
                                                        const float* rs, const float* tr,
                                                        int rows, int ds, int p, int FH,
                                                        float* __restrict__ feat,
-                                                       size_t fstride, int lane) {
+                                                       size_t fstride, int lane,
+                                                       int cstr = 1) {
   const int pc = ds + (DIR ? 7 : 4) * p, ns = ds + FH - pc;  // scalar and pad columns
   for (int it = lane; it < rows * ns; it += 32) {
     const int r = it / ns, c0 = it - r * ns, c = c0 < ds ? c0 : c0 - ds + pc;
-    feat[r * fstride + c] = c0 < ds ? ot[r * rstr + c] : 0.f;
+    feat[r * fstride + c] = c0 < ds ? ot[r * rstr + c * cstr] : 0.f;
   }
   for (int it = lane; it < rows * p; it += 32) {
     const int r = it / p, pp = it - r * p;
     const float* orr = ot + r * rstr;
     const float* R = rs + r * 9;
-    const float d0 = orr[ds + pp] - tr[r * 3], d1 = orr[ds + p + pp] - tr[r * 3 + 1],
-                d2 = orr[ds + 2 * p + pp] - tr[r * 3 + 2];
+    const float d0 = orr[(ds + pp) * cstr] - tr[r * 3],
+                d1 = orr[(ds + p + pp) * cstr] - tr[r * 3 + 1],
+                d2 = orr[(ds + 2 * p + pp) * cstr] - tr[r * 3 + 2];
     const float l0 = d0 * R[0] + d1 * R[1] + d2 * R[2];
     const float l1 = d0 * R[3] + d1 * R[4] + d2 * R[5];
     const float l2 = d0 * R[6] + d1 * R[7] + d2 * R[8];
